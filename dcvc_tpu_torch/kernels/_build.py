@@ -1,0 +1,53 @@
+"""Build a CUDA source of `csrc/` into a shared library with nvcc at first
+use and load it with ctypes.
+
+The library lands in `dcvc_tpu_torch/_build/` (listed in .gitignore),
+named after the source's content hash, so an edited source rebuilds and an
+unchanged one is built once per checkout.  Target: sm_90a (Hopper).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(source):
+    """Path of the built library for csrc/<source> at its current content."""
+    with open(os.path.join(CSRC, source), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
+
+
+def load_library(source):
+    """Build csrc/<source> if needed and return the loaded ctypes.CDLL.
+    The compiler's resource report (-Xptxas -v) is kept beside the
+    library as <name>.log."""
+    lib = library_path(source)
+    if not os.path.exists(lib):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp, os.path.join(CSRC, source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source}:\n{res.stderr}")
+        with open(os.path.splitext(lib)[0] + ".log", "w") as f:
+            f.write(res.stderr)
+        os.replace(tmp, lib)
+    return ctypes.CDLL(lib)

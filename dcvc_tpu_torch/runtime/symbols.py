@@ -1,0 +1,53 @@
+"""Symbol compaction for the inference runtime (counterpart of
+dcvc_tpu/runtime/symbols.py).
+
+The JAX package compacts with a stable sort because scatter is slow on a
+TPU.  Here compaction is a boolean-mask `nonzero` and expansion an index
+scatter, in the same stable order: coded candidates first, in candidate
+order, then the skipped ones.  That order is the stream's symbol order.
+"""
+
+import torch
+
+
+def compact_idx(idx_u8, cond):
+    """Compact CDF indexes + original positions.
+
+    idx_u8, cond: flat (N,).  Returns (packed_idx u8, packed_pos i32,
+    count i32): the first `count` entries of packed_idx are the coded
+    symbols' indexes in stable order; packed_pos[j] is entry j's original
+    position (for ALL j, coded then skipped, stable)."""
+    pos = torch.cat([torch.nonzero(cond).squeeze(1),
+                     torch.nonzero(~cond).squeeze(1)])
+    count = cond.sum(dtype=torch.int32)
+    return idx_u8[pos], pos.to(torch.int32), count
+
+
+def compact_vals(vals, cond):
+    """Compact a value buffer (same stable order as compact_idx)."""
+    return torch.cat([vals[cond], vals[~cond]])
+
+
+def expand_from_pos(packed_pos, padded, n):
+    """Place decoded symbols back on the candidate grid.
+
+    packed_pos: (N,) permutation from compact_idx.  padded: (cap,) int8,
+    decoded symbols in entries [0, count), zeros after.  Returns flat
+    (N,) with decoded values at coded positions, zero elsewhere."""
+    cap = padded.shape[0]
+    if cap < n:
+        padded = torch.cat([padded, padded.new_zeros(n - cap)])
+    elif cap > n:
+        padded = padded[:n]
+    dense = torch.empty_like(padded)
+    dense[packed_pos.long()] = padded
+    return dense
+
+
+def quantize_candidate(y_c, means_c, cond):
+    """Encoder-side candidate-domain quantization: round residual (half to
+    even), zero where not coded, clamp to int8.
+    y_c, means_c: (1, h2, w2, C); cond: flat (N,)."""
+    y_q = torch.round(y_c.float() - means_c)
+    y_q = torch.where(cond.reshape(y_q.shape), y_q, 0.0)
+    return torch.clamp(y_q, -128.0, 127.0).to(torch.int8)
