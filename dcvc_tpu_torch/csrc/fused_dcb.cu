@@ -1,7 +1,9 @@
 // Fused DepthConvBlock for Hopper (sm_90a), bf16 in and out, f32 sums.
 //
-// Replaces the TPU kernel dcvc_tpu/kernels/fused_dcb.py::_dcb_kernel
-// (launched by _fused_dcb_stacked, entry point fused_dcb), S = 1 form:
+// Replaces the TPU kernel dcvc_tpu/kernels/fused_dcb.py::_dcb_kernel in
+// both of its forms: one block (entry fused_dcb, S = 1) and S independent
+// blocks with stacked weights (_fused_dcb_stacked via fused_dcb_stacked,
+// the DMC-HTS recon heads, S = 4 and 8).  Per block:
 //
 //   [adaptor 1x1] -> dc_in 1x1 -> WSiLU -> zero h outside the image
 //   -> depthwise 3x3 + bias -> dc_out 1x1 + residual (out1, f32)
@@ -18,23 +20,32 @@
 // 1080p frame, against ~1.5 KB of activation traffic per pixel, far above
 // the card's ~295 FLOP/byte balance point: the work belongs on the tensor
 // cores, and what limits a tile is how often it re-reads the weights
-// (<= 3.7 MB, L2-resident) for how many pixels.
+// (<= 9.5 MB at C = I = 768, L2-resident) for how many pixels.  The second
+// bound is shared memory: a block may hold 227 KB (232,448 B), and the
+// TPU kernel keeps (TH + 2) whole rows in ~12 MB of VMEM.
 //
-// Design: two launches, because one tile's working set does not fit a
-// block's 227 KB of shared memory at C = I = 512 (the TPU kernel holds
-// whole rows in ~12 MB of VMEM).  Both run 16 warps per block, one block
-// per SM, so that the warps of a sub-partition hide each other's latency.
-//  * dc launch: a TH x TW output tile (8x8, or 4x8 where 8x8 does not fit)
-//    plus a 1-pixel halo.  The adaptor and dc_in run on the halo too (the
-//    3x3 stencil needs h there); dc_in goes through I in 64-wide chunks,
-//    each chunk's h living only in shared memory until the depthwise conv
-//    has consumed it.  Writes out1 (f32) and, for an adapted shortcut, the
-//    adapted x.
-//  * FFN launch: 128 pixels per block (64 where C + I > 768).  For each
-//    64-wide slice of I it runs the four chunk matmuls with their
-//    accumulators in registers, applies WSiLU and sums them, so only the
-//    I-wide bf16 sum reaches shared memory; then ffn_out and the
-//    residuals.  Each block reads the FFN weights once for its pixels.
+// Design: up to three launches per call, each with the stack entry as
+// blockIdx.y, so S blocks cost one launch of each kind, not S:
+//  * adaptor launch (only where the block has an adaptor): a tiled GEMM,
+//    xa = bf16(x @ wa + ba), 128 x 64 outputs per block, both operands
+//    streaming through 32-deep slabs (44.5 KB of shared memory whatever
+//    Cin is; the HTS encoder's adaptor takes Cin = 2048).  The TPU kernel
+//    rounds the adaptor output to bf16 as well, so the pre-pass computes
+//    the same numbers, each pixel once instead of once per halo that
+//    holds it, and its output is also the adapted shortcut input.
+//  * dc launch: a TH x TW output tile (8x8, or 4x8 / 4x4 where 8x8 does
+//    not fit) plus a 1-pixel halo of the (adapted) C-wide input.  dc_in
+//    runs on the halo too (the 3x3 stencil needs h there) and goes
+//    through I in 64-wide chunks, each chunk's h living only in shared
+//    memory until the depthwise conv has consumed it.  Writes out1 (f32).
+//    At the HTS widths: C = 512 / I = 256 takes 195,008 B at 8x8,
+//    C = I = 512 227,776 B at 8x8, C = I = 768 186,368 B at 4x8.
+//  * FFN launch: 128 pixels per block where they fit, else 64, else 32
+//    (C = I = 768: 173,056 B).  For each 64-wide slice of I it runs the
+//    four chunk matmuls with their accumulators in registers, applies
+//    WSiLU and sums them, so only the I-wide bf16 sum reaches shared
+//    memory; then ffn_out and the residuals.  Each block reads the FFN
+//    weights once for its pixels.
 //  * Matmuls: mma.sync m16n8k16 bf16 -> f32.  A operands (activations)
 //    stay in shared memory and are read by ldmatrix; weights stream from
 //    L2 in slabs of 16-64 rows by cp.async, 3-4 slabs in flight, shared
@@ -42,9 +53,12 @@
 //    Rows are padded by 8 elements against bank conflicts.  Epilogues
 //    work on column pairs (bf16x2 / float2).  wgmma, TMA and persistence
 //    are left for later work.
+//  * Stacked form: weights carry a leading S and entry s finds its own by
+//    offset; scratch (xa, out1) is per entry.  The input's entry stride
+//    may be 0 (every entry reads the same x, as the recon trunk does).
 //  * No atomics and a fixed summation order: the same input gives the
 //    same bits on every run, which the codec's encoder/decoder contract
-//    needs.
+//    needs.  An entry's result does not depend on S or on its index.
 //
 // Plain C interface for ctypes; dcvc_fused_dcb returns cudaGetLastError().
 // Channel counts must be multiples of 64.
@@ -263,25 +277,26 @@ __device__ void block_gemm(const bf16* A, int lda, int m_tiles,
 #define DC_GEMM block_gemm<1, 1, 4, 1, 64, 3>
 constexpr int kDcStage = 3 * 64 * kLds;
 
-// The FFN launch takes ROWS pixels per block, 128 where shared memory
-// holds them and 64 otherwise; its ffn_in planes and ffn_out stream with
+// The FFN launch takes ROWS pixels per block: 128 where shared memory
+// holds them, else 64, else 32; its ffn_in planes and ffn_out stream with
 // slabs sized so that the stages fit beside the two activation buffers.
+// 64 and 32 rows share one plan (at 32 rows half the warps sit out the
+// products).
 template <int ROWS>
-struct Ffn;
-template <>
-struct Ffn<64> {
+struct Ffn {
+  static_assert(ROWS == 64 || ROWS == 32, "FFN blocks are 128, 64 or 32");
   static constexpr int kStage = 4 * 4 * 32 * kLds;  // >= 4 * 64 * kLds
   template <class Epi>
   __device__ static void in(const bf16* A, int lda, const bf16* B, int ldb,
                             size_t plane, int n0, int K, bf16* stage,
                             Epi&& epi) {
-    block_gemm<4, 1, 2, 1, 32, 4>(A, lda, 4, B, ldb, plane, n0, K, stage,
-                                  static_cast<Epi&&>(epi));
+    block_gemm<4, 1, 2, 1, 32, 4>(A, lda, ROWS / 16, B, ldb, plane, n0, K,
+                                  stage, static_cast<Epi&&>(epi));
   }
   template <class Epi>
   __device__ static void out(const bf16* A, int lda, const bf16* B, int ldb,
                              int n0, int K, bf16* stage, Epi&& epi) {
-    block_gemm<1, 1, 2, 1, 64, 4>(A, lda, 4, B, ldb, 0, n0, K, stage,
+    block_gemm<1, 1, 2, 1, 64, 4>(A, lda, ROWS / 16, B, ldb, 0, n0, K, stage,
                                   static_cast<Epi&&>(epi));
   }
 };
@@ -305,40 +320,145 @@ struct Ffn<128> {
 
 __host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
 
+// -------------------------------------------------------- adaptor launch
+
+// xa = bf16(x @ wa + ba) per entry: (M x K) @ (K x N), 128 x 64 outputs
+// per block, 8 warps of 32 x 32.  x and wa stream through 32-deep slabs,
+// 3 in flight (cp.async); rows past M read as zeros and are not stored.
+// A block's column tile varies fastest, so the blocks that share an x
+// slab run together and read it from L2.
+constexpr int kAdThreads = 256;
+constexpr int kAdBM = 128, kAdBN = 64, kAdBK = 32, kAdStages = 3;
+constexpr int kAdLdA = kAdBK + kPad, kAdLdB = kAdBN + kPad;
+
+struct AdaptorParams {
+  const bf16* x; size_t x_stride;  // (S, M, K), entry stride in elements
+  const bf16* wa; const bf16* ba;  // (S, K, N), (S, N)
+  bf16* xa;                        // (S, M, N)
+  int M, K, N;
+};
+
+__global__ void __launch_bounds__(kAdThreads) adaptor_kernel(
+    const AdaptorParams p) {
+  __shared__ __align__(128) bf16 As[kAdStages][kAdBM * kAdLdA];
+  __shared__ __align__(128) bf16 Bs[kAdStages][kAdBK * kAdLdB];
+  const int s = blockIdx.y;
+  const int n_tiles = p.N / kAdBN;
+  const int m0 = (blockIdx.x / n_tiles) * kAdBM;
+  const int n0 = (blockIdx.x % n_tiles) * kAdBN;
+  const bf16* x = p.x + s * p.x_stride;
+  const bf16* wa = p.wa + (size_t)s * p.K * p.N;
+  const bf16* ba = p.ba + (size_t)s * p.N;
+  bf16* xa = p.xa + (size_t)s * p.M * p.N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
+
+  const int nk = p.K / kAdBK;
+  auto load = [&](int kt) {
+    if (kt < nk) {
+      bf16* a = As[kt % kAdStages];
+      bf16* b = Bs[kt % kAdStages];
+      const int k0 = kt * kAdBK;
+      constexpr int kVa = kAdBK / 8, kVb = kAdBN / 8;
+      for (int e = threadIdx.x; e < kAdBM * kVa; e += kAdThreads) {
+        const int r = e / kVa, v = e % kVa;
+        bf16* dst = a + r * kAdLdA + v * 8;
+        if (m0 + r < p.M)
+          cp_async16(dst, x + (size_t)(m0 + r) * p.K + k0 + v * 8);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+      for (int e = threadIdx.x; e < kAdBK * kVb; e += kAdThreads) {
+        const int r = e / kVb, v = e % kVb;
+        cp_async16(b + r * kAdLdB + v * 8,
+                   wa + (size_t)(k0 + r) * p.N + n0 + v * 8);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+
+#pragma unroll
+  for (int kt = 0; kt < kAdStages - 1; ++kt) load(kt);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kAdStages - 2>();
+    __syncthreads();  // slab kt has landed; slab kt - 1 is consumed
+    load(kt + kAdStages - 1);
+    const bf16* a = As[kt % kAdStages];
+    const bf16* b = Bs[kt % kAdStages];
+#pragma unroll
+    for (int kk = 0; kk < kAdBK; kk += 16) {
+      uint32_t fa[2][4], fb[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(fa[mi], a + (wm + mi * 16 + (lane & 15)) * kAdLdA + kk +
+                            (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+        ldsm_x4_t(fb[nj], b + (kk + (lane & 15)) * kAdLdB + wn + nj * 16 +
+                              (lane >> 4) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          mma_bf16(acc[mi][2 * nj], fa[mi], fb[nj][0], fb[nj][1]);
+          mma_bf16(acc[mi][2 * nj + 1], fa[mi], fb[nj][2], fb[nj][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm + mi * 16 + g + h * 8;
+        const int col = n0 + wn + ni * 8 + 2 * t;
+        if (row >= p.M) continue;
+        const float2 bb = f32x2(ba + col);
+        store2(xa + (size_t)row * p.N + col, acc[mi][ni][2 * h] + bb.x,
+               acc[mi][ni][2 * h + 1] + bb.y);
+      }
+}
+
 // ------------------------------------------------------------- dc launch
 
 struct DcParams {
-  const bf16* x;                   // (H, W, Cin)
-  const bf16* wa; const bf16* ba;  // (Cin, C), (C) or null: no adaptor
-  const bf16* w1; const bf16* b1;  // (C, I), (I)
-  const bf16* wd; const bf16* bd;  // (3, 3, I), (I)
-  const bf16* w2; const bf16* b2;  // (I, C), (C)
-  float* out1;                     // (H, W, C)
-  bf16* xa;                        // (H, W, C) adapted x, or null
-  int H, W, Cin, C, I, TH, TW;
+  const bf16* x; size_t x_stride;  // (S, H, W, C) dc input: x or adapted x
+  const bf16* w1; const bf16* b1;  // (S, C, I), (S, I)
+  const bf16* wd; const bf16* bd;  // (S, 3, 3, I), (S, I)
+  const bf16* w2; const bf16* b2;  // (S, I, C), (S, C)
+  float* out1;                     // (S, H, W, C)
+  int H, W, C, I, TH, TW;
 };
 
 // Shared-memory plan of the dc launch, identical on host and device:
 //   tables  image pixel of each halo row (-1 outside), and image pixel and
 //           halo row of each output pixel (ints)
-//   X  (Mh x Cin+8)   x halo
-//   XA (Mh x C+8)     adapted x halo (adaptor only; X serves otherwise)
+//   X  (Mh x C+8)     input halo
 //   Hc (Mh x 64+8)    one 64-wide chunk of h on the halo
 //   D  (P x I+8)      depthwise output
 //   stage             weight slabs
 struct DcLayout {
-  int Mh, P, ldx, ldc, ldi;
-  size_t x, xa, hc, d;  // bf16 offsets past the tables
-  __host__ __device__ DcLayout(int TH, int TW, int Cin, int C, int I,
-                               bool adaptor) {
+  int Mh, P, ldx, ldi;
+  size_t x, hc, d;  // bf16 offsets past the tables
+  __host__ __device__ DcLayout(int TH, int TW, int C, int I) {
     Mh = round16((TH + 2) * (TW + 2));
     P = TH * TW;
-    ldx = Cin + kPad;
-    ldc = C + kPad;
+    ldx = C + kPad;
     ldi = I + kPad;
     x = 0;
-    xa = x + (size_t)Mh * ldx;
-    hc = xa + (adaptor ? (size_t)Mh * ldc : 0);
+    hc = x + (size_t)Mh * ldx;
     d = hc + (size_t)Mh * kLds;
   }
   __host__ __device__ size_t table_bytes() const {
@@ -352,18 +472,27 @@ struct DcLayout {
 
 __global__ void __launch_bounds__(kThreads, 1) dc_kernel(const DcParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const bool adaptor = p.wa != nullptr;
-  const DcLayout L(p.TH, p.TW, p.Cin, p.C, p.I, adaptor);
+  const DcLayout L(p.TH, p.TW, p.C, p.I);
   int* halo_pix = reinterpret_cast<int*>(smem_raw);  // per halo row
   int* q_pix = halo_pix + L.Mh;                       // per output pixel
   int* q_row = q_pix + L.P;                           // its halo row
   bf16* sm = reinterpret_cast<bf16*>(smem_raw + L.table_bytes());
   bf16* X = sm + L.x;
-  bf16* XA = adaptor ? sm + L.xa : X;
-  const int ldxa = adaptor ? L.ldc : L.ldx;
   bf16* Hc = sm + L.hc;
   bf16* D = sm + L.d;
   bf16* stage = sm + L.stage();
+
+  // this block's stack entry
+  const int s = blockIdx.y;
+  const size_t ci = (size_t)p.C * p.I;
+  const bf16* x = p.x + s * p.x_stride;
+  const bf16* w1 = p.w1 + s * ci;
+  const bf16* b1 = p.b1 + (size_t)s * p.I;
+  const bf16* wd = p.wd + (size_t)s * 9 * p.I;
+  const bf16* bd = p.bd + (size_t)s * p.I;
+  const bf16* w2 = p.w2 + s * ci;
+  const bf16* b2 = p.b2 + (size_t)s * p.C;
+  float* out1 = p.out1 + (size_t)s * p.H * p.W * p.C;
 
   const int HWd = p.TW + 2;  // halo tile width
   const int tiles_w = (p.W + p.TW - 1) / p.TW;
@@ -382,38 +511,27 @@ __global__ void __launch_bounds__(kThreads, 1) dc_kernel(const DcParams p) {
   }
   __syncthreads();
 
-  // 0. x halo -> X, zeros outside the image
-  const int vec = p.Cin / 8;
+  // 0. input halo -> X, zeros outside the image
+  const int vec = p.C / 8;
   for (int e = threadIdx.x; e < L.Mh * vec; e += kThreads) {
     const int r = e / vec, v = e % vec;
     const int pix = halo_pix[r];
     uint4 val = make_uint4(0, 0, 0, 0);
     if (pix >= 0)
-      val = reinterpret_cast<const uint4*>(p.x + (size_t)pix * p.Cin)[v];
+      val = reinterpret_cast<const uint4*>(x + (size_t)pix * p.C)[v];
     reinterpret_cast<uint4*>(X + (size_t)r * L.ldx)[v] = val;
   }
   __syncthreads();
 
-  // 1. adaptor: XA = bf16(X @ wa + ba)
-  if (adaptor) {
-    for (int n0 = 0; n0 < p.C; n0 += kChunk)
-      DC_GEMM(X, L.ldx, L.Mh / 16, p.wa, p.C, 0, n0, p.Cin, stage,
-              [&](int r, int n, const float* v0, const float* v1) {
-                const float2 b = f32x2(p.ba + n);
-                store2(XA + (size_t)r * ldxa + n, v0[0] + b.x, v1[0] + b.y);
-              });
-    __syncthreads();
-  }
-
-  // 2. per 64-wide chunk of I: h = bf16(wsilu(XA @ w1 + b1)), zero outside
+  // 1. per 64-wide chunk of I: h = bf16(wsilu(X @ w1 + b1)), zero outside
   //    the image (the dw conv's zero padding lives in h); then the
   //    depthwise 3x3: D = bf16(sum_{dy,dx} h * wd + bd), dy-major order.
   //    A thread keeps one channel of the chunk and its 9 taps.
   const int c = threadIdx.x % kChunk;
   for (int i0 = 0; i0 < p.I; i0 += kChunk) {
-    DC_GEMM(XA, ldxa, L.Mh / 16, p.w1, p.I, 0, i0, p.C, stage,
+    DC_GEMM(X, L.ldx, L.Mh / 16, w1, p.I, 0, i0, p.C, stage,
             [&](int r, int n, const float* v0, const float* v1) {
-              const float2 b = f32x2(p.b1 + n);
+              const float2 b = f32x2(b1 + n);
               const bool in = halo_pix[r] >= 0;
               store2(Hc + (size_t)r * kLds + n - i0,
                      in ? wsilu(v0[0] + b.x) : 0.0f,
@@ -422,8 +540,8 @@ __global__ void __launch_bounds__(kThreads, 1) dc_kernel(const DcParams p) {
     __syncthreads();
     float wk[9];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) wk[k] = f32(p.wd[k * p.I + i0 + c]);
-    const float bias = f32(p.bd[i0 + c]);
+    for (int k = 0; k < 9; ++k) wk[k] = f32(wd[k * p.I + i0 + c]);
+    const float bias = f32(bd[i0 + c]);
     for (int q = threadIdx.x / kChunk; q < L.P; q += kThreads / kChunk) {
       const bf16* hq = Hc + (size_t)(q_row[q] - HWd - 1) * kLds + c;
       float d = 0.0f;
@@ -440,32 +558,27 @@ __global__ void __launch_bounds__(kThreads, 1) dc_kernel(const DcParams p) {
     __syncthreads();
   }
 
-  // 3. dc_out: out1 = (D @ w2 + b2) + x (f32); the adapted x of the tile
-  //    goes out too when the shortcut needs it
+  // 2. dc_out: out1 = (D @ w2 + b2) + x (f32)
   for (int n0 = 0; n0 < p.C; n0 += kChunk)
-    DC_GEMM(D, L.ldi, L.P / 16, p.w2, p.C, 0, n0, p.I, stage,
+    DC_GEMM(D, L.ldi, L.P / 16, w2, p.C, 0, n0, p.I, stage,
             [&](int q, int n, const float* v0, const float* v1) {
               const int pix = q_pix[q];
               if (pix < 0) return;
-              const bf16* xq = XA + (size_t)q_row[q] * ldxa + n;
-              const float2 x2 = f32x2(xq), b = f32x2(p.b2 + n);
-              const size_t o = (size_t)pix * p.C + n;
-              *reinterpret_cast<float2*>(p.out1 + o) =
+              const float2 x2 = f32x2(X + (size_t)q_row[q] * L.ldx + n);
+              const float2 b = f32x2(b2 + n);
+              *reinterpret_cast<float2*>(out1 + (size_t)pix * p.C + n) =
                   make_float2((v0[0] + b.x) + x2.x, (v1[0] + b.y) + x2.y);
-              if (p.xa)
-                *reinterpret_cast<bf16x2*>(p.xa + o) =
-                    *reinterpret_cast<const bf16x2*>(xq);
             });
 }
 
 // ------------------------------------------------------------ FFN launch
 
 struct FfnParams {
-  const float* out1;               // (HW, C)
-  const bf16* xs;                  // (HW, C) shortcut input, or null
-  const bf16* w3; const bf16* b3;  // (4, C, I) j-major, (4, I)
-  const bf16* w4; const bf16* b4;  // (I, C), (C)
-  bf16* out;                       // (HW, C)
+  const float* out1;               // (S, HW, C)
+  const bf16* xs; size_t xs_stride;  // (S, HW, C) shortcut input, or null
+  const bf16* w3; const bf16* b3;  // (S, 4, C, I) j-major, (S, 4, I)
+  const bf16* w4; const bf16* b4;  // (S, I, C), (S, C)
+  bf16* out;                       // (S, HW, C)
   int HW, C, I;
 };
 
@@ -485,13 +598,24 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_kernel(const FfnParams p) {
   bf16* stage = S + (size_t)ROWS * ldi;
   const int p0 = blockIdx.x * ROWS;
 
+  // this block's stack entry
+  const int s = blockIdx.y;
+  const size_t entry = (size_t)p.HW * p.C;
+  const float* out1 = p.out1 + s * entry;
+  const bf16* xs = p.xs ? p.xs + s * p.xs_stride : nullptr;
+  const bf16* w3 = p.w3 + (size_t)s * 4 * p.C * p.I;
+  const bf16* b3 = p.b3 + (size_t)s * 4 * p.I;
+  const bf16* w4 = p.w4 + (size_t)s * p.I * p.C;
+  const bf16* b4 = p.b4 + (size_t)s * p.C;
+  bf16* out = p.out + s * entry;
+
   // 0. A = bf16(out1) of the block's pixels, zeros past the image
   const int vec = p.C / 4;
   for (int e = threadIdx.x; e < ROWS * vec; e += kThreads) {
     const int r = e / vec, v = e % vec;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
     if (p0 + r < p.HW)
-      f = reinterpret_cast<const float4*>(p.out1 + (size_t)(p0 + r) * p.C)[v];
+      f = reinterpret_cast<const float4*>(out1 + (size_t)(p0 + r) * p.C)[v];
     bf16* dst = A + (size_t)r * ldc + v * 4;
     store2(dst, f.x, f.y);
     store2(dst + 2, f.z, f.w);
@@ -501,12 +625,12 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_kernel(const FfnParams p) {
   // 1. S = bf16(sum_j wsilu(A @ w3[j] + b3[j])), j = 0..3 in order, one
   //    64-wide slice of I at a time
   for (int i0 = 0; i0 < p.I; i0 += kChunk)
-    Ffn<ROWS>::in(A, ldc, p.w3, p.I, (size_t)p.C * p.I, i0, p.C, stage,
+    Ffn<ROWS>::in(A, ldc, w3, p.I, (size_t)p.C * p.I, i0, p.C, stage,
                   [&](int r, int n, const float* v0, const float* v1) {
                   float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
                   for (int j = 0; j < 4; ++j) {
-                    const float2 b = f32x2(p.b3 + j * p.I + n);
+                    const float2 b = f32x2(b3 + j * p.I + n);
                     const float f0 = wsilu(v0[j] + b.x);
                     const float f1 = wsilu(v1[j] + b.y);
                     s0 = j == 0 ? f0 : s0 + f0;
@@ -518,37 +642,55 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_kernel(const FfnParams p) {
 
   // 2. out = bf16((S @ w4 + b4) + out1 [+ x])
   for (int n0 = 0; n0 < p.C; n0 += kChunk)
-    Ffn<ROWS>::out(S, ldi, p.w4, p.C, n0, p.I, stage,
+    Ffn<ROWS>::out(S, ldi, w4, p.C, n0, p.I, stage,
                    [&](int r, int n, const float* v0, const float* v1) {
                    const int pix = p0 + r;
                    if (pix >= p.HW) return;
                    const size_t o = (size_t)pix * p.C + n;
-                   const float2 b = f32x2(p.b4 + n);
-                   const float2 r1 = *reinterpret_cast<const float2*>(p.out1 + o);
+                   const float2 b = f32x2(b4 + n);
+                   const float2 r1 = *reinterpret_cast<const float2*>(out1 + o);
                    float y0 = (v0[0] + b.x) + r1.x, y1 = (v1[0] + b.y) + r1.y;
-                   if (p.xs) {
-                     const float2 x2 = f32x2(p.xs + o);
+                   if (xs) {
+                     const float2 x2 = f32x2(xs + o);
                      y0 += x2.x;
                      y1 += x2.y;
                    }
-                   store2(p.out + o, y0, y1);
+                   store2(out + o, y0, y1);
                  });
+}
+
+template <int ROWS>
+cudaError_t launch_ffn(const FfnParams& f, int S, cudaStream_t s) {
+  const size_t smem = ffn_bytes<ROWS>(f.C, f.I);
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((f.HW + ROWS - 1) / ROWS, S);
+  ffn_kernel<ROWS><<<grid, kThreads, smem, s>>>(f);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// S blocks (S = 1: one DepthConvBlock) on x (S, H, W, Cin), entry stride
+// x_stride elements (0: every entry reads the same x).  Weights carry a
+// leading S.  out1 (S, H, W, C) f32 and, with an adaptor, xa (S, H, W, C)
+// bf16 are scratch; out (S, H, W, C) bf16.
 extern "C" int dcvc_fused_dcb(const void* x, const void* wa, const void* ba,
                               const void* w1, const void* b1, const void* wd,
                               const void* bd, const void* w2, const void* b2,
                               const void* w3, const void* b3, const void* w4,
                               const void* b4, void* out1, void* xa,
-                              void* out, int H, int W, int Cin, int C, int I,
-                              int shortcut, void* stream) {
-  if (Cin % kChunk || C % kChunk || I % kChunk || H < 1 || W < 1)
+                              void* out, int S, long long x_stride, int H,
+                              int W, int Cin, int C, int I, int shortcut,
+                              void* stream) {
+  if (Cin % kChunk || C % kChunk || I % kChunk || H < 1 || W < 1 || S < 1 ||
+      x_stride < 0)
     return cudaErrorInvalidValue;
   const bool adaptor = wa != nullptr;
   if (!adaptor && Cin != C) return cudaErrorInvalidValue;
-  if (shortcut && adaptor && xa == nullptr) return cudaErrorInvalidValue;
+  if (adaptor && xa == nullptr) return cudaErrorInvalidValue;
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -561,7 +703,7 @@ extern "C" int dcvc_fused_dcb(const void* x, const void* wa, const void* ba,
   int th = 0, tw = 0;
   size_t dc_smem = 0;
   for (const auto& t : kTiles) {
-    const size_t need = DcLayout(t[0], t[1], Cin, C, I, adaptor).bytes();
+    const size_t need = DcLayout(t[0], t[1], C, I).bytes();
     if (need <= (size_t)max_smem) {
       th = t[0];
       tw = t[1];
@@ -569,25 +711,47 @@ extern "C" int dcvc_fused_dcb(const void* x, const void* wa, const void* ba,
       break;
     }
   }
-  // FFN blocks of 128 pixels where they fit, else 64
-  const bool ffn128 = ffn_bytes<128>(C, I) <= (size_t)max_smem;
-  const int ffn_rows = ffn128 ? 128 : 64;
-  const size_t ffn_smem = ffn128 ? ffn_bytes<128>(C, I) : ffn_bytes<64>(C, I);
-  if (th == 0 || ffn_smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  // FFN blocks of 128 pixels where they fit, else 64, else 32
+  int ffn_rows = 0;
+  if (ffn_bytes<128>(C, I) <= (size_t)max_smem)
+    ffn_rows = 128;
+  else if (ffn_bytes<64>(C, I) <= (size_t)max_smem)
+    ffn_rows = 64;
+  else if (ffn_bytes<32>(C, I) <= (size_t)max_smem)
+    ffn_rows = 32;
+  if (th == 0 || ffn_rows == 0) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(dc_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dc_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ffn128 ? ffn_kernel<128> : ffn_kernel<64>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)ffn_smem);
-  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int HW = H * W;
+  const size_t entry = (size_t)HW * C;
+
+  if (adaptor) {
+    AdaptorParams a;
+    a.x = static_cast<const bf16*>(x);
+    a.x_stride = (size_t)x_stride;
+    a.wa = static_cast<const bf16*>(wa);
+    a.ba = static_cast<const bf16*>(ba);
+    a.xa = static_cast<bf16*>(xa);
+    a.M = HW;
+    a.K = Cin;
+    a.N = C;
+    const dim3 grid((C / kAdBN) * ((HW + kAdBM - 1) / kAdBM), S);
+    adaptor_kernel<<<grid, kAdThreads, 0, s>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  // the dc and FFN launches read the adapted x where there is an adaptor
+  const bf16* xin = adaptor ? static_cast<const bf16*>(xa)
+                            : static_cast<const bf16*>(x);
+  const size_t xin_stride = adaptor ? entry : (size_t)x_stride;
 
   DcParams d;
-  d.x = static_cast<const bf16*>(x);
-  d.wa = static_cast<const bf16*>(wa);
-  d.ba = static_cast<const bf16*>(ba);
+  d.x = xin;
+  d.x_stride = xin_stride;
   d.w1 = static_cast<const bf16*>(w1);
   d.b1 = static_cast<const bf16*>(b1);
   d.wd = static_cast<const bf16*>(wd);
@@ -595,36 +759,30 @@ extern "C" int dcvc_fused_dcb(const void* x, const void* wa, const void* ba,
   d.w2 = static_cast<const bf16*>(w2);
   d.b2 = static_cast<const bf16*>(b2);
   d.out1 = static_cast<float*>(out1);
-  d.xa = shortcut && adaptor ? static_cast<bf16*>(xa) : nullptr;
   d.H = H;
   d.W = W;
-  d.Cin = Cin;
   d.C = C;
   d.I = I;
   d.TH = th;
   d.TW = tw;
-  const int dc_grid = ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  const dim3 dc_grid(((H + th - 1) / th) * ((W + tw - 1) / tw), S);
   dc_kernel<<<dc_grid, kThreads, dc_smem, s>>>(d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   FfnParams f;
   f.out1 = static_cast<const float*>(out1);
-  f.xs = !shortcut ? nullptr
-                   : adaptor ? static_cast<const bf16*>(xa)
-                             : static_cast<const bf16*>(x);
+  f.xs = shortcut ? xin : nullptr;
+  f.xs_stride = xin_stride;
   f.w3 = static_cast<const bf16*>(w3);
   f.b3 = static_cast<const bf16*>(b3);
   f.w4 = static_cast<const bf16*>(w4);
   f.b4 = static_cast<const bf16*>(b4);
   f.out = static_cast<bf16*>(out);
-  f.HW = H * W;
+  f.HW = HW;
   f.C = C;
   f.I = I;
-  const int ffn_grid = (H * W + ffn_rows - 1) / ffn_rows;
-  if (ffn128)
-    ffn_kernel<128><<<ffn_grid, kThreads, ffn_smem, s>>>(f);
-  else
-    ffn_kernel<64><<<ffn_grid, kThreads, ffn_smem, s>>>(f);
-  return cudaGetLastError();
+  if (ffn_rows == 128) return launch_ffn<128>(f, S, s);
+  if (ffn_rows == 64) return launch_ffn<64>(f, S, s);
+  return launch_ffn<32>(f, S, s);
 }

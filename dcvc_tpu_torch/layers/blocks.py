@@ -5,8 +5,9 @@ Parameters keep the reference torch layout and names (conv weights
 `adaptor`), so a state_dict of the reference module tree loads as is.
 A 1x1 conv is a matmul on the channel dim; a 3x3 conv runs F.conv2d on
 an NCHW view.  Every DepthConvBlock goes through
-kernels.fused_dcb.fused_dcb: the hand-written CUDA kernel for tensors on
-the card, its plain PyTorch version for tensors on the CPU.
+kernels.fused_dcb.fused_dcb, and every StackedDCB through
+fused_dcb_stacked: the hand-written CUDA kernel for tensors on the card,
+its plain PyTorch version for tensors on the CPU.
 """
 
 import math
@@ -16,7 +17,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.shuffle import pixel_shuffle, pixel_unshuffle
-from ..kernels.fused_dcb import fused_dcb, prepare_operands, wsilu_f32
+from ..kernels.fused_dcb import fused_dcb, fused_dcb_stacked, \
+    prepare_operands, prepare_operands_stacked, wsilu_f32
 
 
 class WSiLU(nn.Module):
@@ -121,6 +123,53 @@ class DepthConvBlock(nn.Module):
             return fused_dcb(x, self.block_params(), shortcut=self.shortcut)
         return fused_dcb(x, None, shortcut=self.shortcut,
                          ops=self._kernel_operands())
+
+
+class StackedDCB:
+    """S independent DepthConvBlocks run as one stacked call (reference
+    per-frame recon decoders, video_model_ht.py:215-275; dcvc_tpu's
+    StackedDCB): on the card one launch of each kind of the stacked
+    kernel for all S entries, on the CPU the plain version per entry.
+
+    The blocks stay where the reference module tree keeps them (the recon
+    head's `conv1.{i}.{m}` / `conv2.{i}.{m}`), so a reference state_dict
+    loads as is; this object only holds them in stack order and adds no
+    parameters.  An entry has an adaptor iff in_ch != out_ch, no shortcut
+    and no dcb2.
+
+    Input and output: (S, 1, H, W, C); x may be one tensor expanded over
+    the stack (stride 0), which the kernel reads without copies."""
+
+    def __init__(self, blocks):
+        self.blocks = tuple(blocks)
+        for b in self.blocks:
+            assert not b.shortcut
+        self._ops_key = None
+
+    def stacked_params(self, lo=0, hi=None):
+        """block_params() of entries lo..hi-1, stacked on a leading axis."""
+        ps = [b.block_params() for b in self.blocks[lo:hi]]
+        return {k: torch.stack([p[k] for p in ps]) for k in ps[0]}
+
+    def _kernel_operands(self):
+        """prepare_operands_stacked of all S entries, kept until a
+        parameter is moved, cast or written."""
+        key = tuple((p.device, p.dtype, p.data_ptr(), p._version)
+                    for b in self.blocks for p in b.parameters())
+        if self._ops_key != key:
+            with torch.no_grad():
+                self._ops = prepare_operands_stacked(self.stacked_params())
+            self._ops_key = key
+        return self._ops
+
+    def __call__(self, x, rows=None):
+        """rows=(lo, hi): run entries lo..hi-1 only (x then has hi - lo
+        entries)."""
+        lo, hi = rows if rows is not None else (0, len(self.blocks))
+        if x.device.type == "cpu":
+            return fused_dcb_stacked(x, self.stacked_params(lo, hi))
+        ops = {k: v[lo:hi] for k, v in self._kernel_operands().items()}
+        return fused_dcb_stacked(x, None, ops=ops)
 
 
 class SubpelConv2x(nn.Module):

@@ -1,9 +1,9 @@
-"""Shared compression-model pieces of the DMCI inference path
-(counterpart of dcvc_tpu/models/common.py).
+"""Shared compression-model pieces of the DMCI and DMC-HTS inference
+paths (counterpart of dcvc_tpu/models/common.py).
 
-Only what the intra codec's inference needs: the prior split, the
-quant-step ladder init, and the z prior's parameter bank.  The training
-losses wait for the training port.
+Only what inference needs: the prior splits, the quant-step ladder init,
+and the z prior's parameter bank.  The training losses wait for the
+training port.
 """
 
 import numpy as np
@@ -32,6 +32,15 @@ def separate_prior_image(params):
     """(..., 2C) prior -> (scales, means), each (..., C)."""
     scales, means = params.chunk(2, dim=-1)
     return scales, means
+
+
+def separate_prior_video_infer(params):
+    """(..., 3C) fused video prior -> (q_enc, q_dec, scales, means): the
+    per-position quant step is bounded below by 0.5 in f32 (the
+    inference form of lower_bound) and q_enc is its reciprocal."""
+    quant_step, scales, means = params.chunk(3, dim=-1)
+    q_dec = torch.clamp_min(quant_step.float(), 0.5)
+    return 1.0 / q_dec, q_dec, scales, means
 
 
 def q_ladder_init(lo, hi, qp_num, ch, inverse=False):

@@ -1,3 +1,4 @@
 from .image_codec import DMCICodec
+from .video_codec import DMCHTCodec
 
-__all__ = ["DMCICodec"]
+__all__ = ["DMCICodec", "DMCHTCodec"]

@@ -41,6 +41,42 @@ def set_deterministic():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def check_qp(qp, qp_num):
+    # the host coder indexes its CDF banks by qp and does not check
+    if not 0 <= int(qp) < qp_num:
+        raise ValueError(f"qp {qp} out of range [0, {qp_num})")
+
+
+def make_coders(rans, model, skip_thres):
+    """Host rANS encoder and decoder holding the z CDF bank of `model`'s
+    bit_estimator_z (from its float32 parameters, whatever dtype the model
+    will run in) and the y bank of the Gaussian model."""
+    cfg = model.cfg
+    be = BitEstimator(cfg.qp_num, cfg.ch_z)
+    z_cdf, z_len = be.compute_cdf_bank(model.bit_estimator_z.bank(), 8)
+    y_cdf, y_len = GaussianConditional(skip_thres).compute_cdf_bank()
+    coders = rans.RansEncoder(), rans.RansDecoder()
+    for coder in coders:
+        coder.set_cdf(z_cdf, z_len, 0)
+        coder.set_cdf(y_cdf, y_len, 1)
+    return coders
+
+
+def grid_plan(h, w, ch_y, device):
+    """Grid sizes and candidate-domain masks for original size (h, w)."""
+    # frames pad to 16, so the latent grid may be odd (720p -> 45)
+    pad_r, pad_b = get_padding_size(h, w, 16)
+    yh, yw = (h + pad_b) // 16, (w + pad_r) // 16
+    cand = ((yh + 1) // 2, (yw + 1) // 2)
+    terms = phase_terms_4x(ch_y)
+    valid = [torch.from_numpy(phase_valid(yh, yw, terms_key(t))).to(device)
+             for t in terms]
+    return {"pad": (pad_b, pad_r), "y": (yh, yw),
+            "z": ((yh + 3) // 4, (yw + 3) // 4), "cand": cand,
+            "n_cand": cand[0] * cand[1] * ch_y, "terms": terms,
+            "valid": valid}
+
+
 class DMCICodec:
     """Holds the model, the CDF banks and the host rANS coders, and
     implements compress/decompress against the bitstream payload.
@@ -64,18 +100,8 @@ class DMCICodec:
         self._rans = rans
         model = DMCI(self.cfg)
         model.load_state_dict(params)
-        # the z CDF bank comes from the float32 parameters, whatever dtype
-        # the model runs in
-        be = BitEstimator(self.cfg.qp_num, self.cfg.ch_z)
-        z_cdf, z_len = be.compute_cdf_bank(model.bit_estimator_z.bank(), 8)
-        y_cdf, y_len = GaussianConditional(skip_thres).compute_cdf_bank()
+        self.encoder, self.decoder = make_coders(rans, model, skip_thres)
         self.model = model.to(self.device, dtype).eval()
-
-        self.encoder = rans.RansEncoder()
-        self.decoder = rans.RansDecoder()
-        for coder in (self.encoder, self.decoder):
-            coder.set_cdf(z_cdf, z_len, 0)
-            coder.set_cdf(y_cdf, y_len, 1)
         self._plans = {}
 
     @classmethod
@@ -91,27 +117,10 @@ class DMCICodec:
 
     # -------------------------------------------------------------- stages
 
-    def _check_qp(self, qp):
-        # the host coder indexes its CDF banks by qp and does not check
-        if not 0 <= int(qp) < self.cfg.qp_num:
-            raise ValueError(f"qp {qp} out of range [0, {self.cfg.qp_num})")
-
     def _plan(self, h, w):
-        """Grid sizes and candidate-domain masks for original size (h, w)."""
-        key = (h, w)
-        if key not in self._plans:
-            # frames pad to 16, so the latent grid may be odd (720p -> 45)
-            pad_r, pad_b = get_padding_size(h, w, 16)
-            yh, yw = (h + pad_b) // 16, (w + pad_r) // 16
-            terms = phase_terms_4x(self.cfg.ch_y)
-            valid = [torch.from_numpy(phase_valid(yh, yw, terms_key(t)))
-                     .to(self.device) for t in terms]
-            self._plans[key] = {
-                "pad": (pad_b, pad_r), "y": (yh, yw),
-                "z": ((yh + 3) // 4, (yw + 3) // 4),
-                "cand": ((yh + 1) // 2, (yw + 1) // 2),
-                "terms": terms, "valid": valid}
-        return self._plans[key]
+        if (h, w) not in self._plans:
+            self._plans[(h, w)] = grid_plan(h, w, self.cfg.ch_y, self.device)
+        return self._plans[(h, w)]
 
     def _build_idx(self, p, scales, step):
         """Candidate-domain scale indexes + skip conditions + their stable
@@ -174,7 +183,7 @@ class DMCICodec:
 
         Returns dict(bit_stream, x_hat, ec_parallel); x_hat is a float32
         tensor on the codec's device."""
-        self._check_qp(qp)
+        check_qp(qp, self.cfg.qp_num)
         x = torch.as_tensor(x).to(self.device, torch.float32)
         h, w = x.shape[1], x.shape[2]
         p = self._plan(h, w)
@@ -214,7 +223,7 @@ class DMCICodec:
     def decompress(self, bit_stream, qp, h, w, ec_part):
         """Returns dict(x_hat) with x_hat (1, h, w, 3) float32 in
         [-0.5, 0.5], a tensor on the codec's device."""
-        self._check_qp(qp)
+        check_qp(qp, self.cfg.qp_num)
         p = self._plan(h, w)
         ch_z, ch_y = self.cfg.ch_z, self.cfg.ch_y
         zh, zw = p["z"]

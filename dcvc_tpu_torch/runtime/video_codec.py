@@ -1,0 +1,288 @@
+"""DMC-HTS chunk-codec inference runtime (counterpart of the single-pass,
+means-only path of dcvc_tpu/runtime/video_codec.py).
+
+A chunk is frame_delay (8) frames concatenated on the channel axis,
+(1, H, W, 24).  The DPB is feature-domain: `ref_feature` (the intra
+frame's unshuffled pixels, the previous chunk's decoder feature, or after
+a reset the last frame's recon-head output) and `memory` (the temporal
+adaptor's state, None after a refresh).  compress(x, qp) turns a chunk
+into the same bit_stream payload as the JAX codec; decompress rebuilds
+the frames and the DPB from it.
+
+Bit-exactness (the enc/dec contract): both sides call the very same stage
+code (`_adaptor`, `_prior`, `_step`, `_final`, `_recon`) on the same device
+and type, and only exact integer tensors (z int8, y_q int8, CDF indexes)
+cross from one side to the other; see image_codec.py for the settings
+that keep every kernel deterministic.
+
+Single entropy pass (HTS priors emit means only): the fused prior gives
+every step's scale indexes and skip conditions at once.  They are
+concatenated in step order and compacted once; the encoder quantizes per
+step and packs (y_q << 8 | index) over the concatenation into one
+encode_y call, and the decoder makes one decode_y call and splits the
+symbols back by step.
+  enc:  adaptor -> analysis -> prior -> { quant_k -> step_k }*4 -> final
+  dec:  host z rANS -> adaptor -> prior -> host y rANS -> { step_k }*4
+        -> final -> recon
+"""
+
+import numpy as np
+import torch
+
+from ..core.masks import phase_merge, phase_split
+from ..core.padding import pad_replicate_nhwc
+from ..core.shuffle import pixel_unshuffle
+from ..entropy.gaussian import scale_to_index
+from ..models.dmc_ht import DMCHT, HTS_CONFIG
+from .image_codec import check_qp, grid_plan, make_coders, set_deterministic
+from .symbols import compact_idx, compact_vals, expand_from_pos, \
+    quantize_candidate
+
+STEPS = 4
+
+
+class DMCHTCodec:
+    """Holds the model, the CDF banks, the host rANS coders and the DPB,
+    and implements compress/decompress of one chunk against the bitstream
+    payload.
+
+    params: a state_dict of models.dmc_ht.DMCHT (reference key names).
+    The model runs in `dtype` on `device`; on a CUDA device every
+    DepthConvBlock goes through the fused CUDA kernel and every recon-head
+    stack through its stacked form, which take bfloat16 only."""
+
+    MAX_EC = 8
+
+    def __init__(self, params, cfg=None, skip_thres=0.0,
+                 dtype=torch.bfloat16, device="cuda"):
+        set_deterministic()
+        self.cfg = cfg or HTS_CONFIG
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.skip_thres = float(skip_thres)
+        # the host coder builds its library with g++ on first import
+        from .. import rans
+        self._rans = rans
+        model = DMCHT(self.cfg)
+        model.load_state_dict(params)
+        self.encoder, self.decoder = make_coders(rans, model, skip_thres)
+        self.model = model.to(self.device, dtype).eval()
+        self._plans = {}
+        self.clear_dpb()
+
+    @classmethod
+    def init_random(cls, generator=None, cfg=None, init_scale=1.0,
+                    **kwargs):
+        """Codec with seeded random weights drawn from `generator` (a CPU
+        torch.Generator; seed 0 when None).  init_scale < 1 damps the conv
+        kernels the JAX codec damps (flax leaves named `kernel`: every conv
+        weight outside the recon head), which keeps the untrained temporal
+        recurrence bounded."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        cfg = cfg or HTS_CONFIG
+        model = DMCHT(cfg)
+        model.reset_parameters(generator)
+        if init_scale != 1.0:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.endswith(".weight") and \
+                            not name.startswith("recon_head."):
+                        p.mul_(init_scale)
+        return cls(model.state_dict(), cfg=cfg, **kwargs)
+
+    # ------------------------------------------------------------ DPB state
+
+    def clear_dpb(self):
+        self.ref_feature = None
+        self.memory = None
+
+    @torch.inference_mode()
+    def add_ref_feature_from_frame(self, frame):
+        """frame: (1, H, W, 3) in [-0.5, 0.5] (e.g. the intra codec's
+        reconstruction).  Edge-pads it to 16 and 8x-unshuffles it into the
+        DPB seed feature, in the model dtype (video_model_ht.py:413-415)."""
+        frame = torch.as_tensor(frame).to(self.device, torch.float32)
+        pad_b, pad_r = self._plan(frame.shape[1], frame.shape[2])["pad"]
+        self.ref_feature = pixel_unshuffle(
+            pad_replicate_nhwc(frame, pad_b, pad_r).to(self.dtype), 8)
+        self.memory = None
+
+    # --------------------------------------------------------------- stages
+
+    def _plan(self, h, w):
+        if (h, w) not in self._plans:
+            self._plans[(h, w)] = grid_plan(h, w, self.cfg.ch_y, self.device)
+        return self._plans[(h, w)]
+
+    def _adaptor(self):
+        """Shared enc+dec: temporal feature adaptor -> (memory, ctx)."""
+        if self.memory is None:
+            return self.model.adaptor_i(self.ref_feature)
+        return self.model.adaptor_m(self.memory, self.ref_feature)
+
+    def _analysis(self, p, x, ctx, qp):
+        """Encoder-only: pad + analysis transform."""
+        pad_b, pad_r = p["pad"]
+        x = pad_replicate_nhwc(x, pad_b, pad_r).to(self.dtype)
+        y, z_int8 = self.model.analysis(x, ctx, qp)
+        return y.float(), z_int8
+
+    def _prior(self, p, z_int8, memory, qp):
+        """Shared enc+dec: fused prior + every step's candidate-domain
+        scale indexes and skip conditions, concatenated in step order and
+        compacted once."""
+        q_enc, q_dec, scales, means, ctx = self.model.prior0(
+            z_int8, memory, qp, *p["y"])
+        idxs, conds = [], []
+        for k in range(STEPS):
+            flat = phase_split(scales, p["terms"][k]).float().reshape(-1)
+            idxs.append(scale_to_index(flat).to(torch.uint8))
+            conds.append((flat > self.skip_thres) & p["valid"][k])
+        cond_all = torch.cat(conds)
+        packed_idx, packed_pos, count = compact_idx(torch.cat(idxs), cond_all)
+        return q_enc, q_dec, means, ctx, packed_idx, packed_pos, count, \
+            cond_all
+
+    def _enc_quant(self, p, step, y, q_enc, means, cond_all):
+        """Encoder-only: candidate-domain quantization of step `step`;
+        its conditions are that step's slice of the prior's."""
+        n = p["n_cand"]
+        terms = p["terms"][step]
+        y_c = phase_split(y * q_enc, terms)
+        m_c = phase_split(means, terms).float()
+        return quantize_candidate(y_c, m_c, cond_all[step * n:(step + 1) * n])
+
+    def _step(self, p, step, y_q, means, y_hat_so_far, ctx):
+        """Shared enc+dec: merge integer y_q + means into y_hat, then the
+        next step's means (None after the last step)."""
+        terms = p["terms"][step]
+        m_c = phase_split(means, terms).float()
+        y_hat_so_far = y_hat_so_far + phase_merge(
+            y_q.float() + m_c, terms, self.cfg.ch_y, *p["y"])
+        if step == STEPS - 1:
+            return y_hat_so_far, None
+        return y_hat_so_far, self.model.prior_step(ctx, y_hat_so_far,
+                                                   step + 1)
+
+    def _final(self, y_hat_so_far, q_dec, ctx, memory, qp, reset):
+        """Shared enc+dec: q_dec scale + decoder trunk -> feature, and the
+        DPB update (on a reset the new reference is the recon head's last
+        frame and the memory starts over)."""
+        feature = self.model.synthesis_feature(y_hat_so_far * q_dec, ctx, qp)
+        self.ref_feature = (self.model.reset_feature(feature) if reset
+                            else feature)
+        self.memory = None if reset else memory
+        return feature
+
+    def _recon(self, feature, qp, h, w):
+        """Shared enc (on request) + dec: recon heads -> (8, h, w, 3)."""
+        return self.model.recon_frames(feature, qp, h, w)
+
+    # --------------------------------------------------------------- encode
+
+    @torch.inference_mode()
+    def compress(self, x, qp, reset_feature_memory=False, recon=False):
+        """x: (1, H, W, 3 * frame_delay) float32 in [-0.5, 0.5], a numpy
+        array or a tensor.
+
+        Returns dict(bit_stream, x_hat, ec_parallel).  Like the reference
+        compress, the encoder keeps only the feature-domain DPB and does
+        not reconstruct frames: x_hat is None unless recon=True, which runs
+        the decoder's recon heads on the encoder's feature ((8, H, W, 3)
+        float32 on the codec's device, bit-identical to the decoder's)."""
+        check_qp(qp, self.cfg.qp_num)
+        if self.ref_feature is None:
+            raise ValueError("DPB empty: add a reference frame first")
+        x = torch.as_tensor(x).to(self.device, torch.float32)
+        h, w = x.shape[1], x.shape[2]
+        p = self._plan(h, w)
+        memory, ctx = self._adaptor()
+        y, z_int8 = self._analysis(p, x, ctx, qp)
+        q_enc, q_dec, means, spctx, packed_idx, _, count, cond_all = \
+            self._prior(p, z_int8, memory, qp)
+        y_hat = torch.zeros((1,) + p["y"] + (self.cfg.ch_y,),
+                            dtype=torch.float32, device=self.device)
+        y_qs = []
+        for k in range(STEPS):
+            y_q = self._enc_quant(p, k, y, q_enc, means, cond_all)
+            y_qs.append(y_q)
+            y_hat, means = self._step(p, k, y_q, means, y_hat, spctx)
+        packed_q = compact_vals(
+            torch.cat([q.to(torch.int16).reshape(-1) for q in y_qs]),
+            cond_all)
+        coded = (packed_q << 8) | (packed_idx.to(torch.int16) & 0xFF)
+        feature = self._final(y_hat, q_dec, ctx, memory, qp,
+                              reset_feature_memory)
+        x_hat = self._recon(feature, qp, h, w) if recon else None
+
+        total = int(count)
+        ec_parallel = min(self._rans.compute_ec_parallel(total), self.MAX_EC)
+        self.encoder.reset()
+        self.encoder.set_parallel(ec_parallel)
+        self.encoder.encode_y(coded[:total].cpu().numpy())
+        ch_z = self.cfg.ch_z
+        self.encoder.encode_z(z_int8.cpu().numpy().reshape(-1),
+                              int(qp) * ch_z, ch_z)
+        self.encoder.flush()
+        return {"bit_stream": self.encoder.get_encoded_stream(),
+                "x_hat": x_hat, "ec_parallel": ec_parallel}
+
+    def compress_sequence(self, chunks, qps, resets=None):
+        """compress() of each chunk in turn; returns the list of results
+        (the same streams as the serial calls).  No host/device overlap is
+        built in: the mask compaction (`nonzero`) already waits for the
+        device at every chunk."""
+        resets = resets or [False] * len(chunks)
+        return [self.compress(x, qp, rs)
+                for x, qp, rs in zip(chunks, qps, resets)]
+
+    # --------------------------------------------------------------- decode
+
+    @torch.inference_mode()
+    def decompress(self, bit_stream, qp, h, w, ec_part,
+                   reset_feature_memory=False):
+        """Returns dict(x_hat) with x_hat (8, h, w, 3) float32 in
+        [-0.5, 0.5], a tensor on the codec's device."""
+        check_qp(qp, self.cfg.qp_num)
+        if self.ref_feature is None:
+            raise ValueError("DPB empty: add a reference frame first")
+        p = self._plan(h, w)
+        ch_z, ch_y = self.cfg.ch_z, self.cfg.ch_y
+        zh, zw = p["z"]
+
+        dec = self.decoder
+        dec.set_parallel(ec_part)
+        dec.set_stream(bit_stream)
+        dec.decode_z(zh * zw * ch_z, int(qp) * ch_z, ch_z)
+        z_int8 = torch.from_numpy(
+            dec.get_decoded().reshape(1, zh, zw, ch_z)).to(self.device)
+
+        memory, ctx = self._adaptor()
+        q_enc, q_dec, means, spctx, packed_idx, packed_pos, count, _ = \
+            self._prior(p, z_int8, memory, qp)
+        c = int(count)
+        decoded = np.zeros(0, np.int8)
+        if c > 0:
+            dec.decode_y(packed_idx[:c].cpu().numpy())
+            decoded = dec.get_decoded()
+        y_qs = expand_from_pos(
+            packed_pos, torch.from_numpy(decoded).to(self.device),
+            STEPS * p["n_cand"]).reshape((STEPS, 1) + p["cand"] + (ch_y,))
+        y_hat = torch.zeros((1,) + p["y"] + (ch_y,), dtype=torch.float32,
+                            device=self.device)
+        for k in range(STEPS):
+            y_hat, means = self._step(p, k, y_qs[k], means, y_hat, spctx)
+        feature = self._final(y_hat, q_dec, ctx, memory, qp,
+                              reset_feature_memory)
+        return {"x_hat": self._recon(feature, qp, h, w)}
+
+    def decompress_sequence(self, streams, qps, h, w, ec_parts, resets=None):
+        """decompress() of each stream in turn; returns the list of x_hat
+        tensors (the same frames as the serial calls).  No host/device
+        overlap is built in: the next chunk's prior waits for the device
+        (`nonzero` in the compaction, the copy of its indexes to the host)
+        before the host decodes its symbols."""
+        resets = resets or [False] * len(streams)
+        return [self.decompress(bs, qp, h, w, ec, rs)["x_hat"]
+                for bs, qp, ec, rs in zip(streams, qps, ec_parts, resets)]

@@ -162,7 +162,8 @@ def test_copied_functions_source_equal(copy, original):
 
 def test_port_imports_no_jax():
     code = ("import sys, dcvc_tpu_torch, dcvc_tpu_torch.runtime.image_codec, "
-            "dcvc_tpu_torch.kernels.fused_dcb\n"
+            "dcvc_tpu_torch.runtime.video_codec, dcvc_tpu_torch.models.dmc_ht, "
+            "dcvc_tpu_torch.kernels.fused_dcb, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dcvc_tpu'))\n"
             "assert not bad, bad\n")

@@ -1,5 +1,6 @@
-"""The CUDA kernel of the port on the card: K1 (csrc/fused_dcb.cu) against
-its plain PyTorch version, and the wrapper's refusals.
+"""The CUDA kernel of the port on the card: K1 (csrc/fused_dcb.cu), one
+block and the stacked form, against its plain PyTorch versions, and the
+wrappers' refusals.
 
 Marked `cuda`; each test skips where torch sees no CUDA device.  This file
 imports nothing of JAX, so it also runs on the GPU machine, where
@@ -63,3 +64,86 @@ def test_cuda_wrapper_raises(cuda_device, ch, dtype, match):
     with pytest.raises(ValueError, match=match):
         blk(torch.zeros(1, 4, 4, ch, device=cuda_device, dtype=dtype))
     assert K1.fused_dcb.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,cin,c,inner", [
+    (9, 17, 2048, 512, 256),     # the HTS encoder's adaptor, Cin = 2048
+    (7, 13, 768, 768, 768),      # the HTS prior fusion, C = I = 768
+])
+def test_cuda_kernel_hts_widths(cuda_device, h, w, cin, c, inner):
+    """The one-block kernel at the HTS widths that need the adaptor
+    pre-pass and the 32-row FFN blocks."""
+    gen = torch.Generator().manual_seed(1)
+    blk = blocks.DepthConvBlock(cin, c, dcb2=inner < c)
+    blocks.lecun_init_(blk, gen)
+    blk = blk.to(cuda_device, torch.bfloat16)
+    x = torch.randn(1, h, w, cin, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
+    with torch.inference_mode():
+        out = blk(x)
+        torch.cuda.synchronize()
+        ref = K1.fused_dcb_reference(x, blk.block_params())
+    peak = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= peak * 2 ** -6
+
+
+def _stack(s, cin, c, device):
+    gen = torch.Generator().manual_seed(s)
+    mods = torch.nn.ModuleList(blocks.DepthConvBlock(cin, c)
+                               for _ in range(s))
+    for m in mods:
+        blocks.lecun_init_(m, gen)
+    return mods.to(device, torch.bfloat16), gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,cin,c,h,w,broadcast", [
+    (2, 128, 128, 5, 7, False),
+    (4, 256, 256, 9, 16, True),   # one x for every entry (stride 0)
+    (8, 256, 128, 17, 30, False),  # adaptor
+    (8, 192, 128, 4, 5, False),    # adaptor, Cin not a multiple of 128
+])
+def test_cuda_stacked_kernel_matches_plain(cuda_device, s, cin, c, h, w,
+                                          broadcast):
+    """The stacked kernel (one launch of each kind for S entries) against
+    its per-entry plain version, each entry within 2^-6 of its peak; and
+    rows= runs a sub-range of the stack to the same bits."""
+    mods, gen = _stack(s, cin, c, cuda_device)
+    stack = blocks.StackedDCB(mods)
+    if broadcast:
+        x = torch.randn(1, 1, h, w, cin, generator=gen).to(
+            cuda_device, torch.bfloat16).expand(s, 1, h, w, cin)
+    else:
+        x = torch.randn(s, 1, h, w, cin, generator=gen).to(
+            cuda_device, torch.bfloat16)
+    with torch.inference_mode():
+        n = K1.fused_dcb_stacked.launches
+        out = stack(x)
+        part = stack(x[s // 2:], rows=(s // 2, s))
+        torch.cuda.synchronize()
+        assert K1.fused_dcb_stacked.launches == n + 2
+        ref = K1.fused_dcb_stacked_reference(x, stack.stacked_params())
+    assert out.shape == ref.shape == (s, 1, h, w, c)
+    assert torch.equal(part, out[s // 2:])
+    for e in range(s):
+        peak = ref[e].float().abs().max().item()
+        err = (out[e].float() - ref[e].float()).abs().max().item()
+        assert err <= peak * 2 ** -6, e
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_wrapper_raises(cuda_device):
+    """A stacked shape the kernel does not take raises on the card: x with
+    a stack stride that is neither 0 nor one entry, and weights of
+    another stack size."""
+    mods, _ = _stack(2, 64, 64, cuda_device)
+    ops = blocks.StackedDCB(mods)._kernel_operands()
+    n = K1.fused_dcb_stacked.launches
+    big = torch.zeros(4, 1, 4, 4, 64, device=cuda_device,
+                      dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stack stride"):
+        K1.fused_dcb_stacked_launch(big[::2], ops)
+    with pytest.raises(ValueError, match="entries"):
+        K1.fused_dcb_stacked_launch(big[:3], ops)
+    assert K1.fused_dcb_stacked.launches == n

@@ -1,4 +1,5 @@
-"""Port parity, layers and the fused-DCB kernel's plain version:
+"""Port parity, layers and the fused-DCB kernel's plain versions (one
+block and the stacked form):
 dcvc_tpu_torch against the flax modules and the Pallas kernel (interpret
 mode) of dcvc_tpu, float32 on the CPU.
 
@@ -15,10 +16,13 @@ import pytest
 import torch
 
 from dcvc_tpu.kernels.fused_dcb import fused_dcb as jax_fused_dcb
+from dcvc_tpu.kernels.fused_dcb import \
+    fused_dcb_stacked as jax_fused_dcb_stacked
 from dcvc_tpu.layers import blocks as jblocks
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.layers import blocks
-from dcvc_tpu_torch.utils.jax_bridge import dmci_params_from_jax
+from dcvc_tpu_torch.utils.jax_bridge import dmci_params_from_jax, \
+    stacked_dcb_params_from_jax
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -163,3 +167,133 @@ def test_launch_refuses_cpu_tensors():
     ops = K1.prepare_operands(blocks.DepthConvBlock(16, 16).block_params())
     with pytest.raises(ValueError, match="CUDA"):
         K1.fused_dcb_launch(x, ops)
+
+
+def _stacked_modules(s, cin, cout):
+    return torch.nn.ModuleList(blocks.DepthConvBlock(cin, cout)
+                               for _ in range(s))
+
+
+@pytest.mark.parametrize("s,cin,cout,rows", [
+    (3, 32, 32, None),
+    (2, 48, 32, None),                       # adaptor
+    (8, 16, 16, (2, 6)),                     # rows: entries 2..5
+    (4, 32, 16, (0, 2)),                     # adaptor and rows
+])
+@pytest.mark.parametrize("h,w", [(8, 8), (5, 7)])
+def test_stacked_dcb_matches_flax(s, cin, cout, rows, h, w):
+    """StackedDCB over S DepthConvBlocks against the flax StackedDCB on
+    the same weights (split per entry by the bridge)."""
+    n = s if rows is None else rows[1] - rows[0]
+    x = _x((n, 1, h, w, cin))
+    jmod = jblocks.StackedDCB(s, cin, cout)
+    variables = jmod.init(jax.random.PRNGKey(3),
+                          jnp.asarray(_x((s, 1, h, w, cin))))
+    want = np.asarray(jmod.apply(variables, jnp.asarray(x), rows=rows))
+    mods = _stacked_modules(s, cin, cout)
+    mods.load_state_dict(stacked_dcb_params_from_jax(variables["params"]))
+    with torch.inference_mode():
+        got = blocks.StackedDCB(mods)(torch.from_numpy(x), rows=rows)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _stacked_kernel_params(p):
+    """flax StackedDCB params -> fused_dcb_stacked layout (numpy)."""
+    out = {"w1": p["dc_in_w"], "b1": p["dc_in_b"],
+           "wd": p["dc_dw_w"], "bd": p["dc_dw_b"],
+           "w2": p["dc_out_w"], "b2": p["dc_out_b"],
+           "w3": p["ffn_in_w"], "b3": p["ffn_in_b"],
+           "w4": p["ffn_out_w"], "b4": p["ffn_out_b"]}
+    if "adaptor_w" in p:
+        out["wa"], out["ba"] = p["adaptor_w"], p["adaptor_b"]
+    return {k: np.array(v, np.float32) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("s,cin,cout,h,w", [
+    (3, 128, 128, 8, 16),
+    (2, 256, 128, 4, 16),                    # adaptor
+])
+def test_fused_dcb_stacked_reference_matches_pallas(s, cin, cout, h, w):
+    """The stacked plain version against the Pallas kernel's stacked form
+    in interpret mode, on the stacked cases of tests/test_fused_dcb.py."""
+    block = jblocks.StackedDCB(s, cin, cout)
+    x = _x((s, 1, h, w, cin))
+    variables = block.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    params = _stacked_kernel_params(variables["params"])
+    want = np.asarray(jax_fused_dcb_stacked(jnp.asarray(x), params,
+                                            interpret=True))
+    got = K1.fused_dcb_stacked_reference(
+        torch.from_numpy(x), {k: torch.from_numpy(v)
+                              for k, v in params.items()})
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_prepare_operands_stacked_keeps_entries():
+    """The stacked operands are the per-entry operands, stacked."""
+    mods = _stacked_modules(3, 32, 16)
+    gen = torch.Generator().manual_seed(6)
+    for m in mods:
+        blocks.lecun_init_(m, gen)
+    stacked = K1.prepare_operands_stacked(
+        blocks.StackedDCB(mods).stacked_params())
+    for s, m in enumerate(mods):
+        one = K1.prepare_operands(m.block_params())
+        assert set(one) == set(stacked)
+        for k, v in one.items():
+            assert torch.equal(stacked[k][s], v), k
+
+
+def test_stacked_kernel_operands_follow_parameter_writes():
+    mods = _stacked_modules(2, 16, 16)
+    stack = blocks.StackedDCB(mods)
+    first = stack._kernel_operands()
+    assert stack._kernel_operands() is first
+    with torch.no_grad():
+        mods[1].ffn[2].bias.add_(1.0)
+    again = stack._kernel_operands()
+    assert again is not first
+    assert torch.equal(again["b4"][1], mods[1].ffn[2].bias)
+
+
+def test_stacked_launch_refuses_cpu_tensors():
+    mods = _stacked_modules(2, 64, 64)
+    ops = K1.prepare_operands_stacked(blocks.StackedDCB(mods).stacked_params())
+    x = torch.zeros(2, 1, 4, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        K1.fused_dcb_stacked_launch(x, ops)
+
+
+@pytest.mark.parametrize("kind,s,cin,cout,bcast", [
+    ("fused_dcb", 1, 128, 64, False),
+    ("fused_dcb_stacked", 4, 64, 64, True),     # one x for every entry
+    ("fused_dcb_stacked", 2, 128, 64, False),   # adaptor
+])
+def test_launch_log_records_launch_shapes(kind, s, cin, cout, bcast):
+    """perf_probe.LaunchLog (chip_smoke.py's record of the main path)
+    notes each launch's shape under its call, leaves the counting to the
+    wrapper (the CPU launch raises before it counts) and unwraps on exit."""
+    from dcvc_tpu_torch.perf_probe import Launch, LaunchLog, block_inputs
+    key = Launch(kind, s, 4, 8, cin, cout, cout, cin != cout, False, bcast)
+    x, p, run, ref = block_inputs(key, torch.Generator().manual_seed(0),
+                                  "cpu")
+    assert torch.equal(run(), ref(x, p))
+    launch = getattr(K1, f"{kind}_launch")
+    counter = getattr(K1, kind)
+    before = counter.launches
+    log = LaunchLog()
+    with log:
+        with pytest.raises(AssertionError, match="outside"):
+            getattr(K1, f"{kind}_launch")(x, K1.prepare_operands(p))
+        with log.call("one"), pytest.raises(ValueError, match="CUDA"):
+            getattr(K1, f"{kind}_launch")(x, K1.prepare_operands(p))
+    assert getattr(K1, f"{kind}_launch") is launch
+    assert counter.launches == before
+    assert log.calls == [("one", {key: 1})]
+    assert log.totals() == {key: 1}
+
+
+def test_busy_ms_is_the_union_of_intervals():
+    from dcvc_tpu_torch.perf_probe import busy_ms
+    assert busy_ms([]) == 0.0
+    assert busy_ms([(30, 40), (0, 10), (5, 20), (12, 15)]) == 0.03
