@@ -2,51 +2,69 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel (dcvc_tpu_torch/csrc/fused_dcb.cu, nvcc for
-sm_90a), holds it against its plain PyTorch version at the edge-case
-shapes of tests/test_fused_dcb.py, and checks the stages of both
-full-width models in bf16 on the card against float32 on the CPU.  Then
-it drives the main path, recording the shape of every kernel launch:
-DMCICodec (full published width, bf16, seeded random weights) through
-compress -> bytes -> decompress on 1080p frames at two QPs and a 720p
-frame; then DMCI codes the first frame of a sequence, its reconstruction
-seeds DMCHTCodec (HTS_CONFIG, bf16, init_scale 0.5), and HTS codes three
-8-frame chunks at 1080p (memory reset on the second) and one at 720p.
-Last, both forms of the kernel (one block, and the stacked form of the
-HTS recon heads) are held against their plain versions and timed at
-every distinct shape the main path launched them at.
-It fails, with a non-zero exit code, if the card is missing, the kernel
-does not build or launch, disagrees with its plain version, the main
-path did not go through both forms of the kernel as often as derived, a
-reconstruction or the final DPB is not bit-exact between encoder and
-decoder, or two encodes give different streams.
+Builds the port's two CUDA kernels from their sources, both nvcc runs
+started together (dcvc_tpu_torch/csrc/fused_dcb.cu, K1, and
+csrc/rans_decode.cu, K2; sm_90a).  Holds K1 against its plain PyTorch
+version at the edge-case shapes of tests/test_fused_dcb.py, and K2 against
+its plain version and the host decoder on the fixtures of
+tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
+lanes, escapes, a count below the lane count and of 0, z -> y -> y
+threading).  Checks the stages of the three full-width models (DMCI, HTS,
+HTL) in bf16 on the card against float32 on the CPU.  Then it drives the
+main path, one part at a time, each with the launch counts set to 0 just
+before it and read just after, recording every K1 launch's shape and
+every K2 launch's inputs:
+  - DMCICodec (full published width, bf16, seeded random weights):
+    compress -> bytes -> decompress on 1080p frames at two QPs and a 720p
+    frame, and each stream decoded again on the device (device_ec, K2);
+  - DMCI -> DMCHTCodec at HTS_CONFIG (init_scale 0.5): three 8-frame
+    chunks at 1080p (memory reset on the second) and one at 720p, each
+    decoded through the host coder and on the device;
+  - DMCI -> DMCHTCodec at HTL_CONFIG (the ladder codec), the same chunks.
+Every device decode runs under torch.cuda.set_sync_debug_mode("error")
+once its lanes are uploaded: a host sync fails it.  Last, both forms of K1 are held against their plain
+versions and timed at every distinct shape the main path launched them
+at, and every K2 call of the main path is replayed against its plain
+version and timed.
+It fails, with a non-zero exit code, if the card is missing, a kernel does
+not build or launch or disagrees with its plain version, the main path did
+not launch the kernels as often as derived, a reconstruction or final DPB
+is not bit-exact between encoder, host-coder decode and device decode, a
+device decode syncs with the host, or two encodes give different streams.
 
 Output: one line per phase; then a JSON line with the kernel table; the
 card's name and power limit; and last {"ok": true, "device": {...}}.
 """
 
 import collections
+import concurrent.futures
 import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from dcvc_tpu_torch.kernels import fused_dcb as K1
-from dcvc_tpu_torch.models.dmc_ht import DMCHT, HTS_CONFIG
+from dcvc_tpu_torch.kernels import rans_decode as K2
+from dcvc_tpu_torch.models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG
 from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig
-from dcvc_tpu_torch.perf_probe import Launch, LaunchLog, block_inputs, \
-    cuda_ms, make_sequence, nvidia_smi, smooth_frame
+from dcvc_tpu_torch.perf_probe import K2Log, Launch, LaunchLog, \
+    block_inputs, cuda_ms, k1_bound_ms, k2_fixtures, k2_latency_bound_ms, \
+    make_sequence, max_sm_clock_mhz, nvidia_smi, run_k2_case, smooth_frame
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
 from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec
 
 K1_SOURCE = "dcvc_tpu_torch/csrc/fused_dcb.cu"
+K2_SOURCE = "dcvc_tpu_torch/csrc/rans_decode.cu"
 REPLACES = {
     "fused_dcb": "dcvc_tpu/kernels/fused_dcb.py:66",
     # the stacked form: _fused_dcb_stacked (its pallas_call at :210),
     # entry fused_dcb_stacked (:274)
     "fused_dcb_stacked": "dcvc_tpu/kernels/fused_dcb.py:164",
 }
+# K2: _decode_kernel, its pallas_call at :267 (make_decode_fn_pallas :232)
+K2_REPLACES = "dcvc_tpu/rans/pallas_decode.py:75"
 
 # the shape cases of tests/test_fused_dcb.py (W=18, dcb2, shortcut): not
 # on the main path, checked first
@@ -73,17 +91,29 @@ ENCODE_LAUNCHES, DECODE_LAUNCHES = 42, 32
 # main-path frames: (height, width, qp, seed); 720p gives the odd 45x80
 # y grid
 CODEC_CASES = [(1080, 1920, 0, 0), (1080, 1920, 32, 0), (720, 1280, 32, 1)]
-# HTS main path: (height, width, qp, seed, reset flag of each chunk)
-HTS_CASES = [(1080, 1920, 32, 2, (False, True, False)),
-             (720, 1280, 32, 3, (False,))]
-# K1 launches of one HTS chunk (from models/dmc_ht.py): a later chunk's
-# encode / decode, and a chunk's right after the intra frame or a reset,
-# which runs FA_I's 4 blocks instead of FA_M's 6
-HTS_ENCODE_LAUNCHES, HTS_DECODE_LAUNCHES = 46, 37
-HTS_FIRST_ENCODE, HTS_FIRST_DECODE = 44, 35
-# stacked launches of one recon (decode, encode with recon=True) and of a
-# reset's last-frame head
-RECON_LAUNCHES = 4
+# K2 launches of one DMCI device decode: z, then 4 rungs
+DMCI_K2_LAUNCHES = 5
+# video main paths: (height, width, qp, seed, reset flag of each chunk),
+# and the launches derived from models/dmc_ht.py: K1 (S = 1) per chunk
+# encode / decode, later chunk and right after the intra frame or a reset
+# (which runs FA_I instead of FA_M); stacked launches per recon (decode,
+# encode with recon=True) and per reset (the last frame's head); K2
+# launches per device decode
+VIDEO = {
+    # HTS: FA_I 4 blocks, FA_M 6; recon trunk + 3 head stacks; one y call
+    "HTS": {"cfg": HTS_CONFIG,
+            "cases": [(1080, 1920, 32, 2, (False, True, False)),
+                      (720, 1280, 32, 3, (False,))],
+            "encode": 46, "decode": 37, "first_encode": 44,
+            "first_decode": 35, "recon": 4, "k2": 2},
+    # HTL: FA_I 3, FA_M 10, encoder 7, decoder 11, FX 2; 5 head stacks, no
+    # trunk; z + 4 y rungs
+    "HTL": {"cfg": HTL_CONFIG,
+            "cases": [(1080, 1920, 32, 4, (False, True, False)),
+                      (720, 1280, 32, 5, (False,))],
+            "encode": 52, "decode": 42, "first_encode": 45,
+            "first_decode": 35, "recon": 5, "k2": 5},
+}
 
 
 def log(*args):
@@ -126,37 +156,115 @@ def phase_edge_shapes(dev):
         check_launch(key, gen, dev)
 
 
+def phase_k2_fixtures(dev):
+    """K2 against its plain version and the host decoder on the fixtures
+    of the JAX package's decode tests: every call's symbols equal, zeros
+    past the count, and the final lane states equal."""
+    for case in k2_fixtures():
+        st_k, outs_k = run_k2_case(case, dev, K2.rans_decode)
+        torch.cuda.synchronize()
+        st_p, outs_p = run_k2_case(case, dev, K2.rans_decode_reference)
+        ok = (torch.equal(st_k["st"], st_p["st"])
+              and torch.equal(st_k["ptr"], st_p["ptr"]))
+        for (_, count, _, _, want), out_k, out_p in zip(case[3], outs_k,
+                                                        outs_p):
+            got = out_k.cpu().numpy()
+            ok = ok and torch.equal(out_k, out_p) and np.array_equal(
+                got[:count], want) and not got[count:].any()
+        log(f"K2 fixture {case[0]} ({len(case[3])} calls): "
+            f"{'equal to plain and host' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"K2 disagrees on the fixture {case[0]}")
+
+
 def phase_kernels(dev, launch_log, launches):
     """Both forms of K1 against their plain versions at every distinct
     shape the main path launched them at.  Returns the kernel rows of the
     JSON table: ms / plain_ms is the device time of the main path's
-    launches at the per-shape medians."""
+    launches at the per-shape medians, bound_ms the sum over them of each
+    launch's roofline bound (perf_probe.k1_bound_ms)."""
     gen = torch.Generator().manual_seed(0)
     total = launch_log.totals()
     rows = {kind: {"name": kind, "route": "cuda", "source": K1_SOURCE,
                    "replaces": REPLACES[kind], "launches": launches[kind],
-                   "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+                   "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "bound_by": None, "library_ms": None}
             for kind in REPLACES}
+    bound_parts = {kind: [0.0, 0.0] for kind in REPLACES}
     times = {}
     for key in sorted(total):
         err, t_k, t_p = check_launch(key, gen, dev)
-        log(f"  main-path launches: {total[key]}")
+        flop_ms, byte_ms = k1_bound_ms(key)
+        log(f"  main-path launches: {total[key]}; bound "
+            f"{max(flop_ms, byte_ms)} ms (FLOPs {flop_ms}, bytes {byte_ms})")
         times[key] = (t_k, t_p)
         row = rows[key.kind]
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += total[key] * t_k
         row["plain_ms"] += total[key] * t_p
+        row["bound_ms"] += total[key] * max(flop_ms, byte_ms)
+        bound_parts[key.kind][0] += total[key] * flop_ms
+        bound_parts[key.kind][1] += total[key] * byte_ms
+    for kind, (flop_ms, byte_ms) in bound_parts.items():
+        rows[kind]["bound_by"] = ("operations" if flop_ms >= byte_ms
+                                  else "bytes")
     for label, counts in launch_log.calls:
-        sums = {kind: [0, 0.0, 0.0] for kind in REPLACES}
+        sums = {kind: [0, 0.0, 0.0, 0.0] for kind in REPLACES}
         for key, n in counts.items():
             s = sums[key.kind]
             s[0] += n
             s[1] += n * times[key][0]
             s[2] += n * times[key][1]
+            s[3] += n * max(k1_bound_ms(key))
         log(f"K1 device time of {label} (per-shape medians x launches): "
-            + "; ".join(f"{kind} launches={n} kernel_ms={k} plain_ms={p}"
-                        for kind, (n, k, p) in sums.items() if n))
+            + "; ".join(f"{kind} launches={n} kernel_ms={k} plain_ms={p} "
+                        f"bound_ms={b}"
+                        for kind, (n, k, p, b) in sums.items() if n))
     return [rows[kind] for kind in REPLACES]
+
+
+def phase_k2(k2_log, launches):
+    """Every K2 call of the main path replayed on its recorded inputs:
+    the kernel against its plain version (symbols and lane states equal)
+    and both timed (the kernel with CUDA events, the plain version, which
+    runs on the host, by the host clock).  Returns K2's row of the JSON
+    table; bound_ms is the latency bound of perf_probe.k2_latency_bound_ms
+    at the card's maximum SM clock."""
+    per_label = collections.defaultdict(lambda: [0, 0, 0.0, 0.0])
+    ms = plain_ms = 0.0
+    for call in k2_log.calls:
+        args = call.args()
+        st_k, out_k = K2.rans_decode_launch(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_p, out_p = K2.rans_decode_reference(*args)
+        t_p = 1e3 * (time.perf_counter() - t0)
+        if not (torch.equal(out_k, out_p) and torch.equal(st_k["st"], st_p["st"])
+                and torch.equal(st_k["ptr"], st_p["ptr"])):
+            raise AssertionError(f"K2 disagrees with its plain version on a "
+                                 f"call of {call.label} "
+                                 f"{call.signature()}")
+        t_k = cuda_ms(lambda: K2.rans_decode_launch(*args), iters=3,
+                      warmup=1)
+        s = per_label[call.label]
+        s[0] += 1
+        s[1] += int(call.count)
+        s[2] += t_k
+        s[3] += t_p
+        ms += t_k
+        plain_ms += t_p
+    for label, (n, symbols, t_k, t_p) in per_label.items():
+        log(f"K2 on {label}: launches={n} symbols={symbols} kernel_ms={t_k} "
+            f"plain_ms={t_p} (equal)")
+    clock = max_sm_clock_mhz()
+    bound = k2_latency_bound_ms(k2_log.calls, clock)
+    log(f"K2 main path: {len(k2_log.calls)} calls equal to plain; "
+        f"kernel_ms={ms} plain_ms={plain_ms} latency bound {bound} ms at "
+        f"{clock} MHz")
+    return {"name": "rans_decode", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
 
 
 def rel_rms(a, b):
@@ -221,12 +329,12 @@ def compare_stages(name, ref, got, plain):
                              f"{bad}")
 
 
-def stage_outputs_hts(model, x, ref, feature, memory, z_int8, spctx, y_hat,
-                      qp):
-    """Every HTS stage method of `model` on a 64x64 chunk (/8 grid 8x8, y
-    grid 4x4), each on the same shared inputs, moved to the model's device
-    and type.  recon_frames and reset_feature run the stacked kernel on
-    the card."""
+def stage_outputs_video(model, x, ref, feature, memory, z_int8, spctx,
+                        y_hat, qp):
+    """Every HTS / HTL stage method of `model` on a 64x64 chunk (/8 grid
+    8x8, y grid 4x4), each on the same shared inputs, moved to the model's
+    device and type.  recon_frames and reset_feature run the stacked
+    kernel on the card."""
     dev, dt = model.q_encoder.device, model.dtype
 
     def m(t):
@@ -237,20 +345,25 @@ def stage_outputs_hts(model, x, ref, feature, memory, z_int8, spctx, y_hat,
         y, _ = model.analysis(m(x), m(feature), qp)
         q_enc, q_dec, scales, means, ctx0 = model.prior0(
             z_int8.to(dev), m(memory), qp, 4, 4)
-        means1 = model.prior_step(m(spctx), y_hat.to(dev), 1)
+        step = model.prior_step(m(spctx), y_hat.to(dev), 1)
         feat = model.synthesis_feature(y_hat.to(dev), m(feature), qp)
         frames = model.recon_frames(m(feature), qp, 64, 64)
         seed = model.reset_feature(m(feature))
-    return {"adaptor_i memory": mem_i, "adaptor_i ctx": ctx_i,
-            "adaptor_m memory": mem_m, "adaptor_m ctx": ctx_m,
-            "analysis y": y, "prior0 q_dec": q_dec, "prior0 scales": scales,
-            "prior0 means": means, "prior0 ctx": ctx0,
-            "prior_step means": means1, "synthesis_feature": feat,
-            "recon_frames": frames, "reset_feature": seed}
+    out = {"adaptor_i memory": mem_i, "adaptor_i ctx": ctx_i,
+           "adaptor_m memory": mem_m, "adaptor_m ctx": ctx_m,
+           "analysis y": y, "prior0 q_dec": q_dec, "prior0 scales": scales,
+           "prior0 means": means, "prior0 ctx": ctx0,
+           "synthesis_feature": feat, "recon_frames": frames,
+           "reset_feature": seed}
+    if model.cfg.is_hts:
+        out["prior_step means"] = step
+    else:
+        out["prior_step scales"], out["prior_step means"] = step
+    return out
 
 
-def phase_stages_hts(codec):
-    """The full-width HTS model's stages in bf16 on the card (every DCB
+def phase_stages_video(name, codec):
+    """The full-width video model's stages in bf16 on the card (every DCB
     through K1, the recon heads through its stacked form) against the
     same bf16-valued weights in float32 on the CPU; the rule of
     phase_stages."""
@@ -272,15 +385,16 @@ def phase_stages_hts(codec):
         spctx = cpu32.prior0(z_int8, memory, qp, 4, 4)[4]
     y_hat = torch.round(y)
     args = (x, ref, feature, memory, z_int8, spctx, y_hat, qp)
-    compare_stages("HTS", stage_outputs_hts(cpu32, *args),
-                   stage_outputs_hts(gpu, *args),
-                   stage_outputs_hts(cpu16, *args))
+    compare_stages(name, stage_outputs_video(cpu32, *args),
+                   stage_outputs_video(gpu, *args),
+                   stage_outputs_video(cpu16, *args))
 
 
 def counted(launch_log, label, fn):
     """fn() on a synchronised card, its launches recorded under `label`;
-    returns (result, ms, S = 1 launches, stacked launches)."""
+    returns (result, ms, S = 1 launches, stacked launches, K2 launches)."""
     n1, ns = K1.fused_dcb.launches, K1.fused_dcb_stacked.launches
+    n2 = K2.rans_decode.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with launch_log.call(label):
@@ -288,28 +402,51 @@ def counted(launch_log, label, fn):
         torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
     return (out, ms, K1.fused_dcb.launches - n1,
-            K1.fused_dcb_stacked.launches - ns)
+            K1.fused_dcb_stacked.launches - ns, K2.rans_decode.launches - n2)
+
+
+def no_sync(fn):
+    """fn() with every host sync an error (set_sync_debug_mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def expect(tag, got, want):
     if got != want:
-        raise AssertionError(f"{tag}: (S=1, stacked) launches {got}, "
+        raise AssertionError(f"{tag}: (S=1, stacked, K2) launches {got}, "
                              f"expected {want}")
 
 
-def phase_codec(codec, dev, launch_log):
+def device_decode(codec, k2_log, label, launch_log, stream, ec, *args):
+    """One device decode (device_ec) of `stream`: its lanes uploaded, then
+    the decode under no_sync.  Returns counted()'s tuple."""
+    codec.device_ec = True
+    try:
+        lanes = codec.upload_stream(stream, ec)
+        k2_log.label = label
+        return counted(launch_log, label, lambda: no_sync(
+            lambda: codec.decompress(lanes, *args)["x_hat"]))
+    finally:
+        codec.device_ec = False
+
+
+def phase_codec(codec, dev, launch_log, k2_log):
     """The main path's image half: DMCI round trips at 1080p (two QPs) and
-    720p, cold then warm.  Returns the (S = 1, stacked) launches derived
-    for it, each call's checked."""
-    derived = 0
+    720p, cold then warm, then each stream decoded on the device (K2,
+    sync-checked).  Returns the (S = 1, stacked, K2) launches derived for
+    it, each call's checked."""
+    derived = [0, 0, 0]
     for (h, w, qp, seed) in CODEC_CASES:
         x = smooth_frame(h, w, seed, dev)
         runs = []
         for run in ("cold", "warm"):
             tag = f"DMCI {w}x{h} qp={qp} {run}"
-            res, enc_ms, e1, es = counted(launch_log, f"{tag} encode",
-                                          lambda: codec.compress(x, qp))
-            x_dec, dec_ms, d1, ds = counted(
+            res, enc_ms, e1, es, e2 = counted(launch_log, f"{tag} encode",
+                                              lambda: codec.compress(x, qp))
+            x_dec, dec_ms, d1, ds, d2 = counted(
                 launch_log, f"{tag} decode", lambda: codec.decompress(
                     bytes(res["bit_stream"]), qp, h, w,
                     res["ec_parallel"])["x_hat"])
@@ -321,80 +458,109 @@ def phase_codec(codec, dev, launch_log):
             if not torch.equal(x_enc, x_dec):
                 raise AssertionError(f"{tag}: decoder x_hat differs from "
                                      f"the encoder's")
-            expect(f"{tag} encode", (e1, es), (ENCODE_LAUNCHES, 0))
-            expect(f"{tag} decode", (d1, ds), (DECODE_LAUNCHES, 0))
-            derived += ENCODE_LAUNCHES + DECODE_LAUNCHES
+            expect(f"{tag} encode", (e1, es, e2), (ENCODE_LAUNCHES, 0, 0))
+            expect(f"{tag} decode", (d1, ds, d2), (DECODE_LAUNCHES, 0, 0))
+            derived[0] += ENCODE_LAUNCHES + DECODE_LAUNCHES
             runs.append((res, x_dec, e1, d1, enc_ms, dec_ms))
         if runs[0][0]["bit_stream"] != runs[1][0]["bit_stream"]:
             raise AssertionError(f"{h}p qp {qp}: two encodes of one frame "
                                  f"gave different streams")
         res, x_dec, n_enc, n_dec, enc_ms, dec_ms = runs[1]
+        tag = f"DMCI {w}x{h} qp={qp}"
+        x_dev, dev_ms, v1, vs, v2 = device_decode(
+            codec, k2_log, f"{tag} device decode", launch_log,
+            bytes(res["bit_stream"]), res["ec_parallel"], qp, h, w,
+            res["ec_parallel"])
+        if not (torch.equal(x_dev, res["x_hat"]) and torch.equal(x_dev,
+                                                                  x_dec)):
+            raise AssertionError(f"{tag}: the device decode's x_hat differs "
+                                 f"from the encoder's / host decode's")
+        expect(f"{tag} device decode", (v1, vs, v2),
+               (DECODE_LAUNCHES, 0, DMCI_K2_LAUNCHES))
+        derived[0] += DECODE_LAUNCHES
+        derived[2] += DMCI_K2_LAUNCHES
         nbytes = len(res["bit_stream"])
         mse = torch.mean((x_dec - x) ** 2).item()
         psnr = 10 * torch.log10(torch.tensor(1.0 / mse)).item()
-        log(f"DMCI {w}x{h} qp={qp}: bytes={nbytes} bpp={8 * nbytes / (h * w)} "
+        log(f"{tag}: bytes={nbytes} bpp={8 * nbytes / (h * w)} "
             f"psnr={psnr} ec_parallel={res['ec_parallel']} bit_exact=True "
-            f"launches enc={n_enc} dec={n_dec} warm encode_ms={enc_ms} "
-            f"decode_ms={dec_ms}")
-    return derived, 0
+            f"launches enc={n_enc} dec={n_dec} device_dec={v1}+K2 {v2} "
+            f"warm encode_ms={enc_ms} decode_ms={dec_ms} "
+            f"device_decode_ms={dev_ms}")
+    return tuple(derived)
 
 
-def expected_launches(resets, u, encode, recon):
-    """(S = 1, stacked) launches of chunk u's encode or decode."""
+def expected_launches(spec, resets, u, encode, recon):
+    """(S = 1, stacked, K2) launches of chunk u's encode or (host-coder)
+    decode; a device decode adds spec['k2'] K2 launches."""
     first = u == 0 or resets[u - 1]
     if encode:
-        s1 = HTS_FIRST_ENCODE if first else HTS_ENCODE_LAUNCHES
+        s1 = spec["first_encode"] if first else spec["encode"]
     else:
-        s1 = HTS_FIRST_DECODE if first else HTS_DECODE_LAUNCHES
-    return s1, RECON_LAUNCHES * (int(resets[u]) + int(recon))
+        s1 = spec["first_decode"] if first else spec["decode"]
+    return s1, spec["recon"] * (int(resets[u]) + int(recon)), 0
 
 
-def phase_hts(dmci, codec, dev, launch_log):
-    """The main path's video half: the DMCI reconstruction of a sequence's
-    first frame seeds DMCHTCodec, which codes its 8-frame chunks.  Encode
-    pass 1 (recon=True) against a decode from a fresh DPB: every chunk's
-    x_hat and the final DPB bit-exact; encode pass 2 (recon=False, warm):
-    the same streams.  Returns the (S = 1, stacked) launches derived for
-    it, each call's checked."""
-    derived = [0, 0]
+def phase_video(name, dmci, codec, dev, launch_log, k2_log):
+    """The main path's video half for one variant: the DMCI reconstruction
+    of a sequence's first frame seeds the DMCHTCodec, which codes its
+    8-frame chunks.  Encode pass 1 (recon=True) against a host-coder decode
+    and a device decode (K2, every call sync-checked), each from a fresh
+    DPB: every chunk's x_hat and the final DPB bit-exact; encode pass 2
+    (recon=False, warm): the same streams.  Returns the (S = 1, stacked,
+    K2) launches derived for it, each call's checked."""
+    spec = VIDEO[name]
+    derived = [0, 0, 0]
 
     def tally(tag, got, want):
         expect(tag, got, want)
-        derived[0] += want[0]
-        derived[1] += want[1]
+        for i in range(3):
+            derived[i] += want[i]
 
-    for (h, w, qp, seed, resets) in HTS_CASES:
+    for (h, w, qp, seed, resets) in spec["cases"]:
         frames = make_sequence(h, w, 8 * len(resets), seed, dev)
         chunks = [torch.cat(frames[8 * u:8 * u + 8], dim=-1)
                   for u in range(len(resets))]
-        name = f"HTS {w}x{h} qp={qp}"
-        intra, _, i1, is_ = counted(
-            launch_log, f"{name} intra frame (DMCI encode)",
+        label = f"{name} {w}x{h} qp={qp}"
+        intra, _, i1, is_, i2 = counted(
+            launch_log, f"{label} intra frame (DMCI encode)",
             lambda: dmci.compress(frames[0], qp)["x_hat"])
-        tally(f"{name} intra frame", (i1, is_), (ENCODE_LAUNCHES, 0))
+        tally(f"{label} intra frame", (i1, is_, i2), (ENCODE_LAUNCHES, 0, 0))
 
-        def encode(recon):
+        def seeded():
             codec.clear_dpb()
             codec.add_ref_feature_from_frame(intra)
+
+        def encode(recon):
+            seeded()
             kind = "encode (recon)" if recon else "encode"
-            runs = [counted(launch_log, f"{name} chunk {u} {kind}",
+            runs = [counted(launch_log, f"{label} chunk {u} {kind}",
                             lambda: codec.compress(x, qp, rs, recon=recon))
                     for u, (x, rs) in enumerate(zip(chunks, resets))]
             return runs, codec.ref_feature
 
         enc1, dpb1 = encode(True)
         enc2, dpb2 = encode(False)
-        codec.clear_dpb()
-        codec.add_ref_feature_from_frame(intra)
-        dec = [counted(launch_log, f"{name} chunk {u} decode",
+        seeded()
+        dec = [counted(launch_log, f"{label} chunk {u} decode",
                        lambda: codec.decompress(
-                           bytes(r["bit_stream"]), qp, h, w,
-                           r["ec_parallel"], rs)["x_hat"])
-               for u, ((r, _, _, _), rs) in enumerate(zip(enc1, resets))]
+                           bytes(r[0]["bit_stream"]), qp, h, w,
+                           r[0]["ec_parallel"], rs)["x_hat"])
+               for u, (r, rs) in enumerate(zip(enc1, resets))]
+        dpb_host = codec.ref_feature
+        seeded()
+        ddec = [device_decode(codec, k2_log,
+                              f"{label} chunk {u} device decode",
+                              launch_log, bytes(r[0]["bit_stream"]),
+                              r[0]["ec_parallel"], qp, h, w,
+                              r[0]["ec_parallel"], rs)
+                for u, (r, rs) in enumerate(zip(enc1, resets))]
+        dpb_dev = codec.ref_feature
         for u, rs in enumerate(resets):
-            tag = f"{name} chunk {u} reset={int(rs)}"
-            (r1, _, e1, s1), (r2, enc_ms, e2, s2) = enc1[u], enc2[u]
-            x_dec, dec_ms, d1, ds = dec[u]
+            tag = f"{label} chunk {u} reset={int(rs)}"
+            (r1, _, e1, s1, _), (r2, enc_ms, e2, s2, _) = enc1[u], enc2[u]
+            x_dec, dec_ms, d1, ds, dk = dec[u]
+            x_dev, dev_ms, v1, vs, vk = ddec[u]
             if x_dec.shape != (8, h, w, 3) or r1["x_hat"].shape != x_dec.shape:
                 raise AssertionError(f"{tag}: x_hat shape "
                                      f"{tuple(x_dec.shape)}")
@@ -403,15 +569,21 @@ def phase_hts(dmci, codec, dev, launch_log):
             if not torch.equal(r1["x_hat"], x_dec):
                 raise AssertionError(f"{tag}: decoder x_hat differs from "
                                      f"the encoder's")
+            if not torch.equal(x_dev, x_dec):
+                raise AssertionError(f"{tag}: the device decode's x_hat "
+                                     f"differs from the host decode's")
             if r1["bit_stream"] != r2["bit_stream"]:
                 raise AssertionError(f"{tag}: two encodes gave different "
                                      f"streams")
-            tally(f"{tag} encode (recon)", (e1, s1),
-                  expected_launches(resets, u, True, True))
-            tally(f"{tag} encode", (e2, s2),
-                  expected_launches(resets, u, True, False))
-            tally(f"{tag} decode", (d1, ds),
-                  expected_launches(resets, u, False, True))
+            tally(f"{tag} encode (recon)", (e1, s1, enc1[u][4]),
+                  expected_launches(spec, resets, u, True, True))
+            tally(f"{tag} encode", (e2, s2, enc2[u][4]),
+                  expected_launches(spec, resets, u, True, False))
+            tally(f"{tag} decode", (d1, ds, dk),
+                  expected_launches(spec, resets, u, False, True))
+            s1_, st_, _ = expected_launches(spec, resets, u, False, True)
+            tally(f"{tag} device decode", (v1, vs, vk),
+                  (s1_, st_, spec["k2"]))
             nbytes = len(r1["bit_stream"])
             src = torch.cat(frames[8 * u:8 * u + 8]).float()
             mse = torch.mean((x_dec - src) ** 2).item()
@@ -419,15 +591,25 @@ def phase_hts(dmci, codec, dev, launch_log):
             log(f"{tag}: bytes={nbytes} bpp={8 * nbytes / (8 * h * w)} "
                 f"psnr={psnr} ec_parallel={r1['ec_parallel']} "
                 f"bit_exact=True launches enc(recon)={e1}+{s1} "
-                f"enc={e2}+{s2} dec={d1}+{ds} warm encode_ms={enc_ms} "
-                f"encode_recon_ms={enc1[u][1]} decode_ms={dec_ms}")
-        if not (torch.equal(dpb1, codec.ref_feature)
-                and torch.equal(dpb2, codec.ref_feature)):
-            raise AssertionError(f"{name}: the decoder's final DPB "
-                                 f"differs from the encoder's")
-        log(f"{name}: final DPB equal on both sides "
-            f"{tuple(codec.ref_feature.shape)}")
+                f"enc={e2}+{s2} dec={d1}+{ds} device_dec={v1}+{vs}+K2 {vk} "
+                f"warm encode_ms={enc_ms} encode_recon_ms={enc1[u][1]} "
+                f"decode_ms={dec_ms} device_decode_ms={dev_ms}")
+        if not all(torch.equal(dpb1, d) for d in (dpb2, dpb_host, dpb_dev)):
+            raise AssertionError(f"{label}: a final DPB differs (encoder, "
+                                 f"host decode, device decode)")
+        log(f"{label}: final DPB equal on the encoder, the host decode and "
+            f"the device decode {tuple(dpb1.shape)}")
     return tuple(derived)
+
+
+def launch_counts():
+    return (K1.fused_dcb.launches, K1.fused_dcb_stacked.launches,
+            K2.rans_decode.launches)
+
+
+def zero_launch_counts():
+    K1.fused_dcb.launches = K1.fused_dcb_stacked.launches = 0
+    K2.rans_decode.launches = 0
 
 
 def main():
@@ -438,47 +620,60 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    K1.load_kernel()
-    log(f"build: fused_dcb.cu -> sm_90a in {time.perf_counter() - t0:.3f} s")
+    # one nvcc per source, started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for build in [pool.submit(K1.load_kernel), pool.submit(K2.load_kernel)]:
+            build.result()
+    log(f"build: fused_dcb.cu, rans_decode.cu -> sm_90a in "
+        f"{time.perf_counter() - t0:.3f} s")
     with torch.inference_mode():
         phase_edge_shapes(dev)
+        phase_k2_fixtures(dev)
 
     dmci = DMCICodec.init_random(torch.Generator().manual_seed(0),
                                  cfg=DMCIConfig(), skip_thres=0.15,
                                  dtype=torch.bfloat16, device=dev)
-    hts = DMCHTCodec.init_random(torch.Generator().manual_seed(0),
-                                 cfg=HTS_CONFIG, init_scale=0.5,
-                                 skip_thres=0.15, dtype=torch.bfloat16,
-                                 device=dev)
+    video = {name: DMCHTCodec.init_random(
+        torch.Generator().manual_seed(0), cfg=spec["cfg"], init_scale=0.5,
+        skip_thres=0.15, dtype=torch.bfloat16, device=dev)
+        for name, spec in VIDEO.items()}
     phase_stages(dmci)
-    phase_stages_hts(hts)
+    for name, codec in video.items():
+        phase_stages_video(name, codec)
 
     # the main path, one part at a time, each with the counts set to 0
     # just before it and read just after
-    launch_log = LaunchLog()
-    with launch_log:
-        K1.fused_dcb.launches = K1.fused_dcb_stacked.launches = 0
-        want_dmci = phase_codec(dmci, dev, launch_log)
-        n_dmci = (K1.fused_dcb.launches, K1.fused_dcb_stacked.launches)
-        K1.fused_dcb.launches = K1.fused_dcb_stacked.launches = 0
-        want_hts = phase_hts(dmci, hts, dev, launch_log)
-        n_hts = (K1.fused_dcb.launches, K1.fused_dcb_stacked.launches)
-    log(f"main path launches (fused_dcb, fused_dcb_stacked): DMCI {n_dmci}, "
-        f"derived {want_dmci}; DMCI seed + HTS {n_hts}, derived {want_hts}")
-    launches = {"fused_dcb": n_dmci[0] + n_hts[0],
-                "fused_dcb_stacked": n_dmci[1] + n_hts[1]}
+    launch_log, k2_log = LaunchLog(), K2Log()
+    parts = [("DMCI", lambda: phase_codec(dmci, dev, launch_log, k2_log))]
+    parts += [(f"DMCI seed + {name}",
+               lambda name=name: phase_video(name, dmci, video[name], dev,
+                                             launch_log, k2_log))
+              for name in VIDEO]
+    got, want = {}, {}
+    with launch_log, k2_log:
+        for part, run in parts:
+            zero_launch_counts()
+            want[part] = run()
+            got[part] = launch_counts()
+    log("main path launches (fused_dcb, fused_dcb_stacked, rans_decode): "
+        + "; ".join(f"{part} {got[part]}, derived {want[part]}"
+                    for part, _ in parts))
+    totals = [sum(g[i] for g in got.values()) for i in range(3)]
+    launches = {"fused_dcb": totals[0], "fused_dcb_stacked": totals[1]}
     recorded = collections.Counter()
     for key, n in launch_log.totals().items():
         recorded[key.kind] += n
-    if (n_dmci, n_hts) != (want_dmci, want_hts) or recorded != launches:
-        raise AssertionError(f"main path launches {launches}, recorded "
-                             f"{dict(recorded)}, derived {want_dmci} + "
-                             f"{want_hts}")
-    if min(launches.values()) == 0:
-        raise AssertionError("the main path skipped a form of K1")
+    if got != want or recorded != launches \
+            or len(k2_log.calls) != totals[2]:
+        raise AssertionError(f"main path launches {got}, recorded "
+                             f"{dict(recorded)} + {len(k2_log.calls)} K2, "
+                             f"derived {want}")
+    if min(totals) == 0:
+        raise AssertionError("the main path skipped a kernel")
 
     with torch.inference_mode():
         rows = phase_kernels(dev, launch_log, launches)
+        rows.append(phase_k2(k2_log, totals[2]))
 
     print(json.dumps({"kernels": rows}))
     print(smi)

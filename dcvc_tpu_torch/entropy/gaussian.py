@@ -7,6 +7,7 @@ entropy_models.py:152-217, and the scale_to_index device mapping).
 tests/test_torch_core.py.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -71,8 +72,15 @@ def scale_to_index(scale):
     int32 in [0, 126].
     """
     s = scale.to(torch.float32)
-    thr = torch.from_numpy(INDEX_THRESHOLDS).to(s.device)
-    return torch.bucketize(s, thr, right=True).to(torch.int32)
+    return torch.bucketize(s, _thresholds(s.device), right=True).to(
+        torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _thresholds(device):
+    """INDEX_THRESHOLDS on `device`, copied there once (a copy per call
+    would make the device decode wait for the host)."""
+    return torch.from_numpy(INDEX_THRESHOLDS).to(device)
 
 
 class GaussianConditional:

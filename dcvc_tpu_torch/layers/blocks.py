@@ -173,12 +173,19 @@ class StackedDCB:
 
 
 class SubpelConv2x(nn.Module):
-    """1x1 conv to 4*out channels -> pixel shuffle 2 (reference
-    SubpelConv2x with kernel_size 1: bias only when forced)."""
+    """conv (1x1 or 3x3) to 4*out channels -> pixel shuffle 2 (reference
+    SubpelConv2x; dcvc_tpu/layers/blocks.py:311-330): a bias iff
+    kernel_size > 1 or force_bias."""
 
-    def __init__(self, in_ch, out_ch, force_bias=False):
+    def __init__(self, in_ch, out_ch, kernel_size=1, force_bias=False):
         super().__init__()
-        self.conv = nn.Sequential(Conv1x1(in_ch, out_ch * 4, bias=force_bias))
+        if kernel_size == 1:
+            conv = Conv1x1(in_ch, out_ch * 4, bias=force_bias)
+        elif kernel_size == 3:
+            conv = Conv3x3(in_ch, out_ch * 4)
+        else:
+            raise ValueError(f"kernel_size {kernel_size}: 1 or 3")
+        self.conv = nn.Sequential(conv)
 
     def forward(self, x):
         return pixel_shuffle(self.conv[0](x), 2)

@@ -1,26 +1,32 @@
-"""DMC-HTS chunk video codec model (counterpart of dcvc_tpu/models/dmc_ht.py).
+"""DMC-HT chunk video codec model, HTS and HTL (counterpart of
+dcvc_tpu/models/dmc_ht.py).
 
 Eight frames are coded jointly: the chunk (24 input channels) is 8x
 pixel-unshuffled to 1536 channels, fused with a temporal context and
 compressed into one y latent (256ch @ /16 of the frame).  Temporal memory
 propagates across chunks through the feature adaptors and the feature
-extractor; the recon head holds 8 frame-specific decoders, with 4 trunk
-blocks shared by frame pairs.  HTS spatial priors emit means only, so all
-four coding steps take their scale indexes from the fused prior and one
-entropy pass codes the whole chunk.
+extractor; the recon head holds 8 frame-specific decoders.  The variants:
+  - HTS (is_hts=True): dcb2 trunks, 4 recon trunk blocks shared by frame
+    pairs; the spatial priors emit means only, so all four coding steps
+    take their scale indexes from the fused prior and one entropy pass
+    codes the whole chunk;
+  - HTL (is_hts=False, the DCVC-UF long-chunk width): full-width DCBs
+    (I = C), deeper trunks, a 3x3 SubpelConv2x in the decoder, shortcut
+    hyper / temporal blocks, no recon trunk; the spatial priors emit
+    scales and means, so the coding steps form a 4-rung ladder.
 
 The module tree follows the reference torch DMC (src/models/
 video_model_ht.py, HTS structure), so its state_dict keys are the
 reference's (the names dcvc_tpu.utils.torch_import.key_fn_dmc_ht gives
 the flax params): `encoder.conv1.0.adaptor.weight`,
 `hyper_decoder.conv.0.up.conv.0.weight`, `recon_head.conv1.{i}.{m}...`,
-`recon_head.conv2.{i}.{m}...`, `recon_head.conv2.{i}.3.weight`, ...
+`recon_head.conv2.{i}.{m}...`, `recon_head.conv2.{i}.3.weight` (HTL:
+`recon_head.conv.{i}.{m}...`, head 1x1 `recon_head.conv.{i}.5.weight`), ...
 
 The stage methods are what the runtime calls; the encoder and the decoder
 call the same adaptor / prior0 / prior_step / synthesis_feature /
 recon_frames, which keeps their priors and reconstructions bit-identical.
-HTL (is_hts=False: 3x3 SubpelConv2x, scales+means ladder) and the
-training forward are not ported yet.
+The training forward is not ported yet.
 """
 
 import collections
@@ -68,14 +74,23 @@ class DMCHTConfig:
 
 
 HTS_CONFIG = DMCHTConfig(is_hts=True)
+HTL_CONFIG = DMCHTConfig(is_hts=False, enc_depth=7, dec_depth=11,
+                         fa_i_depth=3, fa_m_depth=10, fx_depth=2,
+                         recon_depth=5)
 TINY_HT_CONFIG = DMCHTConfig(is_hts=True, ch_y=16, ch_z=8, ch_d=32,
                              ch_m=32, ch_recon=16, qp_num=8,
                              enc_depth=1, dec_depth=1, fa_i_depth=1,
                              fa_m_depth=1, fx_depth=1, recon_depth=1)
+TINY_HTL_CONFIG = DMCHTConfig(is_hts=False, ch_y=16, ch_z=8, ch_d=32,
+                              ch_m=32, ch_recon=16, qp_num=8,
+                              enc_depth=1, dec_depth=1, fa_i_depth=1,
+                              fa_m_depth=1, fx_depth=1, recon_depth=1)
 
-# the reference's per-frame recon Sequential keeps its 1x1 head conv at
-# entry 3 whatever recon_depth is
-_HEAD_OUT = "3"
+
+def _head_out(c):
+    """Entry of the reference's per-frame recon Sequential that holds the
+    1x1 head conv, whatever recon_depth is: 3 for HTS, 5 for HTL."""
+    return "3" if c.is_hts else "5"
 
 
 def _dcb_stack(chs, dcb2):
@@ -100,7 +115,9 @@ class HTEncoder(nn.Module):
 class HTDecoder(nn.Module):
     def __init__(self, c):
         super().__init__()
-        self.up = SubpelConv2x(c.ch_y, c.ch_d)
+        # HTS: a bias-free 1x1; HTL: a 3x3 with bias
+        self.up = SubpelConv2x(c.ch_y, c.ch_d,
+                               kernel_size=1 if c.is_hts else 3)
         self.conv1 = _dcb_stack([(c.ch_d * 2, c.ch_d)]
                                 + [(c.ch_d, c.ch_d)] * (c.dec_depth - 1),
                                 c.dcb2)
@@ -146,10 +163,12 @@ class HTFeatureExtractor(nn.Module):
 class HTHyperEncoder(nn.Module):
     def __init__(self, c):
         super().__init__()
+        # HTS drops the residual blocks' shortcut, HTL keeps it
+        sc = not c.is_hts
         self.conv = nn.Sequential(
             DepthConvBlock(c.ch_y, c.ch_y),
-            ResidualBlockWithStride2(c.ch_y, c.ch_y, shortcut=False),
-            ResidualBlockWithStride2(c.ch_y, c.ch_z, shortcut=False))
+            ResidualBlockWithStride2(c.ch_y, c.ch_y, shortcut=sc),
+            ResidualBlockWithStride2(c.ch_y, c.ch_z, shortcut=sc))
 
     def forward(self, y):
         return self.conv(y)
@@ -158,9 +177,12 @@ class HTHyperEncoder(nn.Module):
 class HTHyperDecoder(nn.Module):
     def __init__(self, c):
         super().__init__()
+        # HTS: no shortcut, bias-free upsamplers; HTL: shortcut, bias
+        kw = ({"shortcut": False} if c.is_hts
+              else {"shortcut": True, "force_bias": True})
         self.conv = nn.Sequential(
-            ResidualBlockUpsample(c.ch_z, c.ch_y, shortcut=False),
-            ResidualBlockUpsample(c.ch_y, c.ch_y, shortcut=False),
+            ResidualBlockUpsample(c.ch_z, c.ch_y, **kw),
+            ResidualBlockUpsample(c.ch_y, c.ch_y, **kw),
             DepthConvBlock(c.ch_y, c.ch_y))
 
     def forward(self, z_hat):
@@ -171,7 +193,7 @@ class HTTemporalPriorEncoder(nn.Module):
     def __init__(self, c):
         super().__init__()
         self.conv = ResidualBlockWithStride2(c.ch_d, c.ch_y * 2,
-                                             shortcut=False)
+                                             shortcut=not c.is_hts)
 
     def forward(self, memory, quant):
         return self.conv(memory * quant)
@@ -193,14 +215,15 @@ class HTPriorFusion(nn.Module):
 
 
 class HTSpatialPrior(nn.Module):
-    """Three DCBs and a 1x1 conv to the means (HTS: means only)."""
+    """Three DCBs and a 1x1 conv to the means (HTS) or to the scales and
+    means (HTL)."""
 
     def __init__(self, c):
         super().__init__()
         cy2 = c.ch_y * 2
         self.conv = nn.Sequential(
             *[DepthConvBlock(cy2, cy2) for _ in range(3)],
-            Conv1x1(cy2, c.ch_y))
+            Conv1x1(cy2, c.ch_y if c.is_hts else cy2))
 
     def forward(self, x):
         return self.conv(x)
@@ -208,58 +231,75 @@ class HTSpatialPrior(nn.Module):
 
 class HTReconHead(nn.Module):
     """The 8 frame-specific decoders (reference video_model_ht.py:215-275)
-    run as stacked DCB chains: a trunk shared by each frame pair
+    run as stacked DCB chains.  HTS: a trunk shared by each frame pair
     (conv1.{pair}.{m}), then per-frame blocks (conv2.{frame}.{m}) and a
     per-frame 1x1 conv to the 192 channels of an unshuffled frame
-    (conv2.{frame}.3).  Returns the head outputs (F, 1, h, w, 192) of
-    frames rows=(lo, hi), before the pixel shuffle."""
+    (conv2.{frame}.3).  HTL: no trunk, per-frame blocks conv.{frame}.{m}
+    and the 1x1 at conv.{frame}.5.  Returns the head outputs
+    (F, 1, h, w, 192) of frames rows=(lo, hi), before the pixel shuffle."""
 
     def __init__(self, c):
         super().__init__()
-        assert c.is_hts and c.recon_depth <= int(_HEAD_OUT)
+        head_out = _head_out(c)
+        assert c.recon_depth <= int(head_out)
         self.cfg = c
         fd = c.frame_delay
-        self.conv1 = nn.ModuleList(
-            nn.Sequential(*[DepthConvBlock(c.ch_d, c.ch_d)
-                            for _ in range(c.recon_shared_depth)])
-            for _ in range(fd // 2))
+        if c.is_hts:
+            self.conv1 = nn.ModuleList(
+                nn.Sequential(*[DepthConvBlock(c.ch_d, c.ch_d)
+                                for _ in range(c.recon_shared_depth)])
+                for _ in range(fd // 2))
         heads = []
         for _ in range(fd):
             blocks = [(str(m), DepthConvBlock(c.ch_d if m == 0 else c.ch_recon,
                                               c.ch_recon))
                       for m in range(c.recon_depth)]
-            blocks.append((_HEAD_OUT, Conv1x1(c.ch_recon, c.ch_src_intra)))
+            blocks.append((head_out, Conv1x1(c.ch_recon, c.ch_src_intra)))
             heads.append(nn.Sequential(collections.OrderedDict(blocks)))
-        self.conv2 = nn.ModuleList(heads)
+        # the reference names the per-frame list conv2 (HTS) or conv (HTL)
+        self._per_frame_name = "conv2" if c.is_hts else "conv"
+        setattr(self, self._per_frame_name, nn.ModuleList(heads))
         # stack views over the blocks above, one per depth (no parameters)
-        self.trunk = [StackedDCB([self.conv1[i][m] for i in range(fd // 2)])
-                      for m in range(c.recon_shared_depth)]
-        self.heads = [StackedDCB([getattr(self.conv2[i], str(m))
+        self.trunk = ([StackedDCB([self.conv1[i][m] for i in range(fd // 2)])
+                       for m in range(c.recon_shared_depth)]
+                      if c.is_hts else [])
+        self.heads = [StackedDCB([getattr(self.per_frame[i], str(m))
                                   for i in range(fd)])
                       for m in range(c.recon_depth)]
 
+    @property
+    def per_frame(self):
+        """The per-frame decoders (conv2 or conv)."""
+        return getattr(self, self._per_frame_name)
+
     def forward(self, x, rows=None):
         lo, hi = rows if rows is not None else (0, self.cfg.frame_delay)
-        assert lo % 2 == 0 and hi % 2 == 0, "HTS trunk pairs"
         x = x.contiguous()
-        # every trunk entry reads the same x (a stack stride of 0)
-        xt = x.unsqueeze(0).expand((hi - lo) // 2, *x.shape)
-        for blk in self.trunk:
-            xt = blk(xt, rows=(lo // 2, hi // 2))
-        xh = torch.repeat_interleave(xt, 2, dim=0)   # t0, t0, t1, t1, ...
+        if self.cfg.is_hts:
+            assert lo % 2 == 0 and hi % 2 == 0, "HTS trunk pairs"
+            # every trunk entry reads the same x (a stack stride of 0)
+            xt = x.unsqueeze(0).expand((hi - lo) // 2, *x.shape)
+            for blk in self.trunk:
+                xt = blk(xt, rows=(lo // 2, hi // 2))
+            # t0, t0, t1, t1, ...: each pair's trunk output twice
+            xh = xt.unsqueeze(1).expand(-1, 2, *xt.shape[1:]).reshape(
+                hi - lo, *xt.shape[1:])
+        else:
+            # every head entry reads the same x (a stack stride of 0)
+            xh = x.unsqueeze(0).expand(hi - lo, *x.shape)
         for blk in self.heads:
             xh = blk(xh, rows=(lo, hi))
-        return torch.stack([getattr(self.conv2[lo + s], _HEAD_OUT)(xh[s])
+        head_out = _head_out(self.cfg)
+        return torch.stack([getattr(self.per_frame[lo + s], head_out)(xh[s])
                             for s in range(hi - lo)])
 
 
 class DMCHT(nn.Module):
-    """Chunk-based video codec, HTS structure (reference DMC,
+    """Chunk-based video codec, HTS or HTL structure (reference DMC,
     video_model_ht.py:320-527)."""
 
     def __init__(self, cfg=HTS_CONFIG):
         super().__init__()
-        assert cfg.is_hts, "HTL (is_hts=False) is not ported yet"
         c = self.cfg = cfg
         self.feature_adaptor_i = HTFeatureAdaptorI(c)
         self.feature_adaptor_m = HTFeatureAdaptorM(c)
@@ -327,10 +367,12 @@ class DMCHT(nn.Module):
     def reset_feature(self, feature):
         """The last frame's recon-head output, unclipped, in the model
         dtype: the new DPB seed (video_model_ht.py:406-411).  Only the last
-        frame pair is evaluated; entries of the stack are independent, so
-        that equals the full head's last entry bit for bit."""
+        frame (HTS: the last frame pair, whose trunk it shares) is
+        evaluated; entries of the stack are independent, so that equals
+        the full head's last entry bit for bit."""
         fd = self.cfg.frame_delay
-        return self.recon_head(feature.to(self.dtype), rows=(fd - 2, fd))[-1]
+        lo = fd - 2 if self.cfg.is_hts else fd - 1
+        return self.recon_head(feature.to(self.dtype), rows=(lo, fd))[-1]
 
     # ------------------------------------------------------ shared stages
 
@@ -350,13 +392,16 @@ class DMCHT(nn.Module):
         return q_enc, q_dec, scales, means, ctx
 
     def prior_step(self, ctx, y_hat_so_far, step):
-        """Spatial prior for step k in {1, 2, 3}: the means.  Shared
-        enc/dec."""
+        """Spatial prior for step k in {1, 2, 3}: the means (HTS) or
+        (scales, means) (HTL).  Shared enc/dec."""
         adaptor = (self.y_spatial_prior_adaptor_1,
                    self.y_spatial_prior_adaptor_2,
                    self.y_spatial_prior_adaptor_3)[step - 1]
         sp_in = torch.cat([y_hat_so_far.to(self.dtype), ctx], dim=-1)
-        return self.y_spatial_prior(adaptor(sp_in))
+        out = self.y_spatial_prior(adaptor(sp_in))
+        if self.cfg.is_hts:
+            return out
+        return tuple(out.chunk(2, dim=-1))
 
     def analysis(self, x, ctx, qp):
         """Padded chunk (1, H, W, 3 * frame_delay) -> (y, z_int8).  y may

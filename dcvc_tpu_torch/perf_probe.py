@@ -3,10 +3,13 @@ shares with them.
 
     python3 -m dcvc_tpu_torch.perf_probe shapes [--iters 50]
     python3 -m dcvc_tpu_torch.perf_probe profile [--runs 2]
+    python3 -m dcvc_tpu_torch.perf_probe k2 [--symbols N] [--lanes n]
 
-`shapes` codes a warm 1080p DMCI frame (encode, decode) and, where the
-checkout has the HTS codec, a warm later 1080p HTS chunk (encode without
-recon, decode with it), all at qp 32 with seeded random weights in bf16.
+`shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
+DMC-HT width the checkout has (HTS, HTL), a warm later 1080p chunk
+(encode without recon, decode with it), all at qp 32 with seeded random
+weights in bf16; where the checkout has the device-entropy decode, every
+decode also runs through it.
 A LaunchLog records the shape of every K1 launch these calls make; then
 K1 and its plain version are timed at each distinct shape on random bf16
 inputs (CUDA events, median of `iters` after 3 warm-ups).  It prints one
@@ -14,6 +17,10 @@ line per shape and K1's device time per call (sum of per-shape medians x
 launches), then a JSON line of both.  To compare two checkouts in one
 session on the card, copy this file into the other checkout's package and
 run it from each root in turn: parent, change, change, parent.
+
+`k2` times K2 on a synthetic stream coded by the host encoder (see
+run_k2) against the host decoder's symbols, with its plain version's
+time and its latency bound.
 
 `profile` runs torch.profiler over the same warm calls, `runs` times
 each.  Per call it prints the wall time (host clock around the call,
@@ -126,12 +133,228 @@ class LaunchLog:
         return total
 
 
+# ------------------------------------------------------------------ K2
+
+class K2Call(NamedTuple):
+    """One call of K2 on the main path, its inputs kept for a replay:
+    the lanes (shared by a decode's calls), the state going in, idx, the
+    count tensor (or int) and the bank rows of the call."""
+    label: str
+    streams: torch.Tensor
+    st: torch.Tensor
+    ptr: torch.Tensor
+    idx: torch.Tensor
+    count: object
+    cdf: torch.Tensor
+    lengths: torch.Tensor
+
+    def args(self):
+        return ({"streams": self.streams, "st": self.st, "ptr": self.ptr},
+                self.idx, self.count, {"cdf": self.cdf, "len": self.lengths})
+
+    def signature(self):
+        """Its shape: (lanes, lane bytes, cap, bank rows)."""
+        return (self.streams.shape[0], self.streams.shape[1],
+                self.idx.shape[0], self.cdf.shape[0])
+
+
+class K2Log:
+    """Inside `with log:`, keeps the inputs of every launch of K2 (wrapping
+    the wrapper's launch function; the codecs call it through
+    kernels.rans_decode.rans_decode), under the label set by
+    `log.label`."""
+
+    def __init__(self):
+        self.calls = []
+        self.label = None
+
+    def __enter__(self):
+        from .kernels import rans_decode as K2
+        self._k2 = K2
+        self._saved = K2.rans_decode_launch
+
+        def launch(state, idx, count, bank):
+            self.calls.append(K2Call(
+                self.label, state["streams"], state["st"], state["ptr"], idx,
+                count, bank["cdf"], bank["len"]))
+            return self._saved(state, idx, count, bank)
+        K2.rans_decode_launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._k2.rans_decode_launch = self._saved
+
+
+def k2_fixtures():
+    """The cases of tests/test_device_decode.py and
+    tests/test_pallas_decode.py, made with numpy from their seeds and
+    encoded by the port's host coder: [(name, n_lanes, stream, calls)],
+    calls = [(idx (cap,) uint8, count, cdf, lengths, want)] on one lane
+    state, want = the host decoder's symbols of the call."""
+    import numpy as np
+    from .entropy.cdf import pmf_to_quantized_cdf
+    from .rans import RansDecoder, RansEncoder
+
+    def bank(rng, n_cdf, alphabet):
+        per = alphabet + 2
+        cdf = np.zeros((n_cdf, per), np.int32)
+        for i in range(n_cdf):
+            cdf[i] = pmf_to_quantized_cdf(
+                rng.dirichlet(np.full(alphabet + 1, 0.6)))
+        return cdf, np.full((n_cdf,), per, np.int32)
+
+    def pad(idx, cap):
+        out = np.zeros(cap, np.uint8)
+        out[:idx.size] = idx
+        return out
+
+    def coders(n_lanes, y_bank, z_bank=None):
+        enc, dec = RansEncoder(), RansDecoder()
+        for c in (enc, dec):
+            c.set_cdf(*y_bank, 1)
+            if z_bank is not None:
+                c.set_cdf(*z_bank, 0)
+            c.set_parallel(n_lanes)
+        enc.reset()
+        return enc, dec
+
+    cases = []
+    for n_lanes, seed, n, cap in [(1, 101, 1001, 1017), (2, 102, 1002, 1018),
+                                  (3, 103, 1003, 1019), (5, 105, 1005, 1021),
+                                  (8, 108, 1008, 1024), (8, 5, 5, 256),
+                                  (3, 6, 0, 64)]:
+        rng = np.random.default_rng(seed)
+        yb = bank(rng, 7, 12)
+        idx = rng.integers(0, 7, n).astype(np.uint8)
+        sym = rng.integers(-5, 6, n).astype(np.int8)
+        esc = rng.random(n) < 0.02          # bypass escapes
+        sym[esc] = rng.integers(30, 120, esc.sum())
+        enc, dec = coders(n_lanes, yb)
+        enc.encode_y(((sym.astype(np.int16) << 8) | idx).astype(np.int16))
+        enc.flush()
+        stream = enc.get_encoded_stream()
+        dec.set_stream(stream)
+        want = np.zeros(0, np.int8)
+        if n:
+            dec.decode_y(idx)
+            want = dec.get_decoded(n)
+        name = (f"y {n_lanes} lanes, {n} symbols, {int(esc.sum())} escapes"
+                if n >= n_lanes else f"y {n_lanes} lanes, count {n}")
+        cases.append((name, n_lanes, stream,
+                      [(pad(idx, cap), n, *yb, want)]))
+
+    # z -> y1 -> y2 on one state (the decode ladder)
+    rng = np.random.default_rng(17)
+    n_lanes, ch, qp, nz, cap = 8, 4, 2, 256, 1024
+    zb, yb = bank(rng, 12, 16), bank(rng, 9, 10)
+    z = rng.integers(-7, 8, nz).astype(np.int8)
+    i1 = rng.integers(0, 9, 700).astype(np.uint8)
+    i2 = rng.integers(0, 9, 500).astype(np.uint8)
+    s1 = rng.integers(-4, 5, 700).astype(np.int8)
+    s2 = rng.integers(-4, 5, 500).astype(np.int8)
+    enc, dec = coders(n_lanes, yb, zb)
+    enc.encode_y(((s2.astype(np.int16) << 8) | i2).astype(np.int16))
+    enc.encode_y(((s1.astype(np.int16) << 8) | i1).astype(np.int16))
+    enc.encode_z(z, qp * ch, ch)
+    enc.flush()
+    stream = enc.get_encoded_stream()
+    dec.set_stream(stream)
+    dec.decode_z(nz, qp * ch, ch)
+    wz = dec.get_decoded(nz)
+    dec.decode_y(i1)
+    w1 = dec.get_decoded(700)
+    dec.decode_y(i2)
+    w2 = dec.get_decoded(500)
+    zrows = slice(qp * ch, qp * ch + ch)
+    cases.append(("z -> y1 -> y2, 8 lanes", n_lanes, stream, [
+        ((np.arange(nz) % ch).astype(np.uint8), nz, zb[0][zrows],
+         zb[1][zrows], wz),
+        (pad(i1, cap), 700, *yb, w1), (pad(i2, cap), 500, *yb, w2)]))
+    return cases
+
+
+def run_k2_case(case, dev, decode):
+    """A fixture's calls through `decode` (K2's wrapper, its launch or its
+    plain version) on `dev`.  Returns (final state, outputs)."""
+    from .kernels.rans_decode import make_bank
+    from .rans.device_decode import init_state, upload_lanes
+    _, n_lanes, stream, calls = case
+    state = init_state(upload_lanes(stream, n_lanes, dev))
+    outs = []
+    for idx, count, cdf, lengths, _ in calls:
+        state, out = decode(
+            state, torch.from_numpy(idx).to(dev),
+            torch.tensor(count, dtype=torch.int32, device=dev),
+            make_bank(cdf, lengths, dev))
+        outs.append(out)
+    return state, outs
+
+
+# One symbol step's dependent chain (rans.cc dec_symbol): cum = st & mask,
+# the compare that finds s, the select of cdf[s] / cdf[s + 1], the
+# multiply-add of the new state, the renorm compare, the shift-or of the
+# pulled byte: 6 dependent integer operations, each at least 4 cycles on
+# Hopper's integer pipes.  The row, the byte and the next index do not
+# depend on the state and can be fetched ahead.
+K2_STEP_OPS = 6
+K2_OP_CYCLES = 4
+
+
+def k2_latency_bound_ms(calls, clock_mhz):
+    """The least time of K2 on these calls: each lane is one dependent
+    chain, so the time is the longest lane's symbol count times the
+    dependent latency of one symbol step, summed over the calls.  A step
+    is at least K2_STEP_OPS dependent integer operations of
+    K2_OP_CYCLES cycles each at the SM clock (see K2_STEP_OPS)."""
+    total = 0
+    for c in calls:
+        count = int(c.count)
+        n = c.streams.shape[0]
+        total += count - (count // n) * (n - 1)   # the last lane's share
+    return total * K2_STEP_OPS * K2_OP_CYCLES / (clock_mhz * 1e3)
+
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16
+# tensor-core rate and HBM3 bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def k1_bound_ms(key):
+    """(ms at the bf16 peak for the launch's matrix-product FLOPs, ms at
+    the memory rate for its bytes: x read once (once for all entries when
+    broadcast), weights and biases read once, the output written once;
+    all bf16) of one K1 launch of shape `key`.  The bound is the larger."""
+    pix = key.h * key.w
+    i, c = key.inner, key.c
+    macs = c * i + i * c + 4 * c * i + i * c          # dc_in, dc_out, FFN
+    weights = macs + 9 * i + 2 * i + 4 * i + 3 * c    # + dw kernel, biases
+    if key.adaptor:
+        macs += key.cin * c
+        weights += key.cin * c + c
+    flops = key.s * pix * (2 * macs + 2 * 9 * i)
+    x_reads = 1 if key.bcast else key.s
+    nbytes = 2 * (x_reads * pix * key.cin + key.s * weights
+                  + key.s * pix * c)
+    return 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -209,22 +432,72 @@ def make_sequence(h, w, n, seed, dev):
         for i in range(n)]
 
 
-def _hts_codec(dev):
-    """The HTS codec at full width (init_scale 0.5, as bench.py), or None
-    in a checkout that has none."""
+def _video_codec(dev, cfg_name):
+    """The DMC-HT codec at full width at models.dmc_ht.<cfg_name>
+    (init_scale 0.5, as bench.py), or None in a checkout that has none."""
     try:
+        from .models import dmc_ht
         from .runtime.video_codec import DMCHTCodec
-    except ImportError:
+        cfg = getattr(dmc_ht, cfg_name)
+    except (ImportError, AttributeError):
         return None
-    return DMCHTCodec.init_random(torch.Generator().manual_seed(0),
+    return DMCHTCodec.init_random(torch.Generator().manual_seed(0), cfg=cfg,
                                   init_scale=0.5, skip_thres=0.15,
                                   dtype=torch.bfloat16, device=dev)
 
 
+def _device_ec(codec, fn):
+    """fn() with the codec's device-entropy decode on."""
+    codec.device_ec = True
+    try:
+        return fn()
+    finally:
+        codec.device_ec = False
+
+
+def _later_chunk_calls(name, codec, dev):
+    """Warm calls of a later 1080p chunk of `codec`: encode, decode and
+    (where the checkout has it) the device decode."""
+    h, w = H, W
+    frames = make_sequence(h, w, 16, 2, dev)
+    chunks = [torch.cat(frames[8 * u:8 * u + 8], dim=-1) for u in range(2)]
+
+    def seeded():
+        codec.clear_dpb()
+        codec.add_ref_feature_from_frame(frames[0])
+
+    seeded()
+    r0 = codec.compress(chunks[0], QP)
+    after0 = (codec.ref_feature, codec.memory)
+    r1 = codec.compress(chunks[1], QP)
+    streams = [(bytes(r["bit_stream"]), r["ec_parallel"]) for r in (r0, r1)]
+    seeded()
+    codec.decompress(streams[0][0], QP, h, w, streams[0][1])
+    codec.decompress(streams[1][0], QP, h, w, streams[1][1])
+
+    def later(fn):
+        codec.ref_feature, codec.memory = after0
+        return fn()
+
+    def decode():
+        return codec.decompress(streams[1][0], QP, h, w, streams[1][1])
+    calls = [(f"{name} 1080p later chunk encode", codec,
+              lambda: later(lambda: codec.compress(chunks[1], QP))),
+             (f"{name} 1080p later chunk decode", codec,
+              lambda: later(decode))]
+    if hasattr(codec, "upload_stream"):
+        calls.append((f"{name} 1080p later chunk device decode", codec,
+                      lambda: later(lambda: _device_ec(codec, decode))))
+        calls[-1][2]()
+    return calls
+
+
 def warm_calls(dev):
     """[(label, codec, fn)] of the measured calls, each warmed up once:
-    a 1080p DMCI encode and decode, and (where there is an HTS codec) a
-    later 1080p HTS chunk's encode and decode; every fn() repeats its
+    a 1080p DMCI encode and decode, and, for each DMC-HT width the
+    checkout has (HTS, HTL), a later 1080p chunk's encode and decode;
+    where the checkout has the device-entropy decode, each decode also
+    through it (its stream's upload included).  Every fn() repeats its
     call from the same state."""
     h, w = H, W
     dmci = DMCICodec.init_random(torch.Generator().manual_seed(0),
@@ -233,37 +506,20 @@ def warm_calls(dev):
     x = smooth_frame(h, w, 0, dev)
     res = dmci.compress(x, QP)
     bits = bytes(res["bit_stream"])
-    dmci.decompress(bits, QP, h, w, res["ec_parallel"])
+
+    def decode():
+        return dmci.decompress(bits, QP, h, w, res["ec_parallel"])
+    decode()
     calls = [("DMCI 1080p encode", dmci, lambda: dmci.compress(x, QP)),
-             ("DMCI 1080p decode", dmci, lambda: dmci.decompress(
-                 bits, QP, h, w, res["ec_parallel"]))]
-    hts = _hts_codec(dev)
-    if hts is None:
-        return calls
-    frames = make_sequence(h, w, 16, 2, dev)
-    chunks = [torch.cat(frames[8 * u:8 * u + 8], dim=-1) for u in range(2)]
-
-    def seeded():
-        hts.clear_dpb()
-        hts.add_ref_feature_from_frame(frames[0])
-
-    seeded()
-    r0 = hts.compress(chunks[0], QP)
-    after0 = (hts.ref_feature, hts.memory)
-    r1 = hts.compress(chunks[1], QP)
-    streams = [(bytes(r["bit_stream"]), r["ec_parallel"]) for r in (r0, r1)]
-    seeded()
-    hts.decompress(streams[0][0], QP, h, w, streams[0][1])
-    hts.decompress(streams[1][0], QP, h, w, streams[1][1])
-
-    def later(fn):
-        hts.ref_feature, hts.memory = after0
-        return fn()
-    calls += [("HTS 1080p later chunk encode", hts,
-               lambda: later(lambda: hts.compress(chunks[1], QP))),
-              ("HTS 1080p later chunk decode", hts,
-               lambda: later(lambda: hts.decompress(
-                   streams[1][0], QP, h, w, streams[1][1])))]
+             ("DMCI 1080p decode", dmci, decode)]
+    if hasattr(dmci, "upload_stream"):
+        calls.append(("DMCI 1080p device decode", dmci,
+                      lambda: _device_ec(dmci, decode)))
+        calls[-1][2]()
+    for name in ("HTS", "HTL"):
+        codec = _video_codec(dev, f"{name}_CONFIG")
+        if codec is not None:
+            calls += _later_chunk_calls(name, codec, dev)
     return calls
 
 
@@ -366,13 +622,61 @@ def run_profile(dev, runs):
             profile_call(label, codec, fn, r)
 
 
+def run_k2(dev, symbols, lanes):
+    """K2 on a synthetic stream: `symbols` y symbols (rows uniform over the
+    128 Gaussian CDFs, values ~ N(0, 6) rounded, |v| <= 127, so some
+    escape) coded by the host encoder over `lanes` lanes; the kernel
+    against the host decoder and timed (CUDA events), the plain version
+    timed once (host clock), and the latency bound."""
+    import numpy as np
+    from .entropy.gaussian import GaussianConditional
+    from .kernels import rans_decode as K2
+    from .rans import RansEncoder
+    from .rans.device_decode import init_state, upload_lanes
+    cdf, lengths = GaussianConditional(0.15).compute_cdf_bank()
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, 128, symbols).astype(np.uint8)
+    sym = np.clip(np.round(rng.normal(0, 6, symbols)), -127, 127).astype(
+        np.int8)
+    enc = RansEncoder()
+    enc.set_cdf(cdf, lengths, 1)
+    enc.set_parallel(lanes)
+    enc.reset()
+    enc.encode_y(((sym.astype(np.int16) << 8) | idx).astype(np.int16))
+    enc.flush()
+    stream = enc.get_encoded_stream()
+    lane_t = upload_lanes(stream, lanes, dev)
+    args = (torch.from_numpy(idx).to(dev),
+            torch.tensor(symbols, dtype=torch.int32, device=dev),
+            K2.make_bank(cdf, lengths, dev))
+    _, out = K2.rans_decode(init_state(lane_t), *args)
+    equal = bool(np.array_equal(out.cpu().numpy(), sym))
+    k_ms = cuda_ms(lambda: K2.rans_decode(init_state(lane_t), *args),
+                   iters=5, warmup=1)
+    t0 = time.perf_counter()
+    K2.rans_decode_reference(init_state(lane_t), *args)
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    longest = symbols - (symbols // lanes) * (lanes - 1)
+    clock = max_sm_clock_mhz()
+    bound = longest * K2_STEP_OPS * K2_OP_CYCLES / (clock * 1e3)
+    print(json.dumps({"k2_symbols": symbols, "lanes": lanes,
+                      "stream_bytes": len(stream), "equal_to_host": equal,
+                      "kernel_ms": k_ms, "plain_ms": p_ms,
+                      "ns_per_symbol_per_lane": 1e6 * k_ms / longest,
+                      "bound_ms": bound, "max_sm_clock_mhz": clock}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("shapes", "profile"))
+    ap.add_argument("mode", choices=("shapes", "profile", "k2"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
                     help="profiled runs per call (profile)")
+    ap.add_argument("--symbols", type=int, default=2_000_000,
+                    help="symbols of the synthetic stream (k2)")
+    ap.add_argument("--lanes", type=int, default=8,
+                    help="lanes of the synthetic stream (k2)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe: no CUDA device")
@@ -383,6 +687,8 @@ def main():
     # not be made in it)
     if args.mode == "shapes":
         run_shapes(dev, args.iters)
+    elif args.mode == "k2":
+        run_k2(dev, args.symbols, args.lanes)
     else:
         run_profile(dev, args.runs)
 

@@ -15,6 +15,11 @@ Program graph (4-step quadtree ladder):
   enc:  analysis -> prior0 -> { enc_quant_k -> step_k }*4 -> synthesis
   dec:  host z rANS -> prior0 -> { host y rANS -> expand_k -> step_k }*4
         -> synthesis
+  dec, device_ec=True: the stream's lanes are copied to the card once;
+        then K2 z -> prior0 -> { K2 y -> expand_k -> step_k }*4
+        -> synthesis, with K2's lane state threaded on the card and no
+        host sync (kernels/rans_decode.py; the symbols are the host
+        coder's, so x_hat is the same).
 Quantization and entropy bookkeeping run in the quarter-size candidate
 domain (core/masks.py); its order is the stream's symbol order.
 """
@@ -27,9 +32,11 @@ from ..core.masks import phase_merge, phase_split, phase_terms_4x, \
 from ..core.padding import get_padding_size, pad_replicate_nhwc
 from ..entropy.bit_estimator import BitEstimator
 from ..entropy.gaussian import GaussianConditional, scale_to_index
+from ..kernels.rans_decode import make_bank, rans_decode
 from ..models.dmci import DMCI, DMCIConfig
-from .symbols import compact_idx, compact_vals, expand_from_pos, \
-    quantize_candidate
+from ..rans.device_decode import init_state, upload_lanes
+from .symbols import compact_idx, compact_idx_sorted, compact_vals, \
+    expand_from_pos, quantize_candidate
 
 
 def set_deterministic():
@@ -47,14 +54,19 @@ def check_qp(qp, qp_num):
         raise ValueError(f"qp {qp} out of range [0, {qp_num})")
 
 
-def make_coders(rans, model, skip_thres):
-    """Host rANS encoder and decoder holding the z CDF bank of `model`'s
+def cdf_banks(model, skip_thres):
+    """((z_cdf, z_len), (y_cdf, y_len)): the z CDF bank of `model`'s
     bit_estimator_z (from its float32 parameters, whatever dtype the model
     will run in) and the y bank of the Gaussian model."""
     cfg = model.cfg
     be = BitEstimator(cfg.qp_num, cfg.ch_z)
-    z_cdf, z_len = be.compute_cdf_bank(model.bit_estimator_z.bank(), 8)
-    y_cdf, y_len = GaussianConditional(skip_thres).compute_cdf_bank()
+    z = be.compute_cdf_bank(model.bit_estimator_z.bank(), 8)
+    return z, GaussianConditional(skip_thres).compute_cdf_bank()
+
+
+def make_coders(rans, banks):
+    """Host rANS encoder and decoder holding the (z, y) CDF banks."""
+    (z_cdf, z_len), (y_cdf, y_len) = banks
     coders = rans.RansEncoder(), rans.RansDecoder()
     for coder in coders:
         coder.set_cdf(z_cdf, z_len, 0)
@@ -62,8 +74,14 @@ def make_coders(rans, model, skip_thres):
     return coders
 
 
-def grid_plan(h, w, ch_y, device):
-    """Grid sizes and candidate-domain masks for original size (h, w)."""
+def device_banks(banks, device):
+    """The (z, y) CDF banks as K2's device tensors."""
+    return tuple(make_bank(cdf, lengths, device) for cdf, lengths in banks)
+
+
+def grid_plan(h, w, ch_y, ch_z, device):
+    """Grid sizes, candidate-domain masks and the z calls' row indexes
+    (i % ch_z, for K2) for original size (h, w)."""
     # frames pad to 16, so the latent grid may be odd (720p -> 45)
     pad_r, pad_b = get_padding_size(h, w, 16)
     yh, yw = (h + pad_b) // 16, (w + pad_r) // 16
@@ -71,25 +89,80 @@ def grid_plan(h, w, ch_y, device):
     terms = phase_terms_4x(ch_y)
     valid = [torch.from_numpy(phase_valid(yh, yw, terms_key(t))).to(device)
              for t in terms]
-    return {"pad": (pad_b, pad_r), "y": (yh, yw),
-            "z": ((yh + 3) // 4, (yw + 3) // 4), "cand": cand,
-            "n_cand": cand[0] * cand[1] * ch_y, "terms": terms,
-            "valid": valid}
+    zh, zw = (yh + 3) // 4, (yw + 3) // 4
+    z_idx = (torch.arange(zh * zw * ch_z, device=device) % ch_z).to(
+        torch.uint8)
+    return {"pad": (pad_b, pad_r), "y": (yh, yw), "z": (zh, zw),
+            "cand": cand, "n_cand": cand[0] * cand[1] * ch_y,
+            "terms": terms, "valid": valid, "z_idx": z_idx}
 
 
-class DMCICodec:
+class EntropyDecoder:
+    """The decoder's entropy calls of both codecs: the host rANS coder, or
+    K2 on the card when `device_ec` (then the first call takes the
+    stream's lanes, and each call threads K2's lane state; a host call's
+    state is None).  Needs cfg, device, device_ec, decoder and
+    _k2_banks."""
+
+    def upload_stream(self, bit_stream, ec_part):
+        """device_ec: the stream split into its ec_part lanes and copied to
+        the codec's device, (ec_part, L) uint8.  decompress takes it in
+        place of the bytes; after it, the decode makes no host sync."""
+        return upload_lanes(bit_stream, ec_part, self.device)
+
+    def _decode_z(self, bit_stream, ec_part, p, qp):
+        """The z symbols (1, zh, zw, ch_z) int8, row (i % ch_z) + qp * ch_z
+        of the z bank.  Returns (state, z_int8)."""
+        ch_z = self.cfg.ch_z
+        zh, zw = p["z"]
+        n = zh * zw * ch_z
+        if self.device_ec:
+            if ch_z > 256:     # K2 reads row i % ch_z from uint8 indexes
+                raise ValueError(f"device_ec needs ch_z <= 256, got {ch_z}")
+            lanes = (bit_stream if isinstance(bit_stream, torch.Tensor)
+                     else self.upload_stream(bit_stream, ec_part))
+            rows = slice(int(qp) * ch_z, (int(qp) + 1) * ch_z)
+            bank = {k: v[rows] for k, v in self._k2_banks[0].items()}
+            state, z = rans_decode(init_state(lanes), p["z_idx"], n, bank)
+        else:
+            dec = self.decoder
+            dec.set_parallel(ec_part)
+            dec.set_stream(bit_stream)
+            dec.decode_z(n, int(qp) * ch_z, ch_z)
+            state, z = None, torch.from_numpy(dec.get_decoded()).to(
+                self.device)
+        return state, z.reshape(1, zh, zw, ch_z)
+
+    def _decode_y(self, state, packed_idx, count):
+        """The y symbols of one call, from the first `count` compacted
+        indexes.  Returns (state, symbols int8): K2 gives (cap,) with zeros
+        past count, the host coder (count,)."""
+        if self.device_ec:
+            return rans_decode(state, packed_idx, count, self._k2_banks[1])
+        c = int(count)
+        decoded = np.zeros(0, np.int8)
+        if c > 0:
+            self.decoder.decode_y(packed_idx[:c].cpu().numpy())
+            decoded = self.decoder.get_decoded()
+        return None, torch.from_numpy(decoded).to(self.device)
+
+
+class DMCICodec(EntropyDecoder):
     """Holds the model, the CDF banks and the host rANS coders, and
     implements compress/decompress against the bitstream payload.
 
     params: a state_dict of models.dmci.DMCI (reference key names).  The
     model runs in `dtype` on `device`; on a CUDA device every
     DepthConvBlock goes through the fused CUDA kernel, which takes
-    bfloat16 only."""
+    bfloat16 only.  device_ec=True decodes the rANS stream on the device
+    (K2) instead of the host coder: same symbols, same x_hat, and no host
+    sync after the stream's upload.  Off by default, as in the JAX
+    codec."""
 
     MAX_EC = 8
 
     def __init__(self, params, cfg=None, skip_thres=0.0,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", device_ec=False):
         set_deterministic()
         self.cfg = cfg or DMCIConfig()
         self.device = torch.device(device)
@@ -100,7 +173,10 @@ class DMCICodec:
         self._rans = rans
         model = DMCI(self.cfg)
         model.load_state_dict(params)
-        self.encoder, self.decoder = make_coders(rans, model, skip_thres)
+        banks = cdf_banks(model, skip_thres)
+        self.encoder, self.decoder = make_coders(rans, banks)
+        self.device_ec = bool(device_ec)
+        self._k2_banks = device_banks(banks, self.device)
         self.model = model.to(self.device, dtype).eval()
         self._plans = {}
 
@@ -119,16 +195,19 @@ class DMCICodec:
 
     def _plan(self, h, w):
         if (h, w) not in self._plans:
-            self._plans[(h, w)] = grid_plan(h, w, self.cfg.ch_y, self.device)
+            self._plans[(h, w)] = grid_plan(h, w, self.cfg.ch_y,
+                                            self.cfg.ch_z, self.device)
         return self._plans[(h, w)]
 
-    def _build_idx(self, p, scales, step):
+    def _build_idx(self, p, scales, step, sync_free=False):
         """Candidate-domain scale indexes + skip conditions + their stable
-        compaction, for mask step `step`."""
+        compaction, for mask step `step` (sync_free: the sort-based
+        compaction of the device decode; the same results)."""
         flat = phase_split(scales, p["terms"][step]).float().reshape(-1)
         idx = scale_to_index(flat).to(torch.uint8)
         cond = (flat > self.skip_thres) & p["valid"][step]
-        packed_idx, packed_pos, count = compact_idx(idx, cond)
+        compact = compact_idx_sorted if sync_free else compact_idx
+        packed_idx, packed_pos, count = compact(idx, cond)
         return packed_idx, packed_pos, count, cond
 
     def _analysis(self, p, x, qp):
@@ -138,10 +217,10 @@ class DMCICodec:
         y_scaled, z_int8 = self.model.analysis(x, qp)
         return y_scaled.float(), z_int8
 
-    def _prior0(self, p, z_int8):
+    def _prior0(self, p, z_int8, sync_free=False):
         """Shared enc+dec: hyper prior + step-0 compacted indexes."""
         scales, means, ctx = self.model.prior0(z_int8, *p["y"])
-        return (means, ctx) + self._build_idx(p, scales, 0)
+        return (means, ctx) + self._build_idx(p, scales, 0, sync_free)
 
     def _enc_quant(self, p, step, y_scaled, means, cond, packed_idx):
         """Encoder-only quantization in the candidate domain; cond and
@@ -155,7 +234,8 @@ class DMCICodec:
         combined = (packed_q << 8) | (packed_idx.to(torch.int16) & 0xFF)
         return combined, y_q
 
-    def _step(self, p, step, y_q_int8, means, y_hat_so_far, ctx):
+    def _step(self, p, step, y_q_int8, means, y_hat_so_far, ctx,
+              sync_free=False):
         """Shared enc+dec ladder rung: merge integer y_q + means into
         y_hat, then the next spatial prior + indexes."""
         terms = p["terms"][step]
@@ -167,8 +247,8 @@ class DMCICodec:
             return y_hat_so_far
         scales, means_next = self.model.prior_step(ctx, y_hat_so_far,
                                                    step + 1)
-        return (y_hat_so_far, means_next) + self._build_idx(p, scales,
-                                                            step + 1)
+        return (y_hat_so_far, means_next) + self._build_idx(
+            p, scales, step + 1, sync_free)
 
     def _synthesis(self, y_hat_so_far, qp, h, w):
         """Shared enc+dec reconstruction."""
@@ -222,36 +302,24 @@ class DMCICodec:
     @torch.inference_mode()
     def decompress(self, bit_stream, qp, h, w, ec_part):
         """Returns dict(x_hat) with x_hat (1, h, w, 3) float32 in
-        [-0.5, 0.5], a tensor on the codec's device."""
+        [-0.5, 0.5], a tensor on the codec's device.  With device_ec,
+        bit_stream may also be upload_stream's lanes."""
         check_qp(qp, self.cfg.qp_num)
         p = self._plan(h, w)
-        ch_z, ch_y = self.cfg.ch_z, self.cfg.ch_y
-        zh, zw = p["z"]
-        n_cand = p["cand"][0] * p["cand"][1] * ch_y
-
-        dec = self.decoder
-        dec.set_parallel(ec_part)
-        dec.set_stream(bit_stream)
-        dec.decode_z(zh * zw * ch_z, int(qp) * ch_z, ch_z)
-        z_int8 = torch.from_numpy(
-            dec.get_decoded().reshape(1, zh, zw, ch_z)).to(self.device)
-
-        means, ctx, packed_idx, packed_pos, count, cond = self._prior0(
-            p, z_int8)
+        ch_y = self.cfg.ch_y
+        sync_free = self.device_ec
+        state, z_int8 = self._decode_z(bit_stream, ec_part, p, qp)
+        means, ctx, packed_idx, packed_pos, count, _ = self._prior0(
+            p, z_int8, sync_free)
         y_hat = torch.zeros((1,) + p["y"] + (ch_y,), dtype=torch.float32,
                             device=self.device)
         for k in range(4):
-            c = int(count)
-            decoded = np.zeros(0, np.int8)
-            if c > 0:
-                dec.decode_y(packed_idx[:c].cpu().numpy())
-                decoded = dec.get_decoded()
-            y_q = expand_from_pos(packed_pos,
-                                  torch.from_numpy(decoded).to(self.device),
-                                  n_cand).reshape((1,) + p["cand"] + (ch_y,))
-            out = self._step(p, k, y_q, means, y_hat, ctx)
+            state, decoded = self._decode_y(state, packed_idx, count)
+            y_q = expand_from_pos(packed_pos, decoded, p["n_cand"]).reshape(
+                (1,) + p["cand"] + (ch_y,))
+            out = self._step(p, k, y_q, means, y_hat, ctx, sync_free)
             if k < 3:
-                y_hat, means, packed_idx, packed_pos, count, cond = out
+                y_hat, means, packed_idx, packed_pos, count, _ = out
             else:
                 y_hat = out
         return {"x_hat": self._synthesis(y_hat, qp, h, w)}

@@ -1,10 +1,13 @@
 """Symbol compaction for the inference runtime (counterpart of
 dcvc_tpu/runtime/symbols.py).
 
-The JAX package compacts with a stable sort because scatter is slow on a
-TPU.  Here compaction is a boolean-mask `nonzero` and expansion an index
-scatter, in the same stable order: coded candidates first, in candidate
-order, then the skipped ones.  That order is the stream's symbol order.
+Compaction puts the coded candidates first, in candidate order, then the
+skipped ones.  That order is the stream's symbol order.  The host-coder
+paths compact with a boolean-mask `nonzero`, which waits for the device
+(they wait for the count anyway).  The device-entropy decode must not
+wait, so it compacts with a stable sort keyed on the skip flag, as the
+JAX package does (`compact_idx_sorted`): the same result without a sync.
+Expansion is a scatter by the carried positions.
 """
 
 import torch
@@ -23,6 +26,14 @@ def compact_idx(idx_u8, cond):
     return idx_u8[pos], pos.to(torch.int32), count
 
 
+def compact_idx_sorted(idx_u8, cond):
+    """compact_idx without a host sync: one stable sort keyed on ~cond
+    (dcvc_tpu/runtime/symbols.py:24-37).  Same results."""
+    pos = torch.sort((~cond).to(torch.uint8), stable=True).indices
+    count = cond.sum(dtype=torch.int32)
+    return idx_u8.index_select(0, pos), pos.to(torch.int32), count
+
+
 def compact_vals(vals, cond):
     """Compact a value buffer (same stable order as compact_idx)."""
     return torch.cat([vals[cond], vals[~cond]])
@@ -39,9 +50,7 @@ def expand_from_pos(packed_pos, padded, n):
         padded = torch.cat([padded, padded.new_zeros(n - cap)])
     elif cap > n:
         padded = padded[:n]
-    dense = torch.empty_like(padded)
-    dense[packed_pos.long()] = padded
-    return dense
+    return torch.empty_like(padded).scatter_(0, packed_pos.long(), padded)
 
 
 def quantize_candidate(y_c, means_c, cond):

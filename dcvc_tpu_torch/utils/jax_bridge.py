@@ -2,22 +2,21 @@
 
 The port names its parameters after the reference torch module tree, so
 the key of each flax leaf is exactly what dcvc_tpu's checkpoint importer
-maps it from (`dcvc_tpu.utils.torch_import.key_fn_dmci` for DMCI and its
-blocks, `key_fn_dmc_ht` for DMC-HT).  This inverts that importer's leaf
-conversion: conv kernels (kh, kw, I, O) go back to (O, I, kh, kw),
+maps it from (`key_fn_dmci` for DMCI and its blocks, `key_fn_dmc_ht` for
+DMC-HT; the port's verbatim copies in utils/keys.py).  This inverts that
+importer's leaf conversion: conv kernels (kh, kw, I, O) go back to
+(O, I, kh, kw),
 depthwise kernels (3, 3, 1, C) to (C, 1, 3, 3); every other leaf keeps
 its shape.  A stacked recon leaf (StackedDCB, the recon head's out_w /
 out_b) maps to one reference key per entry and is split on axis 0: 1x1
 kernels (I, O) -> (O, I, 1, 1), the depthwise dc_dw_w (3, 3, I) ->
 (I, 1, 3, 3), biases as they are.
-
-Only code that already holds flax parameters calls this (the parity
-tests), so importing the key maps from dcvc_tpu here loads nothing that
-the caller has not loaded.
 """
 
 import numpy as np
 import torch
+
+from .keys import _stacked_leaf, key_fn_dmc_ht, key_fn_dmci
 
 
 def _leaves(tree, path=()):
@@ -50,20 +49,17 @@ def dmci_params_from_jax(flax_params):
     """flax DMCI params (nested dict of arrays) -> {key: float32 tensor},
     the state_dict of dcvc_tpu_torch.models.dmci.DMCI (or of any of its
     blocks, given that block's flax params)."""
-    from dcvc_tpu.utils.torch_import import key_fn_dmci
-
     return {key_fn_dmci(path): _tensor(leaf)
             for path, leaf in _leaves(flax_params)}
 
 
-def dmc_ht_params_from_jax(flax_params):
+def dmc_ht_params_from_jax(flax_params, hts=True):
     """flax DMCHT params (both adaptor branches merged, as the JAX codec
-    holds them) -> the state_dict of dcvc_tpu_torch.models.dmc_ht.DMCHT."""
-    from dcvc_tpu.utils.torch_import import key_fn_dmc_ht
-
+    holds them) -> the state_dict of dcvc_tpu_torch.models.dmc_ht.DMCHT;
+    hts=False for an HTL model (recon heads at `recon_head.conv.{i}`)."""
     state = {}
     for path, leaf in _leaves(flax_params):
-        key = key_fn_dmc_ht(path)
+        key = key_fn_dmc_ht(path, hts=hts)
         if isinstance(key, list):
             state.update(zip(key, _split_stacked(path[-1], leaf)))
         else:
@@ -74,8 +70,6 @@ def dmc_ht_params_from_jax(flax_params):
 def stacked_dcb_params_from_jax(flax_params):
     """flax StackedDCB params -> the state_dict of an nn.ModuleList of its
     S DepthConvBlocks (keys `{i}.dc.0.weight`, ...)."""
-    from dcvc_tpu.utils.torch_import import _stacked_leaf
-
     state = {}
     for name, leaf in flax_params.items():
         sub, kind = _stacked_leaf(name)

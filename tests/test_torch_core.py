@@ -6,6 +6,8 @@ Pixel (un)shuffle, padding, the candidate-domain phase split/merge/valid
 CDF banks, and the pins on the code the port copies from the JAX package.
 """
 
+import ast
+import glob
 import inspect
 import os
 import subprocess
@@ -21,9 +23,13 @@ from dcvc_tpu.core import padding as jpadding
 from dcvc_tpu.core import shuffle as jshuffle
 from dcvc_tpu.entropy import bit_estimator as jbe
 from dcvc_tpu.entropy import gaussian as jgauss
+from dcvc_tpu.rans import device_decode as jdevice_decode
+from dcvc_tpu.utils import torch_import as jkeys
 from dcvc_tpu_torch.core import masks, padding, shuffle
 from dcvc_tpu_torch.entropy import bit_estimator as tbe
 from dcvc_tpu_torch.entropy import gaussian as tgauss
+from dcvc_tpu_torch.rans import device_decode
+from dcvc_tpu_torch.utils import keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -155,15 +161,73 @@ def test_copied_files_byte_equal(copy, original):
     (masks.phase_terms_4x, jmasks.phase_terms_4x),
     (masks.phase_valid.__wrapped__, jmasks.phase_valid.__wrapped__),
     (masks.terms_key, jmasks.terms_key),
+    (device_decode.split_streams, jdevice_decode.split_streams),
+    (keys._translate, jkeys._translate),
+    (keys._map_dmci, jkeys._map_dmci),
+    (keys._map_dmc_ht, jkeys._map_dmc_ht),
+    (keys._stacked_leaf, jkeys._stacked_leaf),
+    (keys._recon_keys_ht, jkeys._recon_keys_ht),
+    (keys.key_fn_dmci, jkeys.key_fn_dmci),
+    (keys.key_fn_dmc_ht, jkeys.key_fn_dmc_ht),
 ])
 def test_copied_functions_source_equal(copy, original):
     assert inspect.getsource(copy) == inspect.getsource(original)
 
 
+@pytest.mark.parametrize("name", ["_DCB_MAP", "_STACKED_SUB"])
+def test_copied_key_tables_equal(name):
+    assert getattr(keys, name) == getattr(jkeys, name)
+
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "dcvc_tpu")
+
+
+def _imported_roots(path):
+    """Top-level package of every import in a source file, at any depth
+    (inside functions and classes too); relative imports are skipped."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.lineno, node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                    "__import__", "import_module") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+def test_port_sources_import_no_jax():
+    """No file of the port and not chip_smoke.py imports jax, jaxlib, flax
+    or dcvc_tpu, anywhere in the file (a function-local import counts)."""
+    files = sorted(glob.glob(os.path.join(REPO, "dcvc_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
+           for f in files for line, root in _imported_roots(f)
+           if root in _FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_scan_sees_function_local_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\n\ndef f():\n    from dcvc_tpu.utils import x"
+                   "\n    import jax.numpy\n    __import__('flax')\n")
+    assert [r for _, r in _imported_roots(str(src))] == \
+        ["os", "dcvc_tpu", "jax", "flax"]
+
+
 def test_port_imports_no_jax():
     code = ("import sys, dcvc_tpu_torch, dcvc_tpu_torch.runtime.image_codec, "
             "dcvc_tpu_torch.runtime.video_codec, dcvc_tpu_torch.models.dmc_ht, "
-            "dcvc_tpu_torch.kernels.fused_dcb, chip_smoke\n"
+            "dcvc_tpu_torch.kernels.fused_dcb, "
+            "dcvc_tpu_torch.kernels.rans_decode, "
+            "dcvc_tpu_torch.rans.device_decode, "
+            "dcvc_tpu_torch.utils.jax_bridge, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dcvc_tpu'))\n"
             "assert not bad, bad\n")

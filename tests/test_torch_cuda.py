@@ -1,5 +1,6 @@
-"""The CUDA kernel of the port on the card: K1 (csrc/fused_dcb.cu), one
-block and the stacked form, against its plain PyTorch versions, and the
+"""The CUDA kernels of the port on the card: K1 (csrc/fused_dcb.cu), one
+block and the stacked form, and K2 (csrc/rans_decode.cu), against their
+plain PyTorch versions (K2 also against the host decoder), and the
 wrappers' refusals.
 
 Marked `cuda`; each test skips where torch sees no CUDA device.  This file
@@ -9,11 +10,15 @@ tests/conftest.py (which imports jax) is left out:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
 
+import numpy as np
 import pytest
 import torch
 
 from dcvc_tpu_torch.kernels import fused_dcb as K1
+from dcvc_tpu_torch.kernels import rans_decode as K2
 from dcvc_tpu_torch.layers import blocks
+from dcvc_tpu_torch.perf_probe import k2_fixtures, run_k2_case
+from dcvc_tpu_torch.rans.device_decode import init_state
 
 
 @pytest.fixture
@@ -147,3 +152,57 @@ def test_cuda_stacked_wrapper_raises(cuda_device):
     with pytest.raises(ValueError, match="entries"):
         K1.fused_dcb_stacked_launch(big[:3], ops)
     assert K1.fused_dcb_stacked.launches == n
+
+
+@pytest.mark.cuda
+def test_cuda_rans_decode_matches_plain_and_host(cuda_device):
+    """K2 on the fixtures of the JAX package's decode tests (1/2/3/5/8
+    lanes with escapes, count < lanes, count 0, z -> y -> y): each call's
+    symbols are the host decoder's, zeros past the count, and symbols and
+    final lane states equal the plain version's."""
+    for fixture in k2_fixtures():
+        n = K2.rans_decode.launches
+        st_k, outs_k = run_k2_case(fixture, cuda_device, K2.rans_decode)
+        torch.cuda.synchronize()
+        assert K2.rans_decode.launches == n + len(fixture[3])
+        st_p, outs_p = run_k2_case(fixture, cuda_device,
+                                   K2.rans_decode_reference)
+        assert torch.equal(st_k["st"], st_p["st"]), fixture[0]
+        assert torch.equal(st_k["ptr"], st_p["ptr"]), fixture[0]
+        for (_, count, _, _, want), out_k, out_p in zip(fixture[3], outs_k,
+                                                        outs_p):
+            assert torch.equal(out_k, out_p), fixture[0]
+            got = out_k.cpu().numpy()
+            np.testing.assert_array_equal(got[:count], want)
+            assert not got[count:].any(), fixture[0]
+
+
+def _k2_args(device, lanes=2, idx_device=None, st_dtype=torch.int32):
+    streams = torch.zeros(lanes, 16, dtype=torch.uint8, device=device)
+    state = init_state(streams)
+    state["st"] = state["st"].to(st_dtype)
+    idx = torch.zeros(8, dtype=torch.uint8, device=idx_device or device)
+    bank = K2.make_bank(np.array([[0, 65535, 65536]], np.int32),
+                        np.array([3], np.int32), device)
+    return state, idx, 8, bank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,match", [
+    ("cpu state", "one device"),
+    ("9 lanes", "1 <= n <= 8"),
+    ("int64 st", "st must be torch.int32"),
+])
+def test_cuda_rans_decode_wrapper_raises(cuda_device, kind, match):
+    """K2's wrapper launches or raises on the card, never falls back: a
+    CPU state with a CUDA idx, more than 8 lanes, a wrong dtype."""
+    if kind == "cpu state":
+        args = _k2_args("cpu", idx_device=cuda_device)
+    elif kind == "9 lanes":
+        args = _k2_args(cuda_device, lanes=9)
+    else:
+        args = _k2_args(cuda_device, st_dtype=torch.int64)
+    n = K2.rans_decode.launches
+    with pytest.raises(ValueError, match=match):
+        K2.rans_decode(*args)
+    assert K2.rans_decode.launches == n
