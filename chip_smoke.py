@@ -4,7 +4,11 @@
 
 Builds the port's two CUDA kernels from their sources, both nvcc runs
 started together (dcvc_tpu_torch/csrc/fused_dcb.cu, K1, and
-csrc/rans_decode.cu, K2; sm_90a).  Holds K1 against its plain PyTorch
+csrc/rans_decode.cu, K2; sm_90a).  K1 is a chain of launches whose GEMMs
+run on one wgmma/TMA core: it prints each kernel of K1's library with its
+count of HGMMA (wgmma) and UTMALDG (TMA load) instructions from
+`cuobjdump -sass`, and fails if a GEMM kernel has none or any HMMA
+(mma.sync) is left.  Holds K1 against its plain PyTorch
 version at the edge-case shapes of tests/test_fused_dcb.py, and K2 against
 its plain version and the host decoder on the fixtures of
 tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
@@ -24,8 +28,9 @@ every K2 launch's inputs:
 Every device decode runs under torch.cuda.set_sync_debug_mode("error")
 once its lanes are uploaded: a host sync fails it.  Last, both forms of K1 are held against their plain
 versions and timed at every distinct shape the main path launched them
-at, and every K2 call of the main path is replayed against its plain
-version and timed.
+at (and, at the three heaviest, each launch of the chain is timed by
+torch.profiler), and every K2 call of the main path is replayed against
+its plain version and timed.
 It fails, with a non-zero exit code, if the card is missing, a kernel does
 not build or launch or disagrees with its plain version, the main path did
 not launch the kernels as often as derived, a reconstruction or final DPB
@@ -49,9 +54,11 @@ from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
 from dcvc_tpu_torch.models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG
 from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig
-from dcvc_tpu_torch.perf_probe import K2Log, Launch, LaunchLog, \
-    block_inputs, cuda_ms, k1_bound_ms, k2_fixtures, k2_latency_bound_ms, \
-    make_sequence, max_sm_clock_mhz, nvidia_smi, run_k2_case, smooth_frame
+from dcvc_tpu_torch.kernels._build import library_path
+from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
+    LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
+    k2_fixtures, k2_latency_bound_ms, make_sequence, max_sm_clock_mhz, \
+    nvidia_smi, profile_launches, run_k2_case, sass_counts, smooth_frame
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
 from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec
 
@@ -148,6 +155,42 @@ def check_launch(key, gen, dev):
     return max(errs), t_k, t_p
 
 
+def phase_sass():
+    """Each kernel of K1's built library with its HGMMA (wgmma), UTMALDG
+    (TMA load) and HMMA (mma.sync) instructions, from cuobjdump -sass.
+    Fails unless every GEMM kernel of the chain has HGMMA and UTMALDG, the
+    dw kernel is there, and no kernel has an HMMA."""
+    counts = sass_counts(library_path("fused_dcb.cu"))
+    log("K1 SASS, kernel: HGMMA UTMALDG HMMA: " + "; ".join(
+        f"{k}: {v['HGMMA']} {v['UTMALDG']} {v['HMMA']}"
+        for k, v in sorted(counts.items())))
+    bases = {k.split("<")[0] for k in counts}
+    bad = [k for k, v in counts.items() if k.split("<")[0] in K1_GEMMS
+           and not (v["HGMMA"] and v["UTMALDG"])]
+    bad += [k for k, v in counts.items() if v["HMMA"]]
+    if bad or not bases >= set(K1_KERNELS):
+        raise AssertionError(f"K1's SASS: kernels without wgmma / TMA or "
+                             f"with mma.sync {bad}, kernels {sorted(bases)}")
+
+
+def phase_launch_profile(heavy, total, gen, dev):
+    """Each launch of K1's chain at the `heavy` shapes: device ms per call
+    by kernel name (torch.profiler) and its TFLOP/s."""
+    for key in heavy:
+        _, _, run, _ = block_inputs(key, gen, dev)
+        ms = profile_launches(run)
+        flops = k1_launch_flops(key)
+        parts = []
+        for name in K1_KERNELS:
+            if name not in flops:
+                continue
+            t = ms.get(name)
+            parts.append(f"{name} {t} ms {flops[name] / t / 1e9} TFLOP/s"
+                         if t else f"{name} not measured")
+        log(f"K1 launches at {key} (main-path launches {total[key]}; "
+            f"device ms per call, torch.profiler): " + "; ".join(parts))
+
+
 def phase_edge_shapes(dev):
     """K1 against its plain version at the edge cases of the JAX package's
     tests (a partial tile, dcb2, the shortcut)."""
@@ -205,6 +248,8 @@ def phase_kernels(dev, launch_log, launches):
         row["bound_ms"] += total[key] * max(flop_ms, byte_ms)
         bound_parts[key.kind][0] += total[key] * flop_ms
         bound_parts[key.kind][1] += total[key] * byte_ms
+    heavy = sorted(total, key=lambda k: -total[k] * times[k][0])[:3]
+    phase_launch_profile(heavy, total, gen, dev)
     for kind, (flop_ms, byte_ms) in bound_parts.items():
         rows[kind]["bound_by"] = ("operations" if flop_ms >= byte_ms
                                   else "bytes")
@@ -626,6 +671,7 @@ def main():
             build.result()
     log(f"build: fused_dcb.cu, rans_decode.cu -> sm_90a in "
         f"{time.perf_counter() - t0:.3f} s")
+    phase_sass()
     with torch.inference_mode():
         phase_edge_shapes(dev)
         phase_k2_fixtures(dev)

@@ -2,13 +2,15 @@
 use and load it with ctypes.
 
 The library lands in `dcvc_tpu_torch/_build/` (listed in .gitignore),
-named after the source's content hash, so an edited source rebuilds and an
-unchanged one is built once per checkout.  Target: sm_90a (Hopper).
+named after the content hash of the source and the csrc/ headers it
+includes, so an edited source or header rebuilds and an unchanged one is
+built once per checkout.  Target: sm_90a (Hopper).
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -25,12 +27,31 @@ def _nvcc():
     return path
 
 
+def sources(source):
+    """csrc/<source> and the csrc/ headers it includes ("..." includes,
+    followed through the headers), in the order first met."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC, name)) as f:
+            todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(),
+                               re.MULTILINE)
+    return seen
+
+
 def library_path(source):
-    """Path of the built library for csrc/<source> at its current content."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """Path of the built library for csrc/<source> at the current content
+    of it and of every header it includes."""
+    digest = hashlib.sha256()
+    for name in sources(source):
+        digest.update(name.encode() + b"\0")
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def load_library(source):

@@ -4,6 +4,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe shapes [--iters 50]
     python3 -m dcvc_tpu_torch.perf_probe profile [--runs 2]
     python3 -m dcvc_tpu_torch.perf_probe k2 [--symbols N] [--lanes n]
+    python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 DMC-HT width the checkout has (HTS, HTL), a warm later 1080p chunk
@@ -21,6 +22,10 @@ run it from each root in turn: parent, change, change, parent.
 `k2` times K2 on a synthetic stream coded by the host encoder (see
 run_k2) against the host decoder's symbols, with its plain version's
 time and its latency bound.
+
+`tiles` times each launch of K1's chain (torch.profiler) at the heaviest
+main-path shapes under every GEMM tile the core has, and K1's host time
+per call (run_tiles).
 
 `profile` runs torch.profiler over the same warm calls, `runs` times
 each.  Per call it prints the wall time (host clock around the call,
@@ -100,7 +105,8 @@ class LaunchLog:
 
     def _recorder(self, fn, kind):
         def launch(x, ops, *args):
-            c, inner = ops["w2"].shape[-1], ops["w1"].shape[-1]
+            # K-major operands: w2 (..., C, I), w1 (..., I, C)
+            c, inner = ops["w2"].shape[-2], ops["w1"].shape[-2]
             if kind == "fused_dcb":
                 shortcut = bool(args[0]) if args else False
                 key = Launch(kind, 1, *x.shape[1:], c, inner, "wa" in ops,
@@ -338,6 +344,85 @@ def k1_bound_ms(key):
     nbytes = 2 * (x_reads * pix * key.cin + key.s * weights
                   + key.s * pix * c)
     return 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+# K1's kernels, one per launch of its chain (csrc/fused_dcb.cu), in order;
+# the GEMMs run on the wgmma/TMA core
+K1_KERNELS = ("k1_adaptor", "k1_h", "k1_dw", "k1_dc_out", "k1_ffn_in",
+              "k1_ffn_out")
+K1_GEMMS = tuple(k for k in K1_KERNELS if k != "k1_dw")
+
+
+def k1_launch_flops(key):
+    """The FLOPs of each launch of K1's chain at shape `key`, by kernel."""
+    pix = key.s * key.h * key.w
+    ci = key.c * key.inner
+    flops = {"k1_h": 2 * pix * ci, "k1_dw": 2 * 9 * pix * key.inner,
+             "k1_dc_out": 2 * pix * ci, "k1_ffn_in": 8 * pix * ci,
+             "k1_ffn_out": 2 * pix * ci}
+    if key.adaptor:
+        flops["k1_adaptor"] = 2 * pix * key.cin * key.c
+    return flops
+
+
+def kernel_label(name):
+    """'k1_h<128, 256>' from a demangled or mangled name of one of K1's
+    kernels (a profiler event, a cuobjdump function), else None."""
+    import re
+    m = re.search(r"(k1_[a-z0-9_]*[a-z0-9])(?:<([0-9, ]+)>|I((?:Li\d+E)+)E)?",
+                  name)
+    if m is None:
+        return None
+    base, demangled, mangled = m.groups()
+    args = (demangled.replace(" ", "") if demangled else
+            ",".join(re.findall(r"Li(\d+)E", mangled)) if mangled else "")
+    return f"{base}<{args}>" if args else base
+
+
+def sass_counts(lib):
+    """{kernel label: {'HGMMA': n, 'UTMALDG': n, 'HMMA': n}} of every
+    function in the built library `lib`, from cuobjdump -sass."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = kernel_label(m.group(1)) or m.group(1)
+            counts[cur] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+        elif cur is not None:
+            for op in counts[cur]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
+    return counts
+
+
+def profile_launches(run, runs=5):
+    """Device time of each of K1's kernels in a run of run() (a call of
+    K1, which launches each kernel once), from torch.profiler over `runs`
+    runs: {kernel: mean ms of its recorded launches}.  A first profile is
+    discarded: the tracer may drop the events of its first one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                run()
+            torch.cuda.synchronize()
+    us = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        label = kernel_label(e.name)
+        if label is not None:
+            us[label.split("<")[0]].append(e.time_range.elapsed_us())
+    return {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
 
 
 def nvidia_smi():
@@ -622,6 +707,74 @@ def run_profile(dev, runs):
             profile_call(label, codec, fn, r)
 
 
+# the heaviest K1 shapes of chip_smoke.py's main path (launches x device
+# time on an H100), and one with a 1024-wide adaptor
+HEAVY_SHAPES = [
+    Launch("fused_dcb", 1, 136, 240, 512, 512, 512, False, False, False),
+    Launch("fused_dcb", 1, 68, 120, 512, 512, 512, False, False, False),
+    Launch("fused_dcb", 1, 136, 240, 512, 512, 256, False, False, False),
+    Launch("fused_dcb_stacked", 8, 136, 240, 256, 256, 256, False, False,
+           False),
+    Launch("fused_dcb", 1, 136, 240, 384, 384, 384, False, False, False),
+    Launch("fused_dcb", 1, 68, 120, 768, 768, 768, False, False, False),
+    Launch("fused_dcb", 1, 136, 240, 1024, 512, 256, True, False, False),
+]
+SWEEP_TILES = [None, (128, 256), (128, 128), (128, 64), (64, 256),
+               (64, 128), (64, 64)]
+
+
+def run_tiles(dev, iters):
+    """Each launch of K1's chain at HEAVY_SHAPES under every tile of
+    SWEEP_TILES (None: the plan's own), device ms by torch.profiler, and
+    the whole call by CUDA events; then K1's host time per call at a
+    small shape (back-to-back calls, the card idle most of the time)."""
+    gen = torch.Generator().manual_seed(0)
+    for key in HEAVY_SHAPES:
+        x, p, _, _ = block_inputs(key, gen, dev)
+        if key.kind == "fused_dcb":
+            ops, xs, lead = K1.prepare_operands(p), x, ()
+        else:
+            ops, xs, lead = K1.prepare_operands_stacked(p), x[:, 0], (key.s,)
+        for tile in SWEEP_TILES:
+            def run():
+                return K1._launch(xs, ops, key.shortcut, lead, tile=tile)
+            with torch.inference_mode():
+                ms = profile_launches(run)
+                t = cuda_ms(run, iters)
+            plan = K1.k1_plan(key.s, key.h, key.w, key.cin, key.c,
+                              key.inner, key.adaptor, tile)
+            tiles = {q.name: (q.bm, q.bn, q.stages) for q in plan}
+            print(json.dumps({"shape": str(key), "tile": tile,
+                              "plan": tiles, "call_ms": t,
+                              "kernels_ms": ms,
+                              "kernel_sum_ms": sum(ms.values())}),
+                  flush=True)
+    key = Launch("fused_dcb", 1, 12, 20, 128, 128, 128, False, False, False)
+    x, p, run, _ = block_inputs(key, gen, dev)
+    ops = K1.prepare_operands(p)
+
+    def host_ms(fn, n=200):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        return ms
+    with torch.inference_mode():
+        host = {"wrapper": host_ms(run),
+                "_launch": host_ms(lambda: K1._launch(x, ops, False, ())),
+                "torch.empty x2": host_ms(lambda: (
+                    torch.empty((1 << 20,), dtype=torch.uint8, device=dev),
+                    torch.empty((1 << 16,), dtype=torch.bfloat16,
+                                device=dev)))}
+        device = cuda_ms(run, iters)
+    print(json.dumps({"host_ms_per_call": host, "shape": str(key),
+                      "call_ms": device}), flush=True)
+
+
 def run_k2(dev, symbols, lanes):
     """K2 on a synthetic stream: `symbols` y symbols (rows uniform over the
     128 Gaussian CDFs, values ~ N(0, 6) rounded, |v| <= 127, so some
@@ -668,7 +821,7 @@ def run_k2(dev, symbols, lanes):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("shapes", "profile", "k2"))
+    ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
@@ -689,6 +842,8 @@ def main():
         run_shapes(dev, args.iters)
     elif args.mode == "k2":
         run_k2(dev, args.symbols, args.lanes)
+    elif args.mode == "tiles":
+        run_tiles(dev, args.iters)
     else:
         run_profile(dev, args.runs)
 

@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
 from dcvc_tpu_torch.layers import blocks
-from dcvc_tpu_torch.perf_probe import k2_fixtures, run_k2_case
+from dcvc_tpu_torch.perf_probe import k2_fixtures, random_block, run_k2_case
 from dcvc_tpu_torch.rans.device_decode import init_state
 
 
@@ -77,8 +79,8 @@ def test_cuda_wrapper_raises(cuda_device, ch, dtype, match):
     (7, 13, 768, 768, 768),      # the HTS prior fusion, C = I = 768
 ])
 def test_cuda_kernel_hts_widths(cuda_device, h, w, cin, c, inner):
-    """The one-block kernel at the HTS widths that need the adaptor
-    pre-pass and the 32-row FFN blocks."""
+    """The one-block kernel at the HTS widths: the Cin = 2048 adaptor and
+    C = I = 768."""
     gen = torch.Generator().manual_seed(1)
     blk = blocks.DepthConvBlock(cin, c, dcb2=inner < c)
     blocks.lecun_init_(blk, gen)
@@ -108,6 +110,7 @@ def _stack(s, cin, c, device):
     (4, 256, 256, 9, 16, True),   # one x for every entry (stride 0)
     (8, 256, 128, 17, 30, False),  # adaptor
     (8, 192, 128, 4, 5, False),    # adaptor, Cin not a multiple of 128
+    (8, 256, 128, 17, 30, True),   # adaptor on one x for every entry
 ])
 def test_cuda_stacked_kernel_matches_plain(cuda_device, s, cin, c, h, w,
                                           broadcast):
@@ -152,6 +155,82 @@ def test_cuda_stacked_wrapper_raises(cuda_device):
     with pytest.raises(ValueError, match="entries"):
         K1.fused_dcb_stacked_launch(big[:3], ops)
     assert K1.fused_dcb_stacked.launches == n
+
+
+def _close(name, got, want, rel):
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    assert err <= rel * peak, f"{name}: max error {err} > {rel} x {peak}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,w,cin,c,inner,shortcut,bcast,tile", [
+    (1, 5, 7, 128, 128, 128, False, False, (64, 64)),    # M < one tile
+    (1, 9, 17, 128, 128, 128, True, False, (128, 128)),  # ragged M, shortcut
+    (1, 9, 17, 64, 64, 64, False, False, (128, 64)),     # N = 64
+    (1, 12, 40, 384, 384, 384, False, False, (128, 128)),
+    (1, 8, 33, 256, 512, 512, False, False, (64, 128)),  # adaptor, BM 64
+    (1, 4, 5, 2048, 512, 256, False, False, None),       # Cin = 2048
+    (1, 7, 13, 768, 768, 768, False, False, None),       # C = I = 768
+    (1, 7, 13, 768, 768, 768, False, False, (128, 128)),
+    (8, 6, 9, 256, 256, 256, False, True, (128, 128)),   # S = 8, one x
+    (8, 6, 9, 512, 256, 256, False, True, (64, 128)),    # and an adaptor
+])
+def test_cuda_chain_launches_match_torch(cuda_device, s, h, w, cin, c,
+                                         inner, shortcut, bcast, tile):
+    """Each launch of K1's chain against its torch expression in f32 on
+    the kernel's own input of that launch: the bf16 outputs within 2^-7
+    of their peak (a bf16 step at the peak is 2^-8), out1 (f32) within
+    2^-10 (the same sums in another order); out1c is bf16(out1) exactly,
+    and a second run gives the same bits."""
+    gen = torch.Generator().manual_seed(s + h + w + cin)
+    bf = torch.bfloat16
+    raw = [random_block(cin, c, inner, cin != c, gen) for _ in range(s)]
+    p = {k: torch.stack([b[k] for b in raw]).to(cuda_device, bf)
+         for k in raw[0]}
+    x = torch.randn(1 if bcast else s, h, w, cin, generator=gen).to(
+        cuda_device, bf).expand(s, h, w, cin)
+    ops = K1.prepare_operands(p)
+    lead = (s,)
+    if s == 1:
+        p = {k: v[0] for k, v in p.items()}
+        ops = K1.prepare_operands(p)
+        lead = ()
+    keep, again = {}, {}
+    with torch.inference_mode():
+        out = K1._launch(x, ops, shortcut, lead, tile=tile, keep=keep)
+        out2 = K1._launch(x, ops, shortcut, lead, tile=tile, keep=again)
+        torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    for k in keep:
+        assert torch.equal(keep[k], again[k]), k
+    wts = {k: (v if s > 1 else v[None]).float() for k, v in p.items()}
+
+    def mm(a, wm, b):   # a (S, H, W, K) @ w (S, K, N) + b (S, N), f32
+        return (torch.einsum("shwk,skn->shwn", a.float(), wm)
+                + b[:, None, None, :])
+    xin = x.float()
+    if cin != c:
+        _close("adaptor", keep["xa"], mm(x, wts["wa"], wts["ba"]).to(bf),
+               2 ** -7)
+        xin = keep["xa"].float()
+    _close("h", keep["h"], K1.wsilu_f32(mm(xin, wts["w1"], wts["b1"])).to(bf),
+           2 ** -7)
+    d = torch.stack([F.conv2d(
+        keep["h"][e].float().permute(2, 0, 1)[None],
+        wts["wd"][e].permute(2, 0, 1)[:, None], wts["bd"][e], padding=1,
+        groups=inner)[0].permute(1, 2, 0) for e in range(s)])
+    _close("dw", keep["d"], d.to(bf), 2 ** -7)
+    out1 = mm(keep["d"], wts["w2"], wts["b2"]) + xin
+    _close("dc_out", keep["out1"], out1, 2 ** -10)
+    assert torch.equal(keep["out1c"], keep["out1"].to(bf))
+    f = K1.wsilu_f32(mm(keep["out1c"], wts["w3"], wts["b3"]))
+    f = f.reshape(*f.shape[:-1], inner, 4).sum(dim=-1)
+    _close("ffn_in", keep["s"], f.to(bf), 2 ** -7)
+    y = mm(keep["s"], wts["w4"], wts["b4"]) + keep["out1"]
+    if shortcut:
+        y = y + xin
+    _close("ffn_out", out, y.to(bf), 2 ** -7)
 
 
 @pytest.mark.cuda

@@ -145,9 +145,14 @@ def test_prepare_operands_regroups_ffn_j_major():
                       ("w3", (c, 4 * inner)), ("b3", (4 * inner,)),
                       ("w4", (inner, c)), ("b4", (c,)))}
     ops = K1.prepare_operands(p)
+    # every matrix K-major, (N, K); ffn_in (4, I, C), row i of plane j
+    # being output channel i*4 + j
+    for k in ("w1", "w2", "w4"):
+        assert torch.equal(ops[k], p[k].t()), k
+    assert ops["w3"].shape == (4, inner, c)
     for j in range(4):
         for i in range(inner):
-            assert torch.equal(ops["w3"][j][:, i], p["w3"][:, i * 4 + j])
+            assert torch.equal(ops["w3"][j][i, :], p["w3"][:, i * 4 + j])
             assert ops["b3"][j, i] == p["b3"][i * 4 + j]
 
 
@@ -159,7 +164,8 @@ def test_kernel_operands_follow_parameter_writes():
         blk.dc[0].weight.add_(1.0)
     again = blk._kernel_operands()
     assert again is not first
-    assert torch.equal(again["w1"], blk.dc[0].weight[:, :, 0, 0].t())
+    # K-major: the (out, in) matrix of the 1x1 conv's weight
+    assert torch.equal(again["w1"], blk.dc[0].weight[:, :, 0, 0])
 
 
 def test_launch_refuses_cpu_tensors():
