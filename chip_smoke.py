@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from their sources, both nvcc runs
-started together (dcvc_tpu_torch/csrc/fused_dcb.cu, K1, and
-csrc/rans_decode.cu, K2; sm_90a).  K1 is a chain of launches whose GEMMs
+Builds the port's two CUDA kernels from their sources, with K2's
+cycle-counting build (-DK2_CLOCKS), the three nvcc runs started together
+(dcvc_tpu_torch/csrc/fused_dcb.cu, K1, and csrc/rans_decode.cu, K2;
+sm_90a).  K1 is a chain of launches whose GEMMs
 run on one wgmma/TMA core: it prints each kernel of K1's library with its
 count of HGMMA (wgmma) and UTMALDG (TMA load) instructions from
 `cuobjdump -sass`, and fails if a GEMM kernel has none or any HMMA
@@ -30,14 +31,16 @@ once its lanes are uploaded: a host sync fails it.  Last, both forms of K1 are h
 versions and timed at every distinct shape the main path launched them
 at (and, at the three heaviest, each launch of the chain is timed by
 torch.profiler), and every K2 call of the main path is replayed against
-its plain version and timed.
+its plain version and through its cycle-counting build, and timed.
 It fails, with a non-zero exit code, if the card is missing, a kernel does
 not build or launch or disagrees with its plain version, the main path did
 not launch the kernels as often as derived, a reconstruction or final DPB
 is not bit-exact between encoder, host-coder decode and device decode, a
 device decode syncs with the host, or two encodes give different streams.
 
-Output: one line per phase; then a JSON line with the kernel table; the
+Output: one line per phase (K2's: a JSON line of its time, ns per symbol
+per lane, cycles per symbol and latency bound per main-path label, with
+the SM clock under load); then a JSON line with the kernel table; the
 card's name and power limit; and last {"ok": true, "device": {...}}.
 """
 
@@ -57,8 +60,9 @@ from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig
 from dcvc_tpu_torch.kernels._build import library_path
 from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
-    k2_fixtures, k2_latency_bound_ms, make_sequence, max_sm_clock_mhz, \
-    nvidia_smi, profile_launches, run_k2_case, sass_counts, smooth_frame
+    k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
+    k2_latency_bound_ms, make_sequence, max_sm_clock_mhz, nvidia_smi, \
+    profile_launches, run_k2_case, sass_counts, smooth_frame
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
 from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec
 
@@ -270,13 +274,18 @@ def phase_kernels(dev, launch_log, launches):
 
 def phase_k2(k2_log, launches):
     """Every K2 call of the main path replayed on its recorded inputs:
-    the kernel against its plain version (symbols and lane states equal)
-    and both timed (the kernel with CUDA events, the plain version, which
-    runs on the host, by the host clock).  Returns K2's row of the JSON
-    table; bound_ms is the latency bound of perf_probe.k2_latency_bound_ms
-    at the card's maximum SM clock."""
-    per_label = collections.defaultdict(lambda: [0, 0, 0.0, 0.0])
-    ms = plain_ms = 0.0
+    the kernel against its plain version (symbols and lane states equal),
+    both timed (the kernel with CUDA events, the plain version, which runs
+    on the host, by the host clock), and its cycle-counting build
+    (-DK2_CLOCKS, equal symbols) for the SM clock under load and where a
+    symbol's cycles go.  Prints one JSON line of K2 per main-path label.
+    Returns K2's row of the JSON table; bound_ms is the latency bound of
+    perf_probe.k2_latency_bound_ms (symbols and escapes, from the plain
+    version's symbols) at the SM clock under load."""
+    per_label = collections.defaultdict(lambda: {
+        "launches": 0, "symbols": 0, "escapes": 0, "longest_lane_symbols": 0,
+        "kernel_ms": 0.0, "plain_ms": 0.0, "calls": [], "escape_counts": [],
+        "clocks": []})
     for call in k2_log.calls:
         args = call.args()
         st_k, out_k = K2.rans_decode_launch(*args)
@@ -284,28 +293,65 @@ def phase_k2(k2_log, launches):
         t0 = time.perf_counter()
         st_p, out_p = K2.rans_decode_reference(*args)
         t_p = 1e3 * (time.perf_counter() - t0)
-        if not (torch.equal(out_k, out_p) and torch.equal(st_k["st"], st_p["st"])
-                and torch.equal(st_k["ptr"], st_p["ptr"])):
-            raise AssertionError(f"K2 disagrees with its plain version on a "
-                                 f"call of {call.label} "
-                                 f"{call.signature()}")
+        st_c, out_c, clk = K2.rans_decode_clocks(*args)
+        if not (torch.equal(out_k, out_p)
+                and torch.equal(st_k["st"], st_p["st"])
+                and torch.equal(st_k["ptr"], st_p["ptr"])
+                and torch.equal(out_c, out_k)
+                and torch.equal(st_c["st"], st_k["st"])
+                and torch.equal(st_c["ptr"], st_k["ptr"])):
+            raise AssertionError(f"K2 (or its cycle-counting build) "
+                                 f"disagrees with its plain version on a "
+                                 f"call of {call.label} {call.signature()}")
         t_k = cuda_ms(lambda: K2.rans_decode_launch(*args), iters=3,
                       warmup=1)
-        s = per_label[call.label]
-        s[0] += 1
-        s[1] += int(call.count)
-        s[2] += t_k
-        s[3] += t_p
-        ms += t_k
-        plain_ms += t_p
-    for label, (n, symbols, t_k, t_p) in per_label.items():
-        log(f"K2 on {label}: launches={n} symbols={symbols} kernel_ms={t_k} "
-            f"plain_ms={t_p} (equal)")
-    clock = max_sm_clock_mhz()
-    bound = k2_latency_bound_ms(k2_log.calls, clock)
-    log(f"K2 main path: {len(k2_log.calls)} calls equal to plain; "
-        f"kernel_ms={ms} plain_ms={plain_ms} latency bound {bound} ms at "
-        f"{clock} MHz")
+        esc = k2_lane_escapes(call, out_p)
+        rec = per_label[call.label]
+        rec["launches"] += 1
+        rec["symbols"] += int(call.count)
+        rec["escapes"] += sum(esc)
+        rec["longest_lane_symbols"] += k2_lane_sizes(
+            int(call.count), call.streams.shape[0])[-1]
+        rec["kernel_ms"] += t_k
+        rec["plain_ms"] += t_p
+        rec["calls"].append(call)
+        rec["escape_counts"].append(esc)
+        rec["clocks"].append(clk)
+    calls = [c for r in per_label.values() for c in r["calls"]]
+    escapes = [e for r in per_label.values() for e in r["escape_counts"]]
+    clocks = k2_clock_summary([c for r in per_label.values()
+                               for c in r["clocks"]])
+    clock = clocks["sm_clock_mhz"]
+    max_clock = max_sm_clock_mhz()
+    table = {}
+    for label, r in per_label.items():
+        table[label] = {
+            k: r[k] for k in ("launches", "symbols", "escapes",
+                              "longest_lane_symbols", "kernel_ms",
+                              "plain_ms")}
+        table[label]["ns_per_symbol_per_lane"] = \
+            1e6 * r["kernel_ms"] / max(r["longest_lane_symbols"], 1)
+        table[label]["bound_ms"] = k2_latency_bound_ms(
+            r["calls"], clock, r["escape_counts"])
+        table[label]["cycles_per_symbol"] = k2_clock_summary(
+            r["clocks"])["cycles_per_symbol"]
+    ms = sum(r["kernel_ms"] for r in per_label.values())
+    plain_ms = sum(r["plain_ms"] for r in per_label.values())
+    bound = k2_latency_bound_ms(calls, clock, escapes)
+    bound_old = k2_latency_bound_ms(calls, max_clock)
+    longest = sum(r["longest_lane_symbols"] for r in per_label.values())
+    log(json.dumps({"k2_per_label": table,
+                    "k2_cycles_build": {k: v for k, v in clocks.items()},
+                    "sm_clock_mhz_under_load": clock,
+                    "max_sm_clock_mhz": max_clock,
+                    "ns_per_symbol_per_lane": 1e6 * ms / max(longest, 1),
+                    "bound_ms": bound,
+                    "bound_ms_symbols_only_max_clock": bound_old}))
+    log(f"K2 main path: {len(calls)} calls equal to plain (and the "
+        f"cycle-counting build equal to the kernel); kernel_ms={ms} "
+        f"plain_ms={plain_ms}; latency bound {bound} ms (symbols and "
+        f"escapes at the {clock} MHz SM clock under load; symbols only at "
+        f"{max_clock} MHz: {bound_old} ms)")
     return {"name": "rans_decode", "route": "cuda", "source": K2_SOURCE,
             "replaces": K2_REPLACES, "launches": launches,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
@@ -665,12 +711,14 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for build in [pool.submit(K1.load_kernel), pool.submit(K2.load_kernel)]:
+    # one nvcc per library, started together: K1, K2 and K2's
+    # cycle-counting build
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for build in [pool.submit(K1.load_kernel), pool.submit(K2.load_kernel),
+                      pool.submit(K2.load_kernel, True)]:
             build.result()
-    log(f"build: fused_dcb.cu, rans_decode.cu -> sm_90a in "
-        f"{time.perf_counter() - t0:.3f} s")
+    log(f"build: fused_dcb.cu, rans_decode.cu (and -DK2_CLOCKS) -> sm_90a "
+        f"in {time.perf_counter() - t0:.3f} s")
     phase_sass()
     with torch.inference_mode():
         phase_edge_shapes(dev)

@@ -4,6 +4,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe shapes [--iters 50]
     python3 -m dcvc_tpu_torch.perf_probe profile [--runs 2]
     python3 -m dcvc_tpu_torch.perf_probe k2 [--symbols N] [--lanes n]
+                                            [--clocks]
     python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
@@ -21,7 +22,12 @@ run it from each root in turn: parent, change, change, parent.
 
 `k2` times K2 on a synthetic stream coded by the host encoder (see
 run_k2) against the host decoder's symbols, with its plain version's
-time and its latency bound.
+time and its latency bound.  With --clocks it also runs K2's
+cycle-counting build (-DK2_CLOCKS) on that stream and on every K2 call of
+a recorded 1080p DMCI device decode, and prints where the cycles of a
+symbol go (row fetch and CDF search, state update and renorm, escape
+path, output store), the cycles per escape, and the SM clock under load
+(cycles over %globaltimer ns).
 
 `tiles` times each launch of K1's chain (torch.profiler) at the heaviest
 main-path shapes under every GEMM tile the core has, and K1's host time
@@ -144,24 +150,23 @@ class LaunchLog:
 class K2Call(NamedTuple):
     """One call of K2 on the main path, its inputs kept for a replay:
     the lanes (shared by a decode's calls), the state going in, idx, the
-    count tensor (or int) and the bank rows of the call."""
+    count tensor (or int) and the bank (rows) of the call."""
     label: str
     streams: torch.Tensor
     st: torch.Tensor
     ptr: torch.Tensor
     idx: torch.Tensor
     count: object
-    cdf: torch.Tensor
-    lengths: torch.Tensor
+    bank: dict
 
     def args(self):
         return ({"streams": self.streams, "st": self.st, "ptr": self.ptr},
-                self.idx, self.count, {"cdf": self.cdf, "len": self.lengths})
+                self.idx, self.count, self.bank)
 
     def signature(self):
         """Its shape: (lanes, lane bytes, cap, bank rows)."""
         return (self.streams.shape[0], self.streams.shape[1],
-                self.idx.shape[0], self.cdf.shape[0])
+                self.idx.shape[0], self.bank["cdf"].shape[0])
 
 
 class K2Log:
@@ -182,7 +187,7 @@ class K2Log:
         def launch(state, idx, count, bank):
             self.calls.append(K2Call(
                 self.label, state["streams"], state["st"], state["ptr"], idx,
-                count, bank["cdf"], bank["len"]))
+                count, bank))
             return self._saved(state, idx, count, bank)
         K2.rans_decode_launch = launch
         return self
@@ -303,22 +308,55 @@ def run_k2_case(case, dev, decode):
 # Hopper's integer pipes.  The row, the byte and the next index do not
 # depend on the state and can be fetched ahead.
 K2_STEP_OPS = 6
+# One bypass escape in closed form (csrc/rans_decode.cu): the compare of
+# the state that gives j; the select of Y (the state's low 2j
+# bits and the byte window shifted by 2j; the five shifts of the window
+# need not wait for the state); the 3-input AND that marks the chunks that
+# are not 3; the find-first-set that gives the run of 3s and so the count
+# prefix; the multiply-add of n_bypass into the chunk count; the shift of
+# the (parked state | next byte) by the count that gives the new state.
+# 6 dependent operations; the raw value and the bytes taken are off the
+# chain.
+K2_ESCAPE_OPS = 6
 K2_OP_CYCLES = 4
 
 
-def k2_latency_bound_ms(calls, clock_mhz):
-    """The least time of K2 on these calls: each lane is one dependent
-    chain, so the time is the longest lane's symbol count times the
-    dependent latency of one symbol step, summed over the calls.  A step
-    is at least K2_STEP_OPS dependent integer operations of
-    K2_OP_CYCLES cycles each at the SM clock (see K2_STEP_OPS)."""
-    total = 0
-    for c in calls:
-        count = int(c.count)
-        n = c.streams.shape[0]
-        total += count - (count // n) * (n - 1)   # the last lane's share
-    return total * K2_STEP_OPS * K2_OP_CYCLES / (clock_mhz * 1e3)
+def k2_lane_sizes(count, n):
+    """The symbols of each of the n lanes of a call (rans.cc's split)."""
+    size0 = count // n
+    return [size0] * (n - 1) + [count - size0 * (n - 1)]
 
+
+def k2_lane_escapes(call, out):
+    """The escaped symbols of each lane of a K2 call (K2Call), from its
+    decoded symbols `out` (the plain version's): a symbol escaped if its
+    value (zig-zag undone) is at least its row's len - 2.  A list of n
+    ints."""
+    count = int(call.count)
+    n = call.streams.shape[0]
+    sym = out[:count].to(torch.int64).cpu()
+    rows = call.idx[:count].to(torch.int64).cpu().clamp_max(
+        call.bank["len"].shape[0] - 1)
+    value = 2 * sym.abs() - (sym > 0).to(torch.int64)
+    esc = value >= call.bank["len"].cpu().to(torch.int64)[rows] - 2
+    bounds = torch.tensor([0] + k2_lane_sizes(count, n)).cumsum(0).tolist()
+    return [int(esc[a:b].sum()) for a, b in zip(bounds, bounds[1:])]
+
+
+def k2_latency_bound_ms(calls, clock_mhz, escapes=None):
+    """The least time of K2 on these calls: each lane is one dependent
+    chain, so a call takes at least its longest lane's chain, K2_STEP_OPS
+    dependent integer operations per symbol plus K2_ESCAPE_OPS per escaped
+    symbol (escapes: each call's per-lane escape counts, k2_lane_escapes;
+    None counts none: the symbols-only bound), each of K2_OP_CYCLES cycles at
+    the SM clock; summed over the calls."""
+    cycles = 0
+    for i, c in enumerate(calls):
+        sizes = k2_lane_sizes(int(c.count), c.streams.shape[0])
+        esc = escapes[i] if escapes is not None else [0] * len(sizes)
+        cycles += max(K2_STEP_OPS * n + K2_ESCAPE_OPS * e
+                      for n, e in zip(sizes, esc)) * K2_OP_CYCLES
+    return cycles / (clock_mhz * 1e3)
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16
@@ -775,7 +813,91 @@ def run_tiles(dev, iters):
                       "call_ms": device}), flush=True)
 
 
-def run_k2(dev, symbols, lanes):
+def k2_clock_summary(clocks):
+    """Where K2's cycles go, from the cycle-counting build's per-lane
+    fields (kernels.rans_decode.CLOCK_FIELDS) of one call ((n, fields)
+    tensor) or of several (a list of them): cycles per symbol of each part
+    over every lane, escape-path cycles per escape, the escape share, the
+    longest lane's ns per symbol, and the SM clock under load (the longest
+    lanes' cycles over their %globaltimer ns, MHz)."""
+    from .kernels.rans_decode import CLOCK_FIELDS
+    if isinstance(clocks, torch.Tensor):
+        clocks = [clocks]
+    tot = dict.fromkeys(CLOCK_FIELDS, 0)
+    longest = dict.fromkeys(CLOCK_FIELDS, 0)
+    for clk in clocks:
+        lanes = [dict(zip(CLOCK_FIELDS, row)) for row in clk.cpu().tolist()]
+        for k in CLOCK_FIELDS:
+            tot[k] += sum(r[k] for r in lanes)
+        lane = max(lanes, key=lambda r: r["total"])
+        for k in CLOCK_FIELDS:
+            longest[k] += lane[k]
+    sym = max(tot["symbols"], 1)
+    return {"symbols": tot["symbols"], "escapes": tot["escapes"],
+            "escape_share": tot["escapes"] / sym,
+            "cycles_per_symbol": {k: tot[k] / sym for k in (
+                "search", "update", "escape", "store", "total")},
+            "escape_cycles_per_escape": tot["escape"] / max(tot["escapes"],
+                                                            1),
+            "longest_lane_symbols": longest["symbols"],
+            "longest_lane_ns_per_symbol": longest["ns"] / max(
+                longest["symbols"], 1),
+            "sm_clock_mhz": 1e3 * longest["total"] / max(longest["ns"], 1)}
+
+
+def k2_clocks_of_calls(calls):
+    """Each recorded K2 call (K2Call) through the cycle-counting build,
+    its symbols and lane state checked against the production build's.
+    Returns [(label, signature, clocks)]."""
+    from .kernels import rans_decode as K2
+    out = []
+    for c in calls:
+        args = c.args()
+        st_p, out_p = K2.rans_decode_launch(*args)
+        st_c, out_c, clk = K2.rans_decode_clocks(*args)
+        if not (torch.equal(out_p, out_c) and torch.equal(st_p["st"],
+                                                          st_c["st"])
+                and torch.equal(st_p["ptr"], st_c["ptr"])):
+            raise AssertionError(f"K2's cycle-counting build disagrees with "
+                                 f"the production build on {c.label}")
+        out.append((c.label, c.signature(), clk))
+    return out
+
+
+def run_k2_clocks_dmci(dev):
+    """The K2 calls of one 1080p DMCI device decode (qp 32, seeded random
+    weights, bf16) recorded and replayed through the cycle-counting build;
+    prints each call's breakdown and kernel ms, and the sum."""
+    dmci = DMCICodec.init_random(torch.Generator().manual_seed(0),
+                                 cfg=DMCIConfig(), skip_thres=0.15,
+                                 dtype=torch.bfloat16, device=dev)
+    x = smooth_frame(H, W, 0, dev)
+    res = dmci.compress(x, QP)
+    bits = bytes(res["bit_stream"])
+    log = K2Log()
+    dmci.device_ec = True
+    with log:
+        log.label = "DMCI 1080p device decode"
+        lanes = dmci.upload_stream(bits, res["ec_parallel"])
+        out = dmci.decompress(lanes, QP, H, W, res["ec_parallel"])
+    dmci.device_ec = False
+    if not torch.equal(out["x_hat"], res["x_hat"]):
+        raise AssertionError("the DMCI device decode differs from the "
+                             "encoder")
+    per_call = k2_clocks_of_calls(log.calls)
+    from .kernels import rans_decode as K2
+    for i, (call, (label, sig, clk)) in enumerate(zip(log.calls, per_call)):
+        ms = cuda_ms(lambda: K2.rans_decode_launch(*call.args()), iters=5,
+                     warmup=1)
+        print(json.dumps({"k2_clocks": f"{label} call {i}",
+                          "lanes_bytes_cap_rows": sig, "kernel_ms": ms,
+                          **k2_clock_summary(clk)}), flush=True)
+    print(json.dumps({"k2_clocks": "DMCI 1080p device decode, all calls",
+                      **k2_clock_summary([c for _, _, c in per_call])}),
+          flush=True)
+
+
+def run_k2(dev, symbols, lanes, clocks=False):
     """K2 on a synthetic stream: `symbols` y symbols (rows uniform over the
     128 Gaussian CDFs, values ~ N(0, 6) rounded, |v| <= 127, so some
     escape) coded by the host encoder over `lanes` lanes; the kernel
@@ -802,21 +924,38 @@ def run_k2(dev, symbols, lanes):
     args = (torch.from_numpy(idx).to(dev),
             torch.tensor(symbols, dtype=torch.int32, device=dev),
             K2.make_bank(cdf, lengths, dev))
-    _, out = K2.rans_decode(init_state(lane_t), *args)
+    state0 = init_state(lane_t)
+    _, out = K2.rans_decode(state0, *args)
     equal = bool(np.array_equal(out.cpu().numpy(), sym))
     k_ms = cuda_ms(lambda: K2.rans_decode(init_state(lane_t), *args),
                    iters=5, warmup=1)
     t0 = time.perf_counter()
-    K2.rans_decode_reference(init_state(lane_t), *args)
+    _, out_p = K2.rans_decode_reference(init_state(lane_t), *args)
     p_ms = 1e3 * (time.perf_counter() - t0)
-    longest = symbols - (symbols // lanes) * (lanes - 1)
-    clock = max_sm_clock_mhz()
-    bound = longest * K2_STEP_OPS * K2_OP_CYCLES / (clock * 1e3)
-    print(json.dumps({"k2_symbols": symbols, "lanes": lanes,
-                      "stream_bytes": len(stream), "equal_to_host": equal,
-                      "kernel_ms": k_ms, "plain_ms": p_ms,
-                      "ns_per_symbol_per_lane": 1e6 * k_ms / longest,
-                      "bound_ms": bound, "max_sm_clock_mhz": clock}))
+    call = K2Call("synthetic", lane_t, state0["st"], state0["ptr"], *args)
+    escapes = k2_lane_escapes(call, out_p)
+    longest = k2_lane_sizes(symbols, lanes)[-1]
+    max_clock = max_sm_clock_mhz()
+    summary = None
+    if clocks:
+        _, _, clk = K2.rans_decode_clocks(init_state(lane_t), *args)
+        summary = k2_clock_summary(clk)
+    clock = summary["sm_clock_mhz"] if summary else max_clock
+    print(json.dumps({
+        "k2_symbols": symbols, "lanes": lanes, "escapes": sum(escapes),
+        "stream_bytes": len(stream), "equal_to_host": equal,
+        "kernel_ms": k_ms, "plain_ms": p_ms,
+        "ns_per_symbol_per_lane": 1e6 * k_ms / longest,
+        "bound_ms": k2_latency_bound_ms([call], clock, [escapes]),
+        "sm_clock_mhz": clock, "clock_from": "clocks build under load"
+        if summary else "nvidia-smi clocks.max.sm",
+        "bound_ms_symbols_only_max_clock": k2_latency_bound_ms([call],
+                                                               max_clock),
+        "max_sm_clock_mhz": max_clock}), flush=True)
+    if clocks:
+        print(json.dumps({"k2_clocks": f"synthetic {symbols} symbols, "
+                          f"{lanes} lanes", **summary}), flush=True)
+        run_k2_clocks_dmci(dev)
 
 
 def main():
@@ -830,6 +969,8 @@ def main():
                     help="symbols of the synthetic stream (k2)")
     ap.add_argument("--lanes", type=int, default=8,
                     help="lanes of the synthetic stream (k2)")
+    ap.add_argument("--clocks", action="store_true",
+                    help="k2: also the cycle-counting build's breakdown")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe: no CUDA device")
@@ -841,7 +982,7 @@ def main():
     if args.mode == "shapes":
         run_shapes(dev, args.iters)
     elif args.mode == "k2":
-        run_k2(dev, args.symbols, args.lanes)
+        run_k2(dev, args.symbols, args.lanes, args.clocks)
     elif args.mode == "tiles":
         run_tiles(dev, args.iters)
     else:

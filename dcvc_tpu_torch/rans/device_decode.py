@@ -73,6 +73,7 @@ def init_state(lanes):
 def upload_lanes(stream, n_lanes, device):
     """The host half of a device decode: split `stream` into its n_lanes
     lanes and copy them to `device` (the only host-to-device copy of the
-    decode)."""
-    lanes, _ = split_streams(stream, n_lanes)
+    decode).  Each lane is zero-padded to a multiple of 16 bytes, the
+    chunk K2 reads its bytes in."""
+    lanes, _ = split_streams(stream, n_lanes, pad_to=16)
     return torch.from_numpy(lanes).to(device)

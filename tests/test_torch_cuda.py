@@ -19,8 +19,11 @@ import torch.nn.functional as F
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
 from dcvc_tpu_torch.layers import blocks
-from dcvc_tpu_torch.perf_probe import k2_fixtures, random_block, run_k2_case
-from dcvc_tpu_torch.rans.device_decode import init_state
+from dcvc_tpu_torch.entropy.gaussian import GaussianConditional
+from dcvc_tpu_torch.perf_probe import k2_fixtures, k2_lane_escapes, \
+    random_block, run_k2_case, K2Call
+from dcvc_tpu_torch.rans import RansDecoder, RansEncoder
+from dcvc_tpu_torch.rans.device_decode import init_state, upload_lanes
 
 
 @pytest.fixture
@@ -271,17 +274,119 @@ def _k2_args(device, lanes=2, idx_device=None, st_dtype=torch.int32):
     ("cpu state", "one device"),
     ("9 lanes", "1 <= n <= 8"),
     ("int64 st", "st must be torch.int32"),
+    ("no search tables", "lacks"),
+    ("cut search table", "search tables must be"),
+    ("too many rows", "do not fit"),
 ])
 def test_cuda_rans_decode_wrapper_raises(cuda_device, kind, match):
     """K2's wrapper launches or raises on the card, never falls back: a
-    CPU state with a CUDA idx, more than 8 lanes, a wrong dtype."""
+    CPU state with a CUDA idx, more than 8 lanes, a wrong dtype, a bank
+    without make_bank's search tables or with one cut short, and a bank
+    whose tables do not fit in a block's shared memory (the whole z bank
+    of DMCI: the z call passes one qp's rows)."""
     if kind == "cpu state":
         args = _k2_args("cpu", idx_device=cuda_device)
     elif kind == "9 lanes":
         args = _k2_args(cuda_device, lanes=9)
-    else:
+    elif kind == "int64 st":
         args = _k2_args(cuda_device, st_dtype=torch.int64)
+    else:
+        state, idx, count, bank = _k2_args(cuda_device)
+        if kind == "no search tables":
+            bank = {"cdf": bank["cdf"], "len": bank["len"]}
+        elif kind == "cut search table":
+            bank = dict(bank, sym=bank["sym"][:, :-1].contiguous())
+        else:
+            bank = K2.make_bank(np.tile([[0, 65535, 65536]], (2048, 1)),
+                                np.full(2048, 3, np.int32), cuda_device)
+        args = state, idx, count, bank
     n = K2.rans_decode.launches
     with pytest.raises(ValueError, match=match):
         K2.rans_decode(*args)
     assert K2.rans_decode.launches == n
+
+
+def _coded_lanes(n_lanes, idx, sym, cdf, lengths, device):
+    """(lanes on the card, the host decoder's symbols) of `sym` coded by
+    the host encoder over n_lanes lanes."""
+    enc = RansEncoder()
+    enc.set_cdf(cdf, lengths, 1)
+    enc.set_parallel(n_lanes)
+    enc.reset()
+    enc.encode_y(((sym.astype(np.int16) << 8) | idx).astype(np.int16))
+    enc.flush()
+    stream = enc.get_encoded_stream()
+    dec = RansDecoder()
+    dec.set_cdf(cdf, lengths, 1)
+    dec.set_parallel(n_lanes)
+    dec.set_stream(stream)
+    want = np.zeros(0, np.int8)
+    if idx.size:
+        dec.decode_y(idx)
+        want = dec.get_decoded(idx.size)
+    return upload_lanes(stream, n_lanes, device), want
+
+
+def _k2_check(state, idx, count, bank, want):
+    """K2, its cycle-counting build and its plain version on one call:
+    every symbol, zero past count, and the lane states equal; the symbols
+    the host decoder's."""
+    st_k, out_k = K2.rans_decode(state, idx, count, bank)
+    st_c, out_c, clocks = K2.rans_decode_clocks(state, idx, count, bank)
+    torch.cuda.synchronize()
+    st_p, out_p = K2.rans_decode_reference(state, idx, count, bank)
+    for got in ((st_k, out_k), (st_c, out_c)):
+        assert torch.equal(got[1], out_p)
+        assert torch.equal(got[0]["st"], st_p["st"])
+        assert torch.equal(got[0]["ptr"], st_p["ptr"])
+    n = int(count)
+    np.testing.assert_array_equal(out_k.cpu().numpy()[:n], want)
+    assert not out_k.cpu().numpy()[n:].any()
+    return out_p, clocks
+
+
+@pytest.mark.cuda
+def test_cuda_rans_decode_escape_heavy_stream(cuda_device):
+    """200 K symbols over 8 lanes, > 90% of them escapes (the tight rows of
+    the Gaussian bank, values up to +-127, as DMCI's random weights code),
+    so that escapes read the last bytes of every lane and the zeros past
+    it; the cycle-counting build counts the escapes the plain version's
+    symbols show."""
+    cdf, lengths = GaussianConditional(0.15).compute_cdf_bank()
+    rng = np.random.default_rng(7)
+    n = 200_000
+    idx = rng.integers(0, 8, n).astype(np.uint8)
+    sym = rng.integers(-127, 128, n).astype(np.int8)
+    lanes, want = _coded_lanes(8, idx, sym, cdf, lengths, cuda_device)
+    np.testing.assert_array_equal(want, sym)
+    state = init_state(lanes)
+    idx_t = torch.from_numpy(idx).to(cuda_device)
+    count = torch.tensor(n, dtype=torch.int32, device=cuda_device)
+    bank = K2.make_bank(cdf, lengths, cuda_device)
+    out_p, clocks = _k2_check(state, idx_t, count, bank, want)
+    call = K2Call("escapes", lanes, state["st"], state["ptr"], idx_t, count,
+                  bank)
+    escapes = k2_lane_escapes(call, out_p)
+    assert sum(escapes) > 0.9 * n
+    fields = dict(zip(K2.CLOCK_FIELDS, clocks.sum(0).tolist()))
+    assert fields["escapes"] == sum(escapes) and fields["symbols"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", range(1, 9))
+def test_cuda_rans_decode_short_counts(cuda_device, n_lanes):
+    """1-8 lanes at counts 0, 1 and n_lanes - 1 (every symbol in the last
+    lane, size0 = 0), each padded to a cap of 64."""
+    rng = np.random.default_rng(n_lanes)
+    cdf, lengths = GaussianConditional(0.15).compute_cdf_bank()
+    bank = K2.make_bank(cdf, lengths, cuda_device)
+    for n in sorted({0, 1, n_lanes - 1}):
+        idx = rng.integers(0, 128, n).astype(np.uint8)
+        sym = rng.integers(-20, 21, n).astype(np.int8)
+        lanes, want = _coded_lanes(n_lanes, idx, sym, cdf, lengths,
+                                   cuda_device)
+        idx_pad = np.zeros(64, np.uint8)
+        idx_pad[:n] = idx
+        _k2_check(init_state(lanes), torch.from_numpy(idx_pad).to(
+            cuda_device), torch.tensor(n, dtype=torch.int32,
+                                       device=cuda_device), bank, want)
