@@ -14,8 +14,8 @@ version at the edge-case shapes of tests/test_fused_dcb.py, and K2 against
 its plain version and the host decoder on the fixtures of
 tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
 lanes, escapes, a count below the lane count and of 0, z -> y -> y
-threading).  Checks the stages of the three full-width models (DMCI, HTS,
-HTL) in bf16 on the card against float32 on the CPU.  Then it drives the
+threading).  Checks the stages of the four full-width models (DMCI, HTS,
+HTL, LD) in bf16 on the card against float32 on the CPU.  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
 before it and read just after, recording every K1 launch's shape and
 every K2 launch's inputs:
@@ -25,18 +25,31 @@ every K2 launch's inputs:
   - DMCI -> DMCHTCodec at HTS_CONFIG (init_scale 0.5): three 8-frame
     chunks at 1080p (memory reset on the second) and one at 720p, each
     decoded through the host coder and on the device;
-  - DMCI -> DMCHTCodec at HTL_CONFIG (the ladder codec), the same chunks.
-Every device decode runs under torch.cuda.set_sync_debug_mode("error")
-once its lanes are uploaded: a host sync fails it.  Last, both forms of K1 are held against their plain
+  - DMCI -> DMCHTCodec at HTL_CONFIG (the ladder codec), the same chunks;
+  - DMCI -> DMCLDCodec at LD_CONFIG (init_scale 0.5): 8 frames at 1080p
+    (memory reset on the fifth) and 2 at 720p, decoded both ways; LD's K1
+    launches per call and its shapes are derived from the model on the
+    meta device (perf_probe.ld_stage_launches) and must match the card's;
+  - the evaluation entry: dcvc_tpu_torch.eval.video_main.main in-process
+    on a seeded 1080p YUV420 file written into a temporary directory of
+    the checkout (LD, HTS, and LD at two rates), then one point again
+    with fresh codecs (the same .bin) and with device_ec (the same bits
+    and PSNRs per frame).
+Every device decode of the first four parts runs under
+torch.cuda.set_sync_debug_mode("error") once its lanes are uploaded: a
+host sync fails it.  Last, both forms of K1 are held against their plain
 versions and timed at every distinct shape the main path launched them
 at (and, at the three heaviest, each launch of the chain is timed by
-torch.profiler), and every K2 call of the main path is replayed against
-its plain version and through its cycle-counting build, and timed.
+torch.profiler), and every K2 call of the first four parts is replayed
+against its plain version and through its cycle-counting build, and
+timed (the evaluation entry's K2 calls are counted, not replayed).
 It fails, with a non-zero exit code, if the card is missing, a kernel does
 not build or launch or disagrees with its plain version, the main path did
 not launch the kernels as often as derived, a reconstruction or final DPB
 is not bit-exact between encoder, host-coder decode and device decode, a
-device decode syncs with the host, or two encodes give different streams.
+device decode syncs with the host, two encodes give different streams,
+or a point of the evaluation entry is incomplete, not finite or not
+reproducible.
 
 Output: one line per phase (K2's: a JSON line of its time, ns per symbol
 per lane, cycles per symbol and latency bound per main-path label, with
@@ -47,24 +60,31 @@ card's name and power limit; and last {"ok": true, "device": {...}}.
 import collections
 import concurrent.futures
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from dcvc_tpu_torch.eval import video_main
+from dcvc_tpu_torch.eval.harness import run_one_point_with_stream
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
-from dcvc_tpu_torch.models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG
+from dcvc_tpu_torch.models.dmc_ht import HTL_CONFIG, HTS_CONFIG
+from dcvc_tpu_torch.models.dmc_ld import LD_CONFIG
 from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig
 from dcvc_tpu_torch.kernels._build import library_path
 from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
     k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
-    k2_latency_bound_ms, make_sequence, max_sm_clock_mhz, nvidia_smi, \
-    profile_launches, run_k2_case, sass_counts, smooth_frame
+    k2_latency_bound_ms, ld_stage_launches, make_sequence, \
+    max_sm_clock_mhz, nvidia_smi, profile_launches, run_k2_case, \
+    sass_counts, smooth_frame
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
-from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec
+from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec, DMCLDCodec
 
 K1_SOURCE = "dcvc_tpu_torch/csrc/fused_dcb.cu"
 K2_SOURCE = "dcvc_tpu_torch/csrc/rans_decode.cu"
@@ -104,27 +124,41 @@ ENCODE_LAUNCHES, DECODE_LAUNCHES = 42, 32
 CODEC_CASES = [(1080, 1920, 0, 0), (1080, 1920, 32, 0), (720, 1280, 32, 1)]
 # K2 launches of one DMCI device decode: z, then 4 rungs
 DMCI_K2_LAUNCHES = 5
-# video main paths: (height, width, qp, seed, reset flag of each chunk),
-# and the launches derived from models/dmc_ht.py: K1 (S = 1) per chunk
-# encode / decode, later chunk and right after the intra frame or a reset
-# (which runs FA_I instead of FA_M); stacked launches per recon (decode,
-# encode with recon=True) and per reset (the last frame's head); K2
-# launches per device decode
+# video main paths: (height, width, qp, seed, reset flag of each coding
+# unit: an 8-frame chunk for HT, a frame for LD), and the launches derived
+# from the models: K1 (S = 1) per unit encode / decode without the recon
+# head, later unit and right after the intra frame or a reset (which runs
+# FA_I instead of FA_M); the recon head's (S = 1, stacked) launches per
+# recon (decode, encode with recon=True) and per reset (HT: the last
+# frame's head; LD: the head before its pixel shuffle); K2 launches per
+# device decode
 VIDEO = {
     # HTS: FA_I 4 blocks, FA_M 6; recon trunk + 3 head stacks; one y call
-    "HTS": {"cfg": HTS_CONFIG,
+    "HTS": {"cfg": HTS_CONFIG, "codec": DMCHTCodec,
             "cases": [(1080, 1920, 32, 2, (False, True, False)),
                       (720, 1280, 32, 3, (False,))],
             "encode": 46, "decode": 37, "first_encode": 44,
-            "first_decode": 35, "recon": 4, "k2": 2},
+            "first_decode": 35, "recon": (0, 4), "k2": 2},
     # HTL: FA_I 3, FA_M 10, encoder 7, decoder 11, FX 2; 5 head stacks, no
     # trunk; z + 4 y rungs
-    "HTL": {"cfg": HTL_CONFIG,
+    "HTL": {"cfg": HTL_CONFIG, "codec": DMCHTCodec,
             "cases": [(1080, 1920, 32, 4, (False, True, False)),
                       (720, 1280, 32, 5, (False,))],
             "encode": 52, "decode": 42, "first_encode": 45,
-            "first_decode": 35, "recon": 5, "k2": 5},
+            "first_decode": 35, "recon": (0, 5), "k2": 5},
+    # LD: an intra frame, then 8 P frames at 1080p with a memory reset on
+    # the fifth, and 2 at 720p (the odd 45x80 y grid); its counts come from
+    # ld_spec; z + one y call
+    "LD": {"cfg": LD_CONFIG, "codec": DMCLDCodec,
+           "cases": [(1080, 1920, 32, 6,
+                      (False, False, False, False, True, False, False, False)),
+                     (720, 1280, 32, 7, (False, False))],
+           "k2": 2},
 }
+# the evaluation entry's phase: a seeded 1080p YUV420 file of CLI_FRAMES
+# frames, one intra frame then P frames (intra_period -1)
+CLI_FRAMES = 10
+CLI_H, CLI_W = 1080, 1920
 
 
 def log(*args):
@@ -422,10 +456,10 @@ def compare_stages(name, ref, got, plain):
 
 def stage_outputs_video(model, x, ref, feature, memory, z_int8, spctx,
                         y_hat, qp):
-    """Every HTS / HTL stage method of `model` on a 64x64 chunk (/8 grid
-    8x8, y grid 4x4), each on the same shared inputs, moved to the model's
-    device and type.  recon_frames and reset_feature run the stacked
-    kernel on the card."""
+    """Every HTS / HTL / LD stage method of `model` on a 64x64 coding unit
+    (/8 grid 8x8, y grid 4x4), each on the same shared inputs, moved to
+    the model's device and type.  The HT recon_frames and reset_feature
+    run the stacked kernel on the card."""
     dev, dt = model.q_encoder.device, model.dtype
 
     def m(t):
@@ -436,7 +470,10 @@ def stage_outputs_video(model, x, ref, feature, memory, z_int8, spctx,
         y, _ = model.analysis(m(x), m(feature), qp)
         q_enc, q_dec, scales, means, ctx0 = model.prior0(
             z_int8.to(dev), m(memory), qp, 4, 4)
-        step = model.prior_step(m(spctx), y_hat.to(dev), 1)
+        if model.cfg.prior_steps == 4:
+            step = model.prior_step(m(spctx), y_hat.to(dev), 1)
+        else:                     # the checkerboard's second step
+            step = model.prior_step(m(spctx), y_hat.to(dev))
         feat = model.synthesis_feature(y_hat.to(dev), m(feature), qp)
         frames = model.recon_frames(m(feature), qp, 64, 64)
         seed = model.reset_feature(m(feature))
@@ -446,7 +483,7 @@ def stage_outputs_video(model, x, ref, feature, memory, z_int8, spctx,
            "prior0 means": means, "prior0 ctx": ctx0,
            "synthesis_feature": feat, "recon_frames": frames,
            "reset_feature": seed}
-    if model.cfg.is_hts:
+    if model.cfg.single_pass:     # HTS, LD: means only
         out["prior_step means"] = step
     else:
         out["prior_step scales"], out["prior_step means"] = step
@@ -460,14 +497,16 @@ def phase_stages_video(name, codec):
     phase_stages."""
     gpu = codec.model
     state = {k: v.float().cpu() for k, v in gpu.state_dict().items()}
-    cpu32, cpu16 = DMCHT(codec.cfg), DMCHT(codec.cfg)
+    cpu32, cpu16 = codec.MODEL(codec.cfg), codec.MODEL(codec.cfg)
     cpu32.load_state_dict(state)
     cpu16.load_state_dict(state)
     cpu16.to(torch.bfloat16)
     c = codec.cfg
     gen = torch.Generator().manual_seed(2)
     x = torch.rand(1, 64, 64, 3 * c.frame_delay, generator=gen) - 0.5
-    ref = torch.rand(1, 8, 8, c.ch_src_intra, generator=gen) - 0.5
+    # an intra frame's unshuffled pixels (HT: ch_src_intra, LD: ch_src)
+    ch_ref = c.ch_src_intra if hasattr(c, "ch_src_intra") else c.ch_src
+    ref = torch.rand(1, 8, 8, ch_ref, generator=gen) - 0.5
     feature = torch.randn(1, 8, 8, c.ch_d, generator=gen)
     memory = torch.randn(1, 8, 8, c.ch_m, generator=gen)
     qp = STAGE_QP
@@ -581,26 +620,66 @@ def phase_codec(codec, dev, launch_log, k2_log):
     return tuple(derived)
 
 
-def expected_launches(spec, resets, u, encode, recon):
-    """(S = 1, stacked, K2) launches of chunk u's encode or (host-coder)
-    decode; a device decode adds spec['k2'] K2 launches."""
-    first = u == 0 or resets[u - 1]
+def ld_spec(spec):
+    """Fills VIDEO['LD']'s K1 launches per call from the model
+    (perf_probe.ld_stage_launches: its stage methods on the meta device,
+    in the codec's order) and returns the distinct K1 shapes of its cases,
+    which the card's launch log must repeat."""
+    shapes, counts = set(), set()
+    for (h, w, *_) in spec["cases"]:
+        stages = ld_stage_launches(spec["cfg"], h, w)
+        n = {k: sum(v.values()) for k, v in stages.items()}
+        counts.add(tuple(sorted(n.items())))
+        for v in stages.values():
+            shapes.update(v)
+    if len(counts) != 1:
+        raise AssertionError(f"LD launch counts differ by size: {counts}")
+    trunk = n["prior0"] + n["prior_step"] + n["synthesis_feature"]
+    if n["reset_feature"] != n["recon_frames"]:
+        raise AssertionError(f"LD reset and recon differ: {n}")
+    spec.update(decode=n["adaptor_m"] + trunk,
+                first_decode=n["adaptor_i"] + trunk,
+                encode=n["adaptor_m"] + n["analysis"] + trunk,
+                first_encode=n["adaptor_i"] + n["analysis"] + trunk,
+                recon=(n["recon_frames"], 0))
+    log(f"LD K1 launches from the model: per stage {n}; encode "
+        f"{spec['encode']} (first {spec['first_encode']}), decode "
+        f"{spec['decode']} (first {spec['first_decode']}), + "
+        f"{n['recon_frames']} per recon and per reset; "
+        f"{len(shapes)} distinct shapes")
+    return shapes
+
+
+def unit_launches(spec, first, reset, encode, recon):
+    """(S = 1, stacked, K2) launches of one coding unit's encode or
+    (host-coder) decode; first: right after the intra frame or a reset; a
+    device decode adds spec['k2'] K2 launches."""
     if encode:
         s1 = spec["first_encode"] if first else spec["encode"]
     else:
         s1 = spec["first_decode"] if first else spec["decode"]
-    return s1, spec["recon"] * (int(resets[u]) + int(recon)), 0
+    n = int(reset) + int(recon)
+    return s1 + spec["recon"][0] * n, spec["recon"][1] * n, 0
+
+
+def expected_launches(spec, resets, u, encode, recon):
+    """unit_launches of unit u of a sequence with these reset flags."""
+    return unit_launches(spec, u == 0 or resets[u - 1], resets[u], encode,
+                         recon)
 
 
 def phase_video(name, dmci, codec, dev, launch_log, k2_log):
     """The main path's video half for one variant: the DMCI reconstruction
-    of a sequence's first frame seeds the DMCHTCodec, which codes its
-    8-frame chunks.  Encode pass 1 (recon=True) against a host-coder decode
-    and a device decode (K2, every call sync-checked), each from a fresh
-    DPB: every chunk's x_hat and the final DPB bit-exact; encode pass 2
+    of a sequence's first frame seeds the video codec, which codes the
+    sequence in units of frame_delay frames (HT: 8-frame chunks, LD:
+    frames).  Encode pass 1 (recon=True) against a host-coder decode and a
+    device decode (K2, every call sync-checked), each from a fresh DPB:
+    every unit's x_hat and the final DPB bit-exact; encode pass 2
     (recon=False, warm): the same streams.  Returns the (S = 1, stacked,
     K2) launches derived for it, each call's checked."""
     spec = VIDEO[name]
+    fd = spec["cfg"].frame_delay
+    unit = "chunk" if fd > 1 else "frame"
     derived = [0, 0, 0]
 
     def tally(tag, got, want):
@@ -609,8 +688,8 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log):
             derived[i] += want[i]
 
     for (h, w, qp, seed, resets) in spec["cases"]:
-        frames = make_sequence(h, w, 8 * len(resets), seed, dev)
-        chunks = [torch.cat(frames[8 * u:8 * u + 8], dim=-1)
+        frames = make_sequence(h, w, fd * len(resets), seed, dev)
+        chunks = [torch.cat(frames[fd * u:fd * u + fd], dim=-1)
                   for u in range(len(resets))]
         label = f"{name} {w}x{h} qp={qp}"
         intra, _, i1, is_, i2 = counted(
@@ -625,7 +704,7 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log):
         def encode(recon):
             seeded()
             kind = "encode (recon)" if recon else "encode"
-            runs = [counted(launch_log, f"{label} chunk {u} {kind}",
+            runs = [counted(launch_log, f"{label} {unit} {u} {kind}",
                             lambda: codec.compress(x, qp, rs, recon=recon))
                     for u, (x, rs) in enumerate(zip(chunks, resets))]
             return runs, codec.ref_feature
@@ -633,7 +712,7 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log):
         enc1, dpb1 = encode(True)
         enc2, dpb2 = encode(False)
         seeded()
-        dec = [counted(launch_log, f"{label} chunk {u} decode",
+        dec = [counted(launch_log, f"{label} {unit} {u} decode",
                        lambda: codec.decompress(
                            bytes(r[0]["bit_stream"]), qp, h, w,
                            r[0]["ec_parallel"], rs)["x_hat"])
@@ -641,18 +720,19 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log):
         dpb_host = codec.ref_feature
         seeded()
         ddec = [device_decode(codec, k2_log,
-                              f"{label} chunk {u} device decode",
+                              f"{label} {unit} {u} device decode",
                               launch_log, bytes(r[0]["bit_stream"]),
                               r[0]["ec_parallel"], qp, h, w,
                               r[0]["ec_parallel"], rs)
                 for u, (r, rs) in enumerate(zip(enc1, resets))]
         dpb_dev = codec.ref_feature
         for u, rs in enumerate(resets):
-            tag = f"{label} chunk {u} reset={int(rs)}"
+            tag = f"{label} {unit} {u} reset={int(rs)}"
             (r1, _, e1, s1, _), (r2, enc_ms, e2, s2, _) = enc1[u], enc2[u]
             x_dec, dec_ms, d1, ds, dk = dec[u]
             x_dev, dev_ms, v1, vs, vk = ddec[u]
-            if x_dec.shape != (8, h, w, 3) or r1["x_hat"].shape != x_dec.shape:
+            if x_dec.shape != (fd, h, w, 3) \
+                    or r1["x_hat"].shape != x_dec.shape:
                 raise AssertionError(f"{tag}: x_hat shape "
                                      f"{tuple(x_dec.shape)}")
             if not bool(torch.isfinite(x_dec).all()):
@@ -676,10 +756,10 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log):
             tally(f"{tag} device decode", (v1, vs, vk),
                   (s1_, st_, spec["k2"]))
             nbytes = len(r1["bit_stream"])
-            src = torch.cat(frames[8 * u:8 * u + 8]).float()
+            src = torch.cat(frames[fd * u:fd * u + fd]).float()
             mse = torch.mean((x_dec - src) ** 2).item()
             psnr = 10 * torch.log10(torch.tensor(1.0 / mse)).item()
-            log(f"{tag}: bytes={nbytes} bpp={8 * nbytes / (8 * h * w)} "
+            log(f"{tag}: bytes={nbytes} bpp={8 * nbytes / (fd * h * w)} "
                 f"psnr={psnr} ec_parallel={r1['ec_parallel']} "
                 f"bit_exact=True launches enc(recon)={e1}+{s1} "
                 f"enc={e2}+{s2} dec={d1}+{ds} device_dec={v1}+{vs}+K2 {vk} "
@@ -690,6 +770,155 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log):
                                  f"host decode, device decode)")
         log(f"{label}: final DPB equal on the encoder, the host decode and "
             f"the device decode {tuple(dpb1.shape)}")
+    return tuple(derived)
+
+
+def write_cli_inputs(root, dev):
+    """A seeded YUV420 file of CLI_FRAMES CLI_W x CLI_H frames (the
+    drifting picture of make_sequence, read as YCbCr, chroma 2x2-averaged)
+    and a test_config naming it, under `root`.  Returns (config path,
+    sequence name)."""
+    seq = f"smoke_{CLI_W}x{CLI_H}_30.yuv"
+    os.makedirs(os.path.join(root, "Smoke"))
+    with open(os.path.join(root, "Smoke", seq), "wb") as f:
+        for frame in make_sequence(CLI_H, CLI_W, CLI_FRAMES, 8, dev):
+            yuv = torch.round((frame[0] + 0.5) * 255)
+            uv = yuv[..., 1:].reshape(CLI_H // 2, 2, CLI_W // 2, 2, 2).mean(
+                (1, 3)).round().permute(2, 0, 1)
+            f.write(yuv[..., 0].to(torch.uint8).cpu().numpy().tobytes())
+            f.write(uv.to(torch.uint8).cpu().numpy().tobytes())
+    cfg = {"root_path": root, "test_classes": {"Smoke": {
+        "test": 1, "base_path": "Smoke", "src_type": "yuv420",
+        "sequences": {seq: {"width": CLI_W, "height": CLI_H,
+                            "frames": CLI_FRAMES, "intra_period": -1}}}}}
+    path = os.path.join(root, "test_config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path, seq
+
+
+def cli_launches(spec, point, device_ec=False):
+    """(S = 1, stacked, K2) launches of one point of the harness on a
+    sequence with one intra frame (intra_period -1): its frame walk
+    (run_one_point_with_stream), each P unit encoded without and decoded
+    with the recon head."""
+    fd = spec["cfg"].frame_delay
+    total = [ENCODE_LAUNCHES + DECODE_LAUNCHES, 0,
+             DMCI_K2_LAUNCHES if device_ec else 0]
+    idx, first = 1, True
+    while idx < point["frame_num"]:
+        reset = (point["reset_interval"] > 0
+                 and (idx + fd) % point["reset_interval"] == 1)
+        for encode in (True, False):
+            got = unit_launches(spec, first, reset, encode, not encode)
+            total[0] += got[0]
+            total[1] += got[1]
+        total[2] += spec["k2"] if device_ec else 0
+        first, idx = reset, idx + fd
+    return tuple(total)
+
+
+def check_point(tag, res):
+    """A point's result: every frame coded, finite PSNR, bpp > 0."""
+    frames = res["i_frame_num"] + res["p_frame_num"]
+    if frames != CLI_FRAMES or not np.isfinite(res["ave_all_frame_psnr"]) \
+            or not res["ave_all_frame_bpp"] > 0:
+        raise AssertionError(f"{tag}: {frames} frames, psnr "
+                             f"{res['ave_all_frame_psnr']}, bpp "
+                             f"{res['ave_all_frame_bpp']}")
+
+
+def phase_cli(dev, launch_log):
+    """The evaluation entry on the card: a seeded 1080p YUV420 file and a
+    test_config in a temporary directory of the checkout;
+    video_main.main run in-process with --model_structure ld, hts, and ld
+    at --rate_num 2 (random weights, --verbose 1: the harness prints its
+    average times after the 4 warm-up frames), every point's JSON
+    checked.  Then the first point again through
+    run_one_point_with_stream, with codecs built anew: the same .bin
+    bytes, and with device_ec=True (K2) the same bits and PSNRs per
+    frame.  Its K2 calls are not replayed.  Returns the (S = 1, stacked,
+    K2) launches derived for it, each call's checked."""
+    derived = [0, 0, 0]
+    root = tempfile.mkdtemp(prefix="_smoke_cli_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        cfg_path, seq = write_cli_inputs(root, dev)
+
+        def argv(structure, out, *extra):
+            return ["--test_config", cfg_path, "--model_structure", structure,
+                    "--output_path", os.path.join(root, f"{out}.json"),
+                    "--stream_path", os.path.join(root, out),
+                    "--verbose", "1", *extra]
+        one_rate = ("--rate_num", "1", "--qp_i", "32", "--qp_p", "32")
+        runs = [("LD", "qp 32", argv("ld", "ld", *one_rate)),
+                ("HTS", "qp 32", argv("hts", "hts", *one_rate)),
+                ("LD", "rate_num 2", argv("ld", "ld_rates", "--rate_num",
+                                          "2"))]
+        for name, rates, args in runs:
+            label = f"CLI {name} {rates}"
+            result, ms, n1, ns, n2 = counted(
+                launch_log, label, lambda: video_main.main(args))
+            points = video_main.build_points(
+                video_main.parse_args(args), DMCIConfig().qp_num)[0]
+            want = [0, 0, 0]
+            for point in points:
+                for i, n in enumerate(cli_launches(VIDEO[name], point)):
+                    want[i] += n
+            expect(label, (n1, ns, n2), tuple(want))
+            for i in range(3):
+                derived[i] += want[i]
+            for idx, res in result["Smoke"][seq].items():
+                check_point(f"{label} rate {idx}", res)
+                # the harness times the coded units after its 4 warm-up
+                # ones; an HTS point at 10 frames has 3 units
+                times = ("avg_frame_encoding_ms="
+                         f"{1e3 * res['avg_frame_encoding_time']} "
+                         "avg_frame_decoding_ms="
+                         f"{1e3 * res['avg_frame_decoding_time']}"
+                         if "avg_frame_encoding_time" in res
+                         else "times not kept (4 or fewer coded units)")
+                log(f"{label} rate {idx}: bpp={res['ave_all_frame_bpp']} "
+                    f"psnr={res['ave_all_frame_psnr']} {times} (CLI run "
+                    f"{ms} ms with its codec builds)")
+
+        args = video_main.parse_args(runs[0][2])
+        point = dict(video_main.build_points(args, DMCIConfig().qp_num)[0][0],
+                     verbose_json=True)
+        with open(point["curr_bin_path"], "rb") as f:
+            first_bin = f.read()
+        again = []
+        for device_ec in (False, True):
+            codecs = video_main.build_codecs(args, device_ec)
+            bin_path = os.path.join(root, f"again_{int(device_ec)}.bin")
+            pt = dict(point, curr_bin_path=bin_path,
+                      curr_json_path=bin_path.replace(".bin", ".json"))
+            label = f"CLI LD point again, device_ec={device_ec}"
+            res, ms, n1, ns, n2 = counted(
+                launch_log, label,
+                lambda: run_one_point_with_stream(codecs[1], codecs[0],
+                                                  codecs[2], pt))
+            want = cli_launches(VIDEO["LD"], pt, device_ec)
+            expect(label, (n1, ns, n2), want)
+            for i in range(3):
+                derived[i] += want[i]
+            with open(bin_path, "rb") as f:
+                if f.read() != first_bin:
+                    raise AssertionError(f"{label}: the .bin differs from "
+                                         f"the first run's")
+            check_point(label, res)
+            again.append(res)
+        host, device = again
+        if host["frame_bpp"] != device["frame_bpp"] \
+                or host["frame_psnr"] != device["frame_psnr"]:
+            raise AssertionError("CLI LD point: the device decode's bits or "
+                                 "PSNRs differ from the host decode's")
+        log(f"CLI: {len(runs)} runs of video_main.main, every point "
+            f"checked; the first point again: .bin byte-identical, host and "
+            f"device (K2) decodes equal in bits and PSNR per frame "
+            f"({len(host['frame_psnr'])} frames)")
+    finally:
+        shutil.rmtree(root)
     return tuple(derived)
 
 
@@ -727,16 +956,18 @@ def main():
     dmci = DMCICodec.init_random(torch.Generator().manual_seed(0),
                                  cfg=DMCIConfig(), skip_thres=0.15,
                                  dtype=torch.bfloat16, device=dev)
-    video = {name: DMCHTCodec.init_random(
+    video = {name: spec["codec"].init_random(
         torch.Generator().manual_seed(0), cfg=spec["cfg"], init_scale=0.5,
         skip_thres=0.15, dtype=torch.bfloat16, device=dev)
         for name, spec in VIDEO.items()}
+    ld_shapes = ld_spec(VIDEO["LD"])
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
 
     # the main path, one part at a time, each with the counts set to 0
-    # just before it and read just after
+    # just before it and read just after; K2's calls are recorded for
+    # their replay in every part but the evaluation entry's
     launch_log, k2_log = LaunchLog(), K2Log()
     parts = [("DMCI", lambda: phase_codec(dmci, dev, launch_log, k2_log))]
     parts += [(f"DMCI seed + {name}",
@@ -744,11 +975,16 @@ def main():
                                              launch_log, k2_log))
               for name in VIDEO]
     got, want = {}, {}
-    with launch_log, k2_log:
-        for part, run in parts:
-            zero_launch_counts()
-            want[part] = run()
-            got[part] = launch_counts()
+    with launch_log:
+        with k2_log:
+            for part, run in parts:
+                zero_launch_counts()
+                want[part] = run()
+                got[part] = launch_counts()
+        parts.append(("CLI", None))
+        zero_launch_counts()
+        want["CLI"] = phase_cli(dev, launch_log)
+        got["CLI"] = launch_counts()
     log("main path launches (fused_dcb, fused_dcb_stacked, rans_decode): "
         + "; ".join(f"{part} {got[part]}, derived {want[part]}"
                     for part, _ in parts))
@@ -758,16 +994,30 @@ def main():
     for key, n in launch_log.totals().items():
         recorded[key.kind] += n
     if got != want or recorded != launches \
-            or len(k2_log.calls) != totals[2]:
+            or len(k2_log.calls) != totals[2] - got["CLI"][2]:
         raise AssertionError(f"main path launches {got}, recorded "
                              f"{dict(recorded)} + {len(k2_log.calls)} K2, "
                              f"derived {want}")
     if min(totals) == 0:
         raise AssertionError("the main path skipped a kernel")
+    card_ld = set()
+    for label, counts in launch_log.calls:
+        if label.startswith("LD ") and "intra frame" not in label:
+            card_ld.update(counts)
+    if card_ld != ld_shapes:
+        raise AssertionError(
+            f"LD's K1 shapes on the card {sorted(map(str, card_ld))} differ "
+            f"from the model's {sorted(map(str, ld_shapes))}")
+    log(f"LD's {len(card_ld)} K1 shapes on the card are the ones derived "
+        f"from the model on the meta device: "
+        + "; ".join(sorted(map(str, card_ld))))
 
     with torch.inference_mode():
         rows = phase_kernels(dev, launch_log, launches)
         rows.append(phase_k2(k2_log, totals[2]))
+    log(f"K2: {len(k2_log.calls)} of the main path's {totals[2]} launches "
+        f"replayed and timed; the evaluation entry's {got['CLI'][2]} are "
+        f"counted only")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,13 +1,17 @@
-"""Quadtree (4x) coding masks in the candidate domain, NHWC layout.
+"""Quadtree (4x) and checkerboard (2x) coding masks in the candidate
+domain, NHWC layout.
 
 Every coding step of the 4-step quadtree prior selects, per channel
-quarter, one 2x2 spatial phase (reference CompressionModel.get_mask_4x).
-The runtime quantizes and entropy-codes in the packed "candidate domain"
-(1, ceil(h/2), ceil(w/2), c): each term's phase subgrid, concatenated in
+quarter, one 2x2 spatial phase (reference CompressionModel.get_mask_4x);
+each step of the 2-step checkerboard prior (DMC-LD) selects two opposite
+phases per channel half (get_mask_2x).  The runtime quantizes and
+entropy-codes in the packed "candidate domain" (1, ceil(h/2), ceil(w/2),
+sum of the terms' channels): each term's phase subgrid, concatenated in
 term order.  That order IS the symbol order of the stream.
 
-`phase_terms_4x`, `phase_valid` and `terms_key` are numpy/pure Python and
-are verbatim copies of `dcvc_tpu.core.masks` (whose package imports jax);
+`_phase_np`, `make_mask_2x`, `phase_terms_4x`, `phase_terms_2x`,
+`phase_valid` and `terms_key` are numpy/pure Python and are verbatim
+copies of `dcvc_tpu.core.masks` (whose package imports jax);
 tests/test_torch_core.py pins them to the originals.  phase_split and
 phase_merge are strided slices on the card.
 """
@@ -17,6 +21,35 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_np(h, w, yo, xo):
+    """Boolean (h, w) grid true where (row % 2, col % 2) == (yo, xo)."""
+    rows = (np.arange(h) % 2 == yo)[:, None]
+    cols = (np.arange(w) % 2 == xo)[None, :]
+    return rows & cols
+
+
+@functools.lru_cache(maxsize=64)
+def make_mask_2x(h, w, c):
+    """Two checkerboard masks of shape (h, w, c).
+
+    Channel halves use opposite phases; step 1 is the complement.
+    Matches get_mask_2x: micro masks ((1,0),(0,1)) and ((0,1),(1,0)).
+    """
+    assert c % 2 == 0
+    m0 = _phase_np(h, w, 0, 0) | _phase_np(h, w, 1, 1)   # ((1,0),(0,1))
+    m1 = ~m0                                              # ((0,1),(1,0))
+    half = c // 2
+    mask_0 = np.concatenate([np.repeat(m0[:, :, None], half, 2),
+                             np.repeat(m1[:, :, None], half, 2)], axis=2)
+    mask_1 = ~mask_0
+    # numpy (not jnp): these are cached; jnp arrays created during a jit
+    # trace would leak tracers out of the cache.  numpy bools become
+    # XLA constants at each use site.
+    return mask_0, mask_1
+
 
 _PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
@@ -31,6 +64,18 @@ def phase_terms_4x(c):
         [(_PHASES[order[g]], g * q, (g + 1) * q) for g in range(4)]
         for order in orders
     ]
+
+
+def phase_terms_2x(c):
+    """Per step: terms matching make_mask_2x.  Each channel half has two
+    phases; candidate shape per step: (1, h/2, w/2, 2c)."""
+    assert c % 2 == 0
+    half = c // 2
+    t0 = [((0, 0), 0, half), ((1, 1), 0, half),
+          ((0, 1), half, c), ((1, 0), half, c)]
+    t1 = [((0, 1), 0, half), ((1, 0), 0, half),
+          ((0, 0), half, c), ((1, 1), half, c)]
+    return [t0, t1]
 
 
 def _pad_even(x):

@@ -72,6 +72,17 @@ class DMCHTConfig:
     def dcb2(self):
         return self.is_hts
 
+    @property
+    def prior_steps(self):
+        """Coding steps of the spatial prior: the 4-step quadtree."""
+        return 4
+
+    @property
+    def single_pass(self):
+        """One entropy pass when the spatial priors emit means only (HTS);
+        HTL's emit scales too, so its steps form a ladder."""
+        return self.prior_steps == 2 or self.is_hts
+
 
 HTS_CONFIG = DMCHTConfig(is_hts=True)
 HTL_CONFIG = DMCHTConfig(is_hts=False, enc_depth=7, dec_depth=11,

@@ -8,10 +8,10 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
-DMC-HT width the checkout has (HTS, HTL), a warm later 1080p chunk
-(encode without recon, decode with it), all at qp 32 with seeded random
-weights in bf16; where the checkout has the device-entropy decode, every
-decode also runs through it.
+video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
+(LD: frame; encode without recon, decode with it), all at qp 32 with
+seeded random weights in bf16; where the checkout has the
+device-entropy decode, every decode also runs through it.
 A LaunchLog records the shape of every K1 launch these calls make; then
 K1 and its plain version are timed at each distinct shape on random bf16
 inputs (CUDA events, median of `iters` after 3 warm-ups).  It prints one
@@ -143,6 +143,61 @@ class LaunchLog:
         for _, counts in self.calls:
             total.update(counts)
         return total
+
+
+@contextlib.contextmanager
+def meta_launches():
+    """Inside, K1's launch functions return an empty tensor of the
+    launch's output shape instead of launching, so a model on the meta
+    device runs its stages with no memory and no compute; a LaunchLog
+    entered inside records the launches the card would make."""
+    saved = K1.fused_dcb_launch, K1.fused_dcb_stacked_launch
+
+    def launch(x, ops, shortcut=False):
+        return x.new_empty(x.shape[:-1] + (ops["w2"].shape[-2],))
+
+    def launch_stacked(x, ops):
+        return x.new_empty(x.shape[:-1] + (ops["w2"].shape[-2],))
+    K1.fused_dcb_launch, K1.fused_dcb_stacked_launch = launch, launch_stacked
+    try:
+        yield
+    finally:
+        K1.fused_dcb_launch, K1.fused_dcb_stacked_launch = saved
+
+
+def ld_stage_launches(cfg, h, w):
+    """The K1 launches of each stage of a DMC-LD codec call on an (h, w)
+    frame, from the model itself: its stage methods run on the meta
+    device, in the order the codec calls them.  Returns {stage: Counter
+    of Launch} for the stages adaptor_i, adaptor_m, analysis, prior0,
+    prior_step, synthesis_feature, reset_feature, recon_frames."""
+    from .core.padding import get_padding_size
+    from .models.dmc_ld import DMCLD
+    pad_r, pad_b = get_padding_size(h, w, 16)
+    ph, pw = h + pad_b, w + pad_r
+    log = LaunchLog()
+    with torch.device("meta"), meta_launches(), log:
+        m = DMCLD(cfg).to(torch.bfloat16)
+
+        def feat(ch):
+            return torch.empty(1, ph // 8, pw // 8, ch, dtype=torch.bfloat16)
+
+        def stage(name, fn, *args):
+            with log.call(name):
+                return fn(*args)
+        memory, ctx = stage("adaptor_i", m.adaptor_i, feat(cfg.ch_src))
+        stage("adaptor_m", m.adaptor_m, memory, feat(cfg.ch_d))
+        x = torch.empty(1, ph, pw, 3, dtype=torch.bfloat16)
+        y, z = stage("analysis", m.analysis, x, ctx, 0)
+        yh, yw = y.shape[1], y.shape[2]
+        params = stage("prior0", m.prior0, z, memory, 0, yh, yw)[4]
+        y_hat = torch.empty(1, yh, yw, cfg.ch_y)
+        stage("prior_step", m.prior_step, params, y_hat)
+        feature = stage("synthesis_feature", m.synthesis_feature, y_hat,
+                        ctx, 0)
+        stage("reset_feature", m.reset_feature, feature)
+        stage("recon_frames", m.recon_frames, feature, 0, h, w)
+    return dict(log.calls)
 
 
 # ------------------------------------------------------------------ K2
@@ -555,18 +610,21 @@ def make_sequence(h, w, n, seed, dev):
         for i in range(n)]
 
 
-def _video_codec(dev, cfg_name):
-    """The DMC-HT codec at full width at models.dmc_ht.<cfg_name>
-    (init_scale 0.5, as bench.py), or None in a checkout that has none."""
+def _video_codec(dev, model, cfg_name, codec_name):
+    """The video codec runtime.video_codec.<codec_name> at full width at
+    models.<model>.<cfg_name> (init_scale 0.5, as bench.py), or None in a
+    checkout that has none."""
     try:
-        from .models import dmc_ht
-        from .runtime.video_codec import DMCHTCodec
-        cfg = getattr(dmc_ht, cfg_name)
+        import importlib
+        from .runtime import video_codec
+        cfg = getattr(importlib.import_module(f".models.{model}",
+                                              __package__), cfg_name)
+        cls = getattr(video_codec, codec_name)
     except (ImportError, AttributeError):
         return None
-    return DMCHTCodec.init_random(torch.Generator().manual_seed(0), cfg=cfg,
-                                  init_scale=0.5, skip_thres=0.15,
-                                  dtype=torch.bfloat16, device=dev)
+    return cls.init_random(torch.Generator().manual_seed(0), cfg=cfg,
+                           init_scale=0.5, skip_thres=0.15,
+                           dtype=torch.bfloat16, device=dev)
 
 
 def _device_ec(codec, fn):
@@ -579,11 +637,14 @@ def _device_ec(codec, fn):
 
 
 def _later_chunk_calls(name, codec, dev):
-    """Warm calls of a later 1080p chunk of `codec`: encode, decode and
-    (where the checkout has it) the device decode."""
+    """Warm calls of a later 1080p coding unit of `codec` (an 8-frame HT
+    chunk, an LD frame): encode, decode and (where the checkout has it)
+    the device decode."""
     h, w = H, W
-    frames = make_sequence(h, w, 16, 2, dev)
-    chunks = [torch.cat(frames[8 * u:8 * u + 8], dim=-1) for u in range(2)]
+    fd = codec.cfg.frame_delay
+    unit = "chunk" if fd > 1 else "frame"
+    frames = make_sequence(h, w, 2 * fd, 2, dev)
+    chunks = [torch.cat(frames[fd * u:fd * u + fd], dim=-1) for u in range(2)]
 
     def seeded():
         codec.clear_dpb()
@@ -604,12 +665,12 @@ def _later_chunk_calls(name, codec, dev):
 
     def decode():
         return codec.decompress(streams[1][0], QP, h, w, streams[1][1])
-    calls = [(f"{name} 1080p later chunk encode", codec,
+    calls = [(f"{name} 1080p later {unit} encode", codec,
               lambda: later(lambda: codec.compress(chunks[1], QP))),
-             (f"{name} 1080p later chunk decode", codec,
+             (f"{name} 1080p later {unit} decode", codec,
               lambda: later(decode))]
     if hasattr(codec, "upload_stream"):
-        calls.append((f"{name} 1080p later chunk device decode", codec,
+        calls.append((f"{name} 1080p later {unit} device decode", codec,
                       lambda: later(lambda: _device_ec(codec, decode))))
         calls[-1][2]()
     return calls
@@ -617,8 +678,9 @@ def _later_chunk_calls(name, codec, dev):
 
 def warm_calls(dev):
     """[(label, codec, fn)] of the measured calls, each warmed up once:
-    a 1080p DMCI encode and decode, and, for each DMC-HT width the
-    checkout has (HTS, HTL), a later 1080p chunk's encode and decode;
+    a 1080p DMCI encode and decode, and, for each video codec the
+    checkout has (HTS, HTL, LD), a later 1080p chunk's (LD: frame's)
+    encode and decode;
     where the checkout has the device-entropy decode, each decode also
     through it (its stream's upload included).  Every fn() repeats its
     call from the same state."""
@@ -639,8 +701,10 @@ def warm_calls(dev):
         calls.append(("DMCI 1080p device decode", dmci,
                       lambda: _device_ec(dmci, decode)))
         calls[-1][2]()
-    for name in ("HTS", "HTL"):
-        codec = _video_codec(dev, f"{name}_CONFIG")
+    for name, model, codec_name in (("HTS", "dmc_ht", "DMCHTCodec"),
+                                    ("HTL", "dmc_ht", "DMCHTCodec"),
+                                    ("LD", "dmc_ld", "DMCLDCodec")):
+        codec = _video_codec(dev, model, f"{name}_CONFIG", codec_name)
         if codec is not None:
             calls += _later_chunk_calls(name, codec, dev)
     return calls

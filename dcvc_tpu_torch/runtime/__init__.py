@@ -1,4 +1,4 @@
 from .image_codec import DMCICodec
-from .video_codec import DMCHTCodec
+from .video_codec import DMCHTCodec, DMCLDCodec
 
-__all__ = ["DMCICodec", "DMCHTCodec"]
+__all__ = ["DMCICodec", "DMCHTCodec", "DMCLDCodec"]

@@ -27,8 +27,8 @@ domain (core/masks.py); its order is the stream's symbol order.
 import numpy as np
 import torch
 
-from ..core.masks import phase_merge, phase_split, phase_terms_4x, \
-    phase_valid, terms_key
+from ..core.masks import phase_merge, phase_split, phase_terms_2x, \
+    phase_terms_4x, phase_valid, terms_key
 from ..core.padding import get_padding_size, pad_replicate_nhwc
 from ..entropy.bit_estimator import BitEstimator
 from ..entropy.gaussian import GaussianConditional, scale_to_index
@@ -79,21 +79,29 @@ def device_banks(banks, device):
     return tuple(make_bank(cdf, lengths, device) for cdf, lengths in banks)
 
 
-def grid_plan(h, w, ch_y, ch_z, device):
+def grid_plan(h, w, ch_y, ch_z, device, steps=4):
     """Grid sizes, candidate-domain masks and the z calls' row indexes
-    (i % ch_z, for K2) for original size (h, w)."""
+    (i % ch_z, for K2) for original size (h, w).  steps=4: the quadtree
+    masks (a candidate step has ch_y channels); steps=2: the checkerboard
+    masks (2 * ch_y channels)."""
     # frames pad to 16, so the latent grid may be odd (720p -> 45)
     pad_r, pad_b = get_padding_size(h, w, 16)
     yh, yw = (h + pad_b) // 16, (w + pad_r) // 16
     cand = ((yh + 1) // 2, (yw + 1) // 2)
-    terms = phase_terms_4x(ch_y)
+    if steps == 4:
+        terms, cand_ch = phase_terms_4x(ch_y), ch_y
+    elif steps == 2:
+        terms, cand_ch = phase_terms_2x(ch_y), 2 * ch_y
+    else:
+        raise ValueError(f"steps {steps}: 4 or 2")
     valid = [torch.from_numpy(phase_valid(yh, yw, terms_key(t))).to(device)
              for t in terms]
     zh, zw = (yh + 3) // 4, (yw + 3) // 4
     z_idx = (torch.arange(zh * zw * ch_z, device=device) % ch_z).to(
         torch.uint8)
     return {"pad": (pad_b, pad_r), "y": (yh, yw), "z": (zh, zw),
-            "cand": cand, "n_cand": cand[0] * cand[1] * ch_y,
+            "cand": cand, "cand_ch": cand_ch,
+            "n_cand": cand[0] * cand[1] * cand_ch,
             "terms": terms, "valid": valid, "z_idx": z_idx}
 
 

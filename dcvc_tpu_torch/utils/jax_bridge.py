@@ -3,7 +3,8 @@
 The port names its parameters after the reference torch module tree, so
 the key of each flax leaf is exactly what dcvc_tpu's checkpoint importer
 maps it from (`key_fn_dmci` for DMCI and its blocks, `key_fn_dmc_ht` for
-DMC-HT; the port's verbatim copies in utils/keys.py).  This inverts that
+DMC-HT, `key_fn_dmc_ld` for DMC-LD; the port's verbatim copies in
+utils/keys.py).  This inverts that
 importer's leaf conversion: conv kernels (kh, kw, I, O) go back to
 (O, I, kh, kw),
 depthwise kernels (3, 3, 1, C) to (C, 1, 3, 3); every other leaf keeps
@@ -16,7 +17,8 @@ kernels (I, O) -> (O, I, 1, 1), the depthwise dc_dw_w (3, 3, I) ->
 import numpy as np
 import torch
 
-from .keys import _stacked_leaf, key_fn_dmc_ht, key_fn_dmci
+from .keys import _stacked_leaf, key_fn_dmc_ht, key_fn_dmc_ld, \
+    key_fn_dmci
 
 
 def _leaves(tree, path=()):
@@ -65,6 +67,15 @@ def dmc_ht_params_from_jax(flax_params, hts=True):
         else:
             state[key] = _tensor(leaf)
     return state
+
+
+def dmc_ld_params_from_jax(flax_params):
+    """flax DMCLD params (both adaptor branches merged, as the JAX codec
+    holds them) -> the state_dict of dcvc_tpu_torch.models.dmc_ld.DMCLD.
+    LD has no stacked leaf: every leaf takes the conv / depthwise
+    conversion."""
+    return {key_fn_dmc_ld(path): _tensor(leaf)
+            for path, leaf in _leaves(flax_params)}
 
 
 def stacked_dcb_params_from_jax(flax_params):

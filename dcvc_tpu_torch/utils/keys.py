@@ -110,6 +110,23 @@ def _recon_keys_ht(path, frame_delay=8, hts=True):
     raise KeyError(f"unrecognized stacked recon path {path}")
 
 
+_LD_SEQ_TOPS = {"feature_adaptor_i", "feature_adaptor_m", "feature_extractor",
+                "hyper_encoder", "hyper_decoder", "y_prior_fusion"}
+
+
+def _map_dmc_ld(out, s):
+    if s == "temporal_prior_encoder":
+        # reference wraps the RBWS2 in a module attribute named conv
+        return "temporal_prior_encoder.conv"
+    m = re.fullmatch(r"layers_(\d+)", s)
+    if m and out and out[-1] in _LD_SEQ_TOPS:
+        return f"conv.{m.group(1)}"
+    m = re.fullmatch(r"(conv1|conv)_(\d+)", s)
+    if m:
+        return f"{m.group(1)}.{m.group(2)}"
+    return None
+
+
 def key_fn_dmci(path):
     return _translate(path, _map_dmci)
 
@@ -118,3 +135,7 @@ def key_fn_dmc_ht(path, frame_delay=8, hts=True):
     if path[0] == "recon_head" and not path[1].startswith("conv"):
         return _recon_keys_ht(path, frame_delay, hts)
     return _translate(path, _map_dmc_ht)
+
+
+def key_fn_dmc_ld(path):
+    return _translate(path, _map_dmc_ld)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from dcvc_tpu.core import color as jcolor
 from dcvc_tpu.core import masks as jmasks
 from dcvc_tpu.core import padding as jpadding
 from dcvc_tpu.core import shuffle as jshuffle
@@ -25,7 +26,7 @@ from dcvc_tpu.entropy import bit_estimator as jbe
 from dcvc_tpu.entropy import gaussian as jgauss
 from dcvc_tpu.rans import device_decode as jdevice_decode
 from dcvc_tpu.utils import torch_import as jkeys
-from dcvc_tpu_torch.core import masks, padding, shuffle
+from dcvc_tpu_torch.core import color, masks, padding, shuffle
 from dcvc_tpu_torch.entropy import bit_estimator as tbe
 from dcvc_tpu_torch.entropy import gaussian as tgauss
 from dcvc_tpu_torch.rans import device_decode
@@ -149,6 +150,12 @@ def _file_bytes(rel):
     ("dcvc_tpu_torch/entropy/cdf.py", "dcvc_tpu/entropy/cdf.py"),
     ("dcvc_tpu_torch/rans/__init__.py", "dcvc_tpu/rans/__init__.py"),
     ("dcvc_tpu_torch/rans/rans.cc", "dcvc_tpu/rans/rans.cc"),
+    ("dcvc_tpu_torch/bitstream/nal.py", "dcvc_tpu/bitstream/nal.py"),
+    ("dcvc_tpu_torch/bitstream/__init__.py",
+     "dcvc_tpu/bitstream/__init__.py"),
+    ("dcvc_tpu_torch/utils/video_io.py", "dcvc_tpu/utils/video_io.py"),
+    ("dcvc_tpu_torch/utils/metrics.py", "dcvc_tpu/utils/metrics.py"),
+    ("dcvc_tpu_torch/utils/logjson.py", "dcvc_tpu/utils/logjson.py"),
 ])
 def test_copied_files_byte_equal(copy, original):
     assert _file_bytes(copy) == _file_bytes(original)
@@ -159,6 +166,12 @@ def test_copied_files_byte_equal(copy, original):
     (tgauss.GaussianConditional, jgauss.GaussianConditional),
     (tgauss.get_scale_table, jgauss.get_scale_table),
     (masks.phase_terms_4x, jmasks.phase_terms_4x),
+    (masks.phase_terms_2x, jmasks.phase_terms_2x),
+    (masks.make_mask_2x.__wrapped__, jmasks.make_mask_2x.__wrapped__),
+    (masks._phase_np.__wrapped__, jmasks._phase_np.__wrapped__),
+    (color.rgb2ycbcr_np, jcolor.rgb2ycbcr_np),
+    (color.ycbcr420_to_444_np, jcolor.ycbcr420_to_444_np),
+    (color.yuv_444_to_420_np, jcolor.yuv_444_to_420_np),
     (masks.phase_valid.__wrapped__, jmasks.phase_valid.__wrapped__),
     (masks.terms_key, jmasks.terms_key),
     (device_decode.split_streams, jdevice_decode.split_streams),
@@ -169,14 +182,22 @@ def test_copied_files_byte_equal(copy, original):
     (keys._recon_keys_ht, jkeys._recon_keys_ht),
     (keys.key_fn_dmci, jkeys.key_fn_dmci),
     (keys.key_fn_dmc_ht, jkeys.key_fn_dmc_ht),
+    (keys._map_dmc_ld, jkeys._map_dmc_ld),
+    (keys.key_fn_dmc_ld, jkeys.key_fn_dmc_ld),
 ])
 def test_copied_functions_source_equal(copy, original):
     assert inspect.getsource(copy) == inspect.getsource(original)
 
 
-@pytest.mark.parametrize("name", ["_DCB_MAP", "_STACKED_SUB"])
+@pytest.mark.parametrize("name", ["_DCB_MAP", "_STACKED_SUB",
+                                  "_LD_SEQ_TOPS"])
 def test_copied_key_tables_equal(name):
     assert getattr(keys, name) == getattr(jkeys, name)
+
+
+@pytest.mark.parametrize("name", ["KR", "KG", "KB"])
+def test_copied_color_constants_equal(name):
+    assert getattr(color, name) == getattr(jcolor, name)
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "dcvc_tpu")
@@ -207,6 +228,10 @@ def test_port_sources_import_no_jax():
                                           "*.py"), recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 20
+    scanned = {os.path.relpath(f, REPO) for f in files}
+    for sub in ("eval/harness.py", "eval/video_main.py", "bitstream/nal.py",
+                "models/dmc_ld.py", "utils/checkpoint.py"):
+        assert f"dcvc_tpu_torch/{sub}" in scanned, sub
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in _FORBIDDEN]
@@ -227,7 +252,11 @@ def test_port_imports_no_jax():
             "dcvc_tpu_torch.kernels.fused_dcb, "
             "dcvc_tpu_torch.kernels.rans_decode, "
             "dcvc_tpu_torch.rans.device_decode, "
-            "dcvc_tpu_torch.utils.jax_bridge, chip_smoke\n"
+            "dcvc_tpu_torch.utils.jax_bridge, "
+            "dcvc_tpu_torch.runtime.video_codec, dcvc_tpu_torch.models.dmc_ld, "
+            "dcvc_tpu_torch.eval.video_main, dcvc_tpu_torch.eval.harness, "
+            "dcvc_tpu_torch.bitstream, dcvc_tpu_torch.utils.checkpoint, "
+            "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dcvc_tpu'))\n"
             "assert not bad, bad\n")

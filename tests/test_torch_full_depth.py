@@ -4,7 +4,7 @@ depth > 1 (DMCI's strided entry of enc_2, `_ENC_DOWN`; HTL's encoder 7,
 decoder 11, FA_M 10) would pass them.
 
 - Keys and shapes at the published configs (`DMCIConfig()`, `HTS_CONFIG`,
-  `HTL_CONFIG`): the flax params' shapes from `jax.eval_shape` (no
+  `HTL_CONFIG`, `LD_CONFIG`): the flax params' shapes from `jax.eval_shape` (no
   compute), mapped through the bridge, equal the port's state_dict (built
   on the meta device, no memory) key for key and shape for shape.
 - Stage parity at the TINY widths with the published depths, float32 on
@@ -28,10 +28,11 @@ import pytest
 import torch
 
 from dcvc_tpu.models import dmc_ht as jax_dmc_ht
+from dcvc_tpu.models import dmc_ld as jax_dmc_ld
 from dcvc_tpu.models import dmci as jax_dmci
-from dcvc_tpu_torch.models import dmc_ht, dmci
+from dcvc_tpu_torch.models import dmc_ht, dmc_ld, dmci
 from dcvc_tpu_torch.utils.jax_bridge import dmc_ht_params_from_jax, \
-    dmci_params_from_jax
+    dmc_ld_params_from_jax, dmci_params_from_jax
 
 REL = 1e-5
 X_HAT_ATOL = 1e-4
@@ -61,7 +62,8 @@ def _published(name):
     """(jax config, port config) of a published model."""
     return {"dmci": (jax_dmci.DMCIConfig(), dmci.DMCIConfig()),
             "hts": (jax_dmc_ht.HTS_CONFIG, dmc_ht.HTS_CONFIG),
-            "htl": (jax_dmc_ht.HTL_CONFIG, dmc_ht.HTL_CONFIG)}[name]
+            "htl": (jax_dmc_ht.HTL_CONFIG, dmc_ht.HTL_CONFIG),
+            "ld": (jax_dmc_ld.LD_CONFIG, dmc_ld.LD_CONFIG)}[name]
 
 
 def _tiny_full_depth(name):
@@ -78,19 +80,25 @@ def _tiny_full_depth(name):
 
 def _flax_shapes(name, cfg):
     """The flax params of the model at `cfg` as ShapeDtypeStructs (both
-    adaptor branches merged for DMC-HT, as the JAX codec holds them)."""
+    adaptor branches merged for DMC-HT and DMC-LD, as the JAX codec holds
+    them)."""
     keys = (jax.random.PRNGKey(0), jax.random.PRNGKey(1))
     if name == "dmci":
         model = jax_dmci.DMCI(cfg=cfg, dtype=jnp.float32)
         x = jax.ShapeDtypeStruct((1, 64, 64, 3), jnp.float32)
         return jax.eval_shape(lambda a, b, x_: model.init(
             {"params": a}, x_, 0, b), *keys, x)["params"]
-    model = jax_dmc_ht.DMCHT(cfg=cfg, dtype=jnp.float32)
+    if name == "ld":
+        model = jax_dmc_ld.DMCLD(cfg=cfg, dtype=jnp.float32)
+        ch_src = cfg.ch_src
+    else:
+        model = jax_dmc_ht.DMCHT(cfg=cfg, dtype=jnp.float32)
+        ch_src = cfg.ch_src_intra
 
     def spec(*shape):
         return jax.ShapeDtypeStruct(shape, jnp.float32)
     x = spec(1, 64, 64, 3 * cfg.frame_delay)
-    ref_i = spec(1, 8, 8, cfg.ch_src_intra)
+    ref_i = spec(1, 8, 8, ch_src)
     ref_f, mem = spec(1, 8, 8, cfg.ch_d), spec(1, 8, 8, cfg.ch_m)
     p_i = jax.eval_shape(lambda a, b, *t: model.init(
         {"params": a}, t[0], t[1], None, 0, b), *keys, x, ref_i)["params"]
@@ -106,7 +114,7 @@ def _stand_in(tree):
         lambda s: np.broadcast_to(np.zeros((), np.float32), s.shape), tree)
 
 
-@pytest.mark.parametrize("name", ["dmci", "hts", "htl"])
+@pytest.mark.parametrize("name", ["dmci", "hts", "htl", "ld"])
 def test_published_keys_and_shapes_match_bridge(name):
     jcfg, tcfg = _published(name)
     params = _stand_in(_flax_shapes(name, jcfg))
@@ -114,6 +122,10 @@ def test_published_keys_and_shapes_match_bridge(name):
         state = dmci_params_from_jax(params)
         with torch.device("meta"):
             port = dmci.DMCI(tcfg)
+    elif name == "ld":
+        state = dmc_ld_params_from_jax(params)
+        with torch.device("meta"):
+            port = dmc_ld.DMCLD(tcfg)
     else:
         state = dmc_ht_params_from_jax(params, hts=name == "hts")
         with torch.device("meta"):

@@ -27,8 +27,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
 
-# the 67 distinct K1 shapes of chip_smoke.py's main path (DMCI 1080p /
-# 720p, DMCI -> HTS and DMCI -> HTL chunks), as its launch log prints them
+# the 87 distinct K1 shapes of chip_smoke.py's main path (DMCI 1080p /
+# 720p, DMCI -> HTS and DMCI -> HTL chunks, DMCI -> LD frames), as its
+# launch log prints them; the last 20 are LD's (dcb2: I = C / 2, so
+# I = 64 in the hyper codecs and 192 in the prior fusion, and a 448-wide
+# adaptor into the encoder), which perf_probe.ld_stage_launches derives
+# from the model
 MAIN_PATH = """
 fused_dcb 12x20 128->128 I=128 adaptor=0 shortcut=0 broadcast_x=0
 fused_dcb 12x20 128->128 I=128 adaptor=0 shortcut=1 broadcast_x=0
@@ -97,7 +101,28 @@ fused_dcb_stacked S=8 90x160 512->256 I=256 adaptor=1 shortcut=0 broadcast_x=1
 fused_dcb_stacked S=8 136x240 256->256 I=256 adaptor=0 shortcut=0 broadcast_x=0
 fused_dcb_stacked S=8 136x240 512->256 I=256 adaptor=1 shortcut=0 broadcast_x=0
 fused_dcb_stacked S=8 136x240 512->256 I=256 adaptor=1 shortcut=0 broadcast_x=1
+fused_dcb 12x20 128->128 I=64 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 136x240 192->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
+fused_dcb 136x240 256->256 I=128 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 136x240 448->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
+fused_dcb 136x240 512->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
+fused_dcb 17x30 128->128 I=64 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 24x40 128->128 I=64 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 34x60 128->128 I=64 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 45x80 256->256 I=128 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 45x80 384->384 I=192 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 45x80 512->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
+fused_dcb 48x80 128->128 I=64 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 68x120 128->128 I=64 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 68x120 256->256 I=128 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 68x120 384->384 I=192 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 68x120 512->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
+fused_dcb 90x160 192->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
+fused_dcb 90x160 256->256 I=128 adaptor=0 shortcut=0 broadcast_x=0
+fused_dcb 90x160 448->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
+fused_dcb 90x160 512->256 I=128 adaptor=1 shortcut=0 broadcast_x=0
 """.strip().splitlines()
+LD_SHAPES = MAIN_PATH[67:]
 
 # the shapes of tests/test_torch_cuda.py
 CARD_TESTS = [
@@ -137,10 +162,43 @@ def plan_of(key):
 
 
 def test_main_path_list_parses_back():
-    assert len(MAIN_PATH) == 67
-    assert len(set(MAIN_PATH)) == 67
+    assert len(MAIN_PATH) == 87
+    assert len(set(MAIN_PATH)) == 87
     for line in MAIN_PATH:
         assert str(parse(line)) == line
+
+
+def test_ld_shapes_derived_from_the_model():
+    """LD's lines are the K1 launches of DMC-LD's stage methods at
+    LD_CONFIG on chip_smoke.py's 1080p and 720p frames (run on the meta
+    device: no memory, no compute), and its launches per call are
+    chip_smoke.py's: 27 per encode, 21 per decode, 3 per recon and per
+    reset, whichever adaptor runs."""
+    spec = dict(chip_smoke.VIDEO["LD"])
+    shapes = chip_smoke.ld_spec(spec)
+    assert sorted(map(str, shapes)) == sorted(LD_SHAPES)
+    assert (spec["encode"], spec["first_encode"], spec["decode"],
+            spec["first_decode"], spec["recon"]) == (27, 27, 21, 21, (3, 0))
+    inner = {parse(line).inner for line in LD_SHAPES}
+    assert {64, 192} <= inner
+    assert 448 in {parse(line).cin for line in LD_SHAPES}
+
+
+@pytest.mark.parametrize("line", [ln for ln in LD_SHAPES if "I=64 " in ln])
+def test_single_k_step_gemms_are_planned(line):
+    """I = 64: dc_out and ffn_out have a K of 64, one GEMM_BK step; the
+    plan still gives them a ring of 2-4 stages (the core's producer loads
+    one stage, the consumers wait on it once) and a tile of 64 or 128."""
+    key = parse(line)
+    plan = {q.name: q for q in plan_of(key)}
+    for name in ("dc_out", "ffn_out"):
+        q = plan[name]
+        assert q.k == K1.GEMM_BK == 64
+        assert q.k // K1.GEMM_BK == 1
+        assert 2 <= q.stages <= 4 and q.smem <= K1.K1_SMEM_LIMIT
+        assert q.n == key.c == 128 and q.bn in (64, 128)
+    assert plan["h"].n == plan["ffn_in"].n == 64
+    assert plan["dw"].grid[1] == 1          # one 64-channel block
 
 
 @pytest.mark.parametrize("key", SHAPES, ids=str)
@@ -237,3 +295,16 @@ def test_plan_tile_override(tile, n):
         if q.name != "ffn_in":
             fits = tile[1] <= 128 and n % tile[1] == 0
             assert q.bn == (tile[1] if fits else 64)
+
+
+@pytest.mark.parametrize("line", [ln for ln in LD_SHAPES if "I=192 " in ln])
+def test_192_wide_inner_is_planned(line):
+    """I = 192 (LD's prior fusion, C = 384): 128 does not divide 192, so
+    the GEMMs of width I take 64-wide tiles, dc_out and ffn_out a K of
+    three GEMM_BK steps, and the dw launch three 64-channel blocks."""
+    key = parse(line)
+    plan = {q.name: q for q in plan_of(key)}
+    assert plan["h"].n == 192 and plan["h"].bn == 64
+    assert plan["ffn_in"].bn_out == 64
+    assert plan["dc_out"].k == plan["ffn_out"].k == 3 * K1.GEMM_BK
+    assert plan["dw"].grid[1] == 3
