@@ -15,7 +15,9 @@ its plain version and the host decoder on the fixtures of
 tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
 lanes, escapes, a count below the lane count and of 0, z -> y -> y
 threading).  Checks the stages of the four full-width models (DMCI, HTS,
-HTL, LD) in bf16 on the card against float32 on the CPU.  Then it drives the
+HTL, LD) in bf16 on the card against float32 on the CPU, and one TINY
+DMCI and one TINY HTS 2-chunk training step on the card against the same
+steps on the CPU (float32, TF32 off).  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
 before it and read just after, recording every K1 launch's shape and
 every K2 launch's inputs:
@@ -30,23 +32,40 @@ every K2 launch's inputs:
     (memory reset on the fifth) and 2 at 720p, decoded both ways; LD's K1
     launches per call and its shapes are derived from the model on the
     meta device (perf_probe.ld_stage_launches) and must match the card's;
+  - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
+    float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
+    stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
+    + 8 frames, cascaded, rematerialised, batch 2) and HTL at 1 + 8
+    frames (batch 2); ms per step, peak memory, losses and grad norms
+    printed; every loss finite, no step skipped, the parameters moved.
+    The training forwards run the plain DepthConvBlock (K1 has no
+    backward, as the TPU kernel has none): this part launches no kernel;
+  - the trainers into the codecs: image_main and video_main
+    --model_structure ld run 2 steps each on synthetic PNG folders
+    written into the checkout (video_main from damped random
+    checkpoints, none of its steps skipped); their ckpt.pth.tar files
+    load into
+    DMCICodec and DMCLDCodec, which code a 720p frame bit-exact (encoder,
+    host decode, K2 decode);
   - the evaluation entry: dcvc_tpu_torch.eval.video_main.main in-process
     on a seeded 1080p YUV420 file written into a temporary directory of
     the checkout (LD, HTS, and LD at two rates), then one point again
     with fresh codecs (the same .bin) and with device_ec (the same bits
     and PSNRs per frame).
-Every device decode of the first four parts runs under
+Every device decode of the parts before the evaluation entry runs under
 torch.cuda.set_sync_debug_mode("error") once its lanes are uploaded: a
 host sync fails it.  Last, both forms of K1 are held against their plain
 versions and timed at every distinct shape the main path launched them
 at (and, at the three heaviest, each launch of the chain is timed by
-torch.profiler), and every K2 call of the first four parts is replayed
+torch.profiler), and every K2 call of those parts is replayed
 against its plain version and through its cycle-counting build, and
 timed (the evaluation entry's K2 calls are counted, not replayed).
 It fails, with a non-zero exit code, if the card is missing, a kernel does
 not build or launch or disagrees with its plain version, the main path did
 not launch the kernels as often as derived, a reconstruction or final DPB
 is not bit-exact between encoder, host-coder decode and device decode, a
+training step on the card disagrees with the CPU's, a full-width step's
+loss is not finite or its step was skipped, a
 device decode syncs with the host, two encodes give different streams,
 or a point of the evaluation entry is incomplete, not finite or not
 reproducible.
@@ -59,9 +78,11 @@ card's name and power limit; and last {"ok": true, "device": {...}}.
 
 import collections
 import concurrent.futures
+import copy
 import json
 import os
 import shutil
+import statistics
 import sys
 import tempfile
 import time
@@ -73,18 +94,28 @@ from dcvc_tpu_torch.eval import video_main
 from dcvc_tpu_torch.eval.harness import run_one_point_with_stream
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
-from dcvc_tpu_torch.models.dmc_ht import HTL_CONFIG, HTS_CONFIG
-from dcvc_tpu_torch.models.dmc_ld import LD_CONFIG
-from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig
+from dcvc_tpu_torch.models.common import draw_noise, get_training_lambdas
+from dcvc_tpu_torch.models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG, \
+    TINY_HT_CONFIG
+from dcvc_tpu_torch.models.dmc_ld import DMCLD, LD_CONFIG
+from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig, TINY_CONFIG
 from dcvc_tpu_torch.kernels._build import library_path
 from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
     k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
     k2_latency_bound_ms, ld_stage_launches, make_sequence, \
     max_sm_clock_mhz, nvidia_smi, profile_launches, run_k2_case, \
-    sass_counts, smooth_frame
+    sass_counts, smooth_frame, TRAIN_CELLS, TRAIN_INIT_SCALE, \
+    damped_model, train_setup
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
 from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec, DMCLDCodec
+from dcvc_tpu_torch.train import image_main as train_image_main
+from dcvc_tpu_torch.train import video_main as train_video_main
+from dcvc_tpu_torch.train.step import Optimizer, image_train_step
+from dcvc_tpu_torch.train.video_step import video_train_step
+from dcvc_tpu_torch.utils.checkpoint import load_latest_status, \
+    load_reference_into, save_reference
+from dcvc_tpu_torch.utils.png import write_png
 
 K1_SOURCE = "dcvc_tpu_torch/csrc/fused_dcb.cu"
 K2_SOURCE = "dcvc_tpu_torch/csrc/rans_decode.cu"
@@ -159,6 +190,8 @@ VIDEO = {
 # frames, one intra frame then P frames (intra_period -1)
 CLI_FRAMES = 10
 CLI_H, CLI_W = 1080, 1920
+# side of the synthetic training folders' frames (the trainers' 256 patch)
+TRAIN_SIDE = 256
 
 
 def log(*args):
@@ -563,13 +596,13 @@ def device_decode(codec, k2_log, label, launch_log, stream, ec, *args):
         codec.device_ec = False
 
 
-def phase_codec(codec, dev, launch_log, k2_log):
+def phase_codec(codec, dev, launch_log, k2_log, cases=CODEC_CASES):
     """The main path's image half: DMCI round trips at 1080p (two QPs) and
-    720p, cold then warm, then each stream decoded on the device (K2,
-    sync-checked).  Returns the (S = 1, stacked, K2) launches derived for
-    it, each call's checked."""
+    720p (`cases`), cold then warm, then each stream decoded on the
+    device (K2, sync-checked).  Returns the (S = 1, stacked, K2) launches
+    derived for it, each call's checked."""
     derived = [0, 0, 0]
-    for (h, w, qp, seed) in CODEC_CASES:
+    for (h, w, qp, seed) in cases:
         x = smooth_frame(h, w, seed, dev)
         runs = []
         for run in ("cold", "warm"):
@@ -668,15 +701,16 @@ def expected_launches(spec, resets, u, encode, recon):
                          recon)
 
 
-def phase_video(name, dmci, codec, dev, launch_log, k2_log):
+def phase_video(name, dmci, codec, dev, launch_log, k2_log, cases=None):
     """The main path's video half for one variant: the DMCI reconstruction
     of a sequence's first frame seeds the video codec, which codes the
     sequence in units of frame_delay frames (HT: 8-frame chunks, LD:
     frames).  Encode pass 1 (recon=True) against a host-coder decode and a
     device decode (K2, every call sync-checked), each from a fresh DPB:
     every unit's x_hat and the final DPB bit-exact; encode pass 2
-    (recon=False, warm): the same streams.  Returns the (S = 1, stacked,
-    K2) launches derived for it, each call's checked."""
+    (recon=False, warm): the same streams.  cases: VIDEO[name]'s unless
+    given.  Returns the (S = 1, stacked, K2) launches derived for it, each
+    call's checked."""
     spec = VIDEO[name]
     fd = spec["cfg"].frame_delay
     unit = "chunk" if fd > 1 else "frame"
@@ -687,7 +721,7 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log):
         for i in range(3):
             derived[i] += want[i]
 
-    for (h, w, qp, seed, resets) in spec["cases"]:
+    for (h, w, qp, seed, resets) in cases or spec["cases"]:
         frames = make_sequence(h, w, fd * len(resets), seed, dev)
         chunks = [torch.cat(frames[fd * u:fd * u + fd], dim=-1)
                   for u in range(len(resets))]
@@ -922,6 +956,245 @@ def phase_cli(dev, launch_log):
     return tuple(derived)
 
 
+# ---------------------------------------------------------------- training
+
+# card-vs-CPU parity of one training step at the TINY configs: random
+# kernels x 0.7 as the CPU parity tests damp them (tests/test_torch_train.py)
+PARITY_SCALE = 0.7
+PARITY_LR = 1e-4
+# metrics (loss, mse, bpp, grad_norm) relative to the CPU's: the same f32
+# products, TF32 off, summed in another order by cuBLAS / cuDNN (the
+# bound of the CPU tests' port against JAX)
+PARITY_METRIC_REL = 1e-5
+# parameters after the step: AdamW's first step moves an element by about
+# lr * sign(g), so where the CPU's clipped |g| is at least 1e-3 of its
+# tensor's peak and 100 eps the two must agree within 1e-6 of the tensor's
+# peak |p| + 1e-4 lr, elsewhere (the sign may differ) within 2 lr more
+PARITY_SIGN_SHARE = 1e-3
+
+
+def parity_params(label, card, cpu, cpu_opt):
+    """The card model's parameters after a step against the CPU model's
+    (see PARITY_SIGN_SHARE); returns the count of elements past the
+    tight bound."""
+    state = cpu_opt.adamw.state
+    loose = 0
+    for (name, pc), p in zip(card.named_parameters(), cpu.parameters()):
+        want = p.detach()
+        g = state[p]["exp_avg"].abs() / (1 - 0.9)
+        err = (pc.detach().cpu() - want).abs()
+        tight = 1e-6 * float(want.abs().max()) + 1e-4 * PARITY_LR
+        sure = g >= max(PARITY_SIGN_SHARE * float(g.max()), 1e-6)
+        worst_sure = float(err[sure].max()) if bool(sure.any()) else 0.0
+        if worst_sure > tight or float(err.max()) > 2 * PARITY_LR + tight:
+            raise AssertionError(f"{label}: parameter {name} differs from "
+                                 f"the CPU's by {float(err.max())}")
+        loose += int((err > tight).sum())
+    return loose
+
+
+def phase_train_parity(dev):
+    """One TINY DMCI image step (uint8 batch of 2 at qps 1 and 6) and one
+    TINY HTS 2-chunk step (cascaded, remat) on the card against the same
+    steps of the port on the CPU: the same weights, batch and noise (drawn
+    on the CPU), TF32 off; metrics within PARITY_METRIC_REL, parameters
+    within the bounds of PARITY_SIGN_SHARE."""
+    rng = np.random.default_rng(5)
+    qp = torch.tensor([1, 6])
+    gen = torch.Generator().manual_seed(6)
+    for name in ("DMCI", "HTS"):
+        if name == "DMCI":
+            cfg, clip = TINY_CONFIG, 0.1
+            cpu = damped_model(DMCI, cfg, 0, PARITY_SCALE)
+            batch = [torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3),
+                                                   np.uint8))]
+            noise = draw_noise(cfg, 2, 64, 64, gen, "cpu")
+            keys = ("loss", "mse", "bpp", "bits_y", "bits_z", "grad_norm")
+        else:
+            cfg, clip = TINY_HT_CONFIG, 0.2
+            cpu = damped_model(DMCHT, cfg, 0, PARITY_SCALE)
+            batch = [torch.rand(2, 64, 64, 3, generator=gen) - 0.5,
+                     torch.from_numpy(rng.integers(0, 256, (2, 2, 64, 64, 24),
+                                                   np.uint8))]
+            noise = [draw_noise(cfg, 2, 64, 64, gen, "cpu")
+                     for _ in range(2)]
+            keys = ("loss", "mse", "bpp", "grad_norm")
+        card = copy.deepcopy(cpu).to(dev)
+        lambdas = torch.tensor(get_training_lambdas((8.0, 256.0), cfg.qp_num),
+                               dtype=torch.float32)
+        got = {}
+        for side, model, d in (("cpu", cpu, torch.device("cpu")),
+                               ("card", card, dev)):
+            opt = Optimizer(model, PARITY_LR, clip)
+
+            def mv(t, d=d):
+                return t.to(d)
+            if name == "DMCI":
+                m = image_train_step(model, opt, mv(batch[0]), mv(qp),
+                                     mv(lambdas), {k: mv(v) for k, v in
+                                                   noise.items()})
+            else:
+                m = video_train_step(
+                    model, opt, mv(batch[0]), mv(batch[1]), mv(qp),
+                    mv(lambdas), [{k: mv(v) for k, v in n.items()}
+                                  for n in noise], cascaded=True,
+                    use_remat=True)
+            got[side] = (m, opt)
+        (mc, opt_cpu), (mg, _) = got["cpu"], got["card"]
+        errs = {k: abs(float(mg[k]) - float(mc[k])) / max(abs(float(mc[k])),
+                                                          1e-6)
+                for k in keys}
+        if mc["skipped"] or mg["skipped"] or \
+                max(errs.values()) > PARITY_METRIC_REL:
+            raise AssertionError(f"{name} step on the card vs the CPU: "
+                                 f"relative errors {errs}, skipped "
+                                 f"{mc['skipped']} / {mg['skipped']}")
+        loose = parity_params(name, card, cpu, opt_cpu)
+        log(f"train parity {name} TINY step, card vs CPU (TF32 off): "
+            f"metrics relative error {json.dumps(errs)} (tol "
+            f"{PARITY_METRIC_REL}); parameters within bounds, {loose} "
+            f"elements of near-zero gradient past the tight one")
+
+
+def phase_train(dev):
+    """The full-width trainers' steps (perf_probe.TRAIN_CELLS: DMCI, LD,
+    HTS, HTL at their published widths, float32, TF32 off, random kernels
+    x TRAIN_INIT_SCALE): per cell the ms per step (host clock around a
+    synchronised step; median of the steps after the first),
+    torch.cuda.max_memory_allocated, the losses and grad_norms.  Fails if
+    a loss is not finite, a step was skipped or the parameters did not
+    move.  The training forwards run the plain DepthConvBlock (K1 has no
+    backward), so the part launches no kernel: returns (0, 0, 0)."""
+    for cell in TRAIN_CELLS:
+        torch.cuda.empty_cache()
+        model, step = train_setup(cell, dev)
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses, norms = [], [], []
+        for _ in range(cell.steps):
+            t0 = time.perf_counter()
+            m = step()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if m["skipped"] or not bool(torch.isfinite(m["loss"])):
+                raise AssertionError(f"train {cell.label}: loss "
+                                     f"{float(m['loss'])}, skipped "
+                                     f"{m['skipped']}")
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        moved = sum(int(not torch.equal(a, b))
+                    for a, b in zip(before, model.parameters()))
+        if not moved:
+            raise AssertionError(f"train {cell.label}: no parameter moved")
+        log("train " + json.dumps({
+            "cell": cell.label, "params": sum(p.numel() for p in before),
+            "ms_per_step": statistics.median(ms[1:]), "step_ms": ms,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+            / 2 ** 30, "losses": losses, "grad_norms": norms,
+            "tensors_moved": f"{moved}/{len(before)}"}))
+        del model, step, before
+    return (0, 0, 0)
+
+
+def write_train_folders(root, dev):
+    """Synthetic training folders under root, the layout ImageFolder and
+    VideoFolder read: `images/` (4 PNGs of TRAIN_SIDE^2 and
+    description.json, a list of their names) and `video/` (2 sequences of
+    3 frames, seq_{i}/im{n}.png, and description.json {seqs: [{path,
+    height, width, seq_length}], frames: [names]}), written by the port's
+    PNG writer from seeded smooth frames."""
+    def u8(frame):
+        return torch.round((frame[0] + 0.5) * 255).to(torch.uint8).cpu() \
+            .numpy()
+    side = TRAIN_SIDE
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    names = [f"img_{i}.png" for i in range(4)]
+    for i, name in enumerate(names):
+        write_png(os.path.join(images, name),
+                  u8(smooth_frame(side, side, 20 + i, dev)))
+    with open(os.path.join(images, "description.json"), "w") as f:
+        json.dump(names, f)
+    video = os.path.join(root, "video")
+    frames = [f"im{n + 1}.png" for n in range(3)]
+    desc = {"seqs": [], "frames": frames}
+    for i in range(2):
+        os.makedirs(os.path.join(video, f"seq_{i}"))
+        for n, frame in enumerate(make_sequence(side, side, 3, 30 + i, dev)):
+            write_png(os.path.join(video, f"seq_{i}", frames[n]), u8(frame))
+        desc["seqs"].append({"path": f"seq_{i}", "height": side,
+                             "width": side, "seq_length": 3})
+    with open(os.path.join(video, "description.json"), "w") as f:
+        json.dump(desc, f)
+    return images, video
+
+
+def phase_trained_codecs(dev, launch_log, k2_log):
+    """From the trainers to the codecs: image_main and video_main
+    --model_structure ld (published widths, on the card) run 2 steps each
+    on synthetic PNG folders written into a temporary directory of the
+    checkout (read back by the port's PNG reader).  image_main starts, as
+    the JAX trainer does, from undamped random weights; video_main from
+    checkpoints of random weights damped by TRAIN_INIT_SCALE
+    (--model_path_i, --pretrain_path), and neither of its steps may be
+    skipped.  Their final ckpt.pth.tar files are loaded into DMCICodec and
+    DMCLDCodec (bf16, skip 0.15), which code a 720p frame each: encoder,
+    host decode and K2 decode bit-exact.  Returns the (S = 1, stacked,
+    K2) launches derived for the coding, each call's checked."""
+    root = tempfile.mkdtemp(prefix="_smoke_train_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        images, video = write_train_folders(root, dev)
+        common = ["--device", dev.type, "--batch_size", "2", "-e", "1",
+                  "--max_steps_per_epoch", "2", "--data_repeat", "2",
+                  "-n", "2", "--lambdas", "8", "256"]
+        out_i, out_p = os.path.join(root, "out_i"), os.path.join(root, "out_p")
+        i_init = os.path.join(root, "i_init.pth.tar")
+        ld_init = os.path.join(root, "ld_init.pth.tar")
+        save_reference(i_init, damped_model(DMCI, DMCIConfig(), 10,
+                                            TRAIN_INIT_SCALE))
+        save_reference(ld_init, damped_model(DMCLD, LD_CONFIG, 0,
+                                             TRAIN_INIT_SCALE))
+        t0 = time.perf_counter()
+        train_image_main.main(common + ["--train_dataset", images,
+                                        "--save_dir", out_i])
+        train_video_main.main(common + [
+            "--train_dataset", video, "--save_dir", out_p,
+            "--model_structure", "ld", "--model_path_i", i_init,
+            "--pretrain_path", ld_init])
+        taken = {}
+        for name, out in (("image_main", out_i), ("video_main", out_p)):
+            status = load_latest_status(out)
+            taken[name] = min(int(s["step"]) for s in
+                              status["optimizer"]["state"].values()) \
+                if status["optimizer"]["state"] else 0
+        if taken["video_main"] != 2:
+            raise AssertionError(f"video_main took {taken['video_main']} "
+                                 f"of its 2 steps")
+        log(f"trainers: image_main and video_main --model_structure ld, 2 "
+            f"steps each at the published widths, in "
+            f"{time.perf_counter() - t0:.3f} s with their setup; AdamW "
+            f"steps taken (not skipped): {json.dumps(taken)}")
+        kw = {"dtype": torch.bfloat16, "device": dev, "skip_thres": 0.15}
+        i_cfg = DMCIConfig()
+        dmci = DMCICodec(load_reference_into(
+            DMCI(i_cfg), os.path.join(out_i, "ckpt.pth.tar")).state_dict(),
+            cfg=i_cfg, **kw)
+        ld = DMCLDCodec(load_reference_into(
+            DMCLD(LD_CONFIG), os.path.join(out_p, "ckpt.pth.tar"))
+            .state_dict(), cfg=LD_CONFIG, **kw)
+        derived = phase_codec(dmci, dev, launch_log, k2_log,
+                              cases=[(720, 1280, 32, 9)])
+        video_derived = phase_video("LD", dmci, ld, dev, launch_log, k2_log,
+                                    cases=[(720, 1280, 32, 10, (False,))])
+        log("trainers -> codecs: the trained checkpoints code bit-exact "
+            "(DMCI, DMCI -> LD; encoder, host decode, K2 decode)")
+    finally:
+        shutil.rmtree(root)
+    return tuple(a + b for a, b in zip(derived, video_derived))
+
+
 def launch_counts():
     return (K1.fused_dcb.launches, K1.fused_dcb_stacked.launches,
             K2.rans_decode.launches)
@@ -964,6 +1237,7 @@ def main():
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
+    phase_train_parity(dev)
 
     # the main path, one part at a time, each with the counts set to 0
     # just before it and read just after; K2's calls are recorded for
@@ -974,6 +1248,9 @@ def main():
                lambda name=name: phase_video(name, dmci, video[name], dev,
                                              launch_log, k2_log))
               for name in VIDEO]
+    parts += [("training", lambda: phase_train(dev)),
+              ("trainers -> codecs",
+               lambda: phase_trained_codecs(dev, launch_log, k2_log))]
     got, want = {}, {}
     with launch_log:
         with k2_log:

@@ -3,7 +3,8 @@ reference src/utils/transforms.py).
 
 The numpy functions the evaluation harness uses on the host are verbatim
 copies of the JAX package's (pinned by tests/test_torch_core.py);
-ycbcr2rgb is the torch form of its jnp one, for the harness's RGB path.
+rgb2ycbcr and ycbcr2rgb are the torch forms of its jnp ones, for the
+trainers' on-device conversion and the harness's RGB path.
 """
 
 import numpy as np
@@ -11,6 +12,18 @@ import torch
 
 # ITU-R BT.709 luma coefficients
 KR, KG, KB = 0.2126, 0.7152, 0.0722
+
+
+def rgb2ycbcr(rgb, clamp=True):
+    """(..., 3) RGB in [0, 1] -> YCbCr in [0, 1]."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = KR * r + KG * g + KB * b
+    cb = 0.5 * (b - y) / (1 - KB) + 0.5
+    cr = 0.5 * (r - y) / (1 - KR) + 0.5
+    out = torch.stack([y, cb, cr], dim=-1)
+    if clamp:
+        out = torch.clamp(out, 0.0, 1.0)
+    return out
 
 
 def ycbcr2rgb(ycbcr, clamp=True):

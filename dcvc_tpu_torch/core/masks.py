@@ -9,7 +9,8 @@ entropy-codes in the packed "candidate domain" (1, ceil(h/2), ceil(w/2),
 sum of the terms' channels): each term's phase subgrid, concatenated in
 term order.  That order IS the symbol order of the stream.
 
-`_phase_np`, `make_mask_2x`, `phase_terms_4x`, `phase_terms_2x`,
+`_phase_np`, `make_mask_2x`, `make_mask_4x` (the training masks),
+`phase_terms_4x`, `phase_terms_2x`,
 `phase_valid` and `terms_key` are numpy/pure Python and are verbatim
 copies of `dcvc_tpu.core.masks` (whose package imports jax);
 tests/test_torch_core.py pins them to the originals.  phase_split and
@@ -49,6 +50,30 @@ def make_mask_2x(h, w, c):
     # trace would leak tracers out of the cache.  numpy bools become
     # XLA constants at each use site.
     return mask_0, mask_1
+
+
+@functools.lru_cache(maxsize=64)
+def make_mask_4x(h, w, c):
+    """Four quadtree masks of shape (h, w, c).
+
+    Channel quarters get the four 2x2 phases, rotated per step exactly as
+    get_mask_4x: step patterns over channel groups are
+      step0: (m0, m1, m2, m3)
+      step1: (m3, m2, m1, m0)
+      step2: (m2, m3, m0, m1)
+      step3: (m1, m0, m3, m2)
+    where m0..m3 select the TL, TR, BL, BR pixel of each 2x2 block.
+    """
+    assert c % 4 == 0
+    q = c // 4
+    m = [_phase_np(h, w, 0, 0), _phase_np(h, w, 0, 1),
+         _phase_np(h, w, 1, 0), _phase_np(h, w, 1, 1)]
+    orders = [(0, 1, 2, 3), (3, 2, 1, 0), (2, 3, 0, 1), (1, 0, 3, 2)]
+    masks = []
+    for order in orders:
+        groups = [np.repeat(m[g][:, :, None], q, 2) for g in order]
+        masks.append(np.concatenate(groups, axis=2))
+    return tuple(masks)
 
 
 _PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))

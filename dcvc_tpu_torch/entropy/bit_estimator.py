@@ -1,5 +1,6 @@
-"""Factorized prior over z: CDF bank of the 4-layer monotone MLP per
-(qp, channel) (reference BitEstimator.update, entropy_models.py:113-149).
+"""Factorized prior over z: the 4-layer monotone MLP per (qp, channel)
+(reference BitEstimator, entropy_models.py:78-149): its training-time
+probability in torch, and its CDF bank.
 
 `compute_cdf_bank` is numpy and a verbatim copy of
 `dcvc_tpu.entropy.bit_estimator.BitEstimator.compute_cdf_bank` (whose
@@ -8,6 +9,27 @@ original and the banks to each other byte for byte.
 """
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def bit_estimator_z_prob(x, h, b, a):
+    """Accumulated probability (the monotone CDF network).  x: (..., C);
+    h, b broadcastable to (..., C, 4), a to (..., C, 3)."""
+    for i in range(4):
+        x = x * F.softplus(h[..., i]) + b[..., i]
+        if i != 3:
+            x = x + torch.tanh(x) * torch.tanh(a[..., i])
+    return torch.sigmoid(x)
+
+
+def bit_estimator_z_fwd(x, h, b, a):
+    """P(round(z) = x) = CDF(x + 0.5) - CDF(x - 0.5), computed in f32."""
+    dtype = x.dtype
+    x, h, b, a = x.float(), h.float(), b.float(), a.float()
+    lower = bit_estimator_z_prob(x - 0.5, h, b, a)
+    upper = bit_estimator_z_prob(x + 0.5, h, b, a)
+    return (upper - lower).to(dtype)
 
 
 class BitEstimator:

@@ -1,5 +1,5 @@
-"""Gaussian conditional entropy model for y latents: scale -> CDF index
-and the 128-level CDF bank (reference GaussianEncoder,
+"""Gaussian conditional entropy model for y latents: scale -> CDF index,
+the 128-level CDF bank and the training-time rate terms (reference GaussianEncoder,
 entropy_models.py:152-217, and the scale_to_index device mapping).
 
 `get_scale_table` and `GaussianConditional` are verbatim copies of
@@ -12,6 +12,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..core.quant import lower_bound
 
 SCALE_MIN = 0.11
 SCALE_MAX = 16.0
@@ -81,6 +83,31 @@ def _thresholds(device):
     """INDEX_THRESHOLDS on `device`, copied there once (a copy per call
     would make the device decode wait for the host)."""
     return torch.from_numpy(INDEX_THRESHOLDS).to(device)
+
+
+def gaussian_prob_train(values, scales):
+    """Training-time probability of quantized residuals under N(0, scale)
+    (reference GaussianEncoder.get_prob_train): the erfc form in f32,
+    scales lower-bounded at 0.11, the probability clamped at 1e-9."""
+    dtype = values.dtype
+    values = values.float()
+    scales = lower_bound(scales.float(), SCALE_MIN)
+    values = torch.abs(values)
+    const = -(2.0 ** -0.5)
+    upper = torch.special.erfc(const * ((0.5 - values) / scales))
+    lower = torch.special.erfc(const * ((-0.5 - values) / scales))
+    prob = torch.clamp_min(0.5 * (upper - lower), 1e-9)
+    return prob.to(dtype)
+
+
+PROB_TO_BITS = -1.0 / math.log(2.0)
+
+
+def probs_to_bits(probs):
+    """-log2(p), lower-bounded (reference CompressionModel.probs_to_bits)."""
+    dtype = probs.dtype
+    bits = torch.log(lower_bound(probs.float(), 1e-6)) * PROB_TO_BITS
+    return lower_bound(bits, 0.0).to(dtype)
 
 
 class GaussianConditional:

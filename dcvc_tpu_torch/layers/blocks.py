@@ -4,10 +4,11 @@ Parameters keep the reference torch layout and names (conv weights
 (O, I, kh, kw), DepthConvBlock internals `dc.0/2/3`, `ffn.0/2`,
 `adaptor`), so a state_dict of the reference module tree loads as is.
 A 1x1 conv is a matmul on the channel dim; a 3x3 conv runs F.conv2d on
-an NCHW view.  Every DepthConvBlock goes through
-kernels.fused_dcb.fused_dcb, and every StackedDCB through
-fused_dcb_stacked: the hand-written CUDA kernel for tensors on the card,
-its plain PyTorch version for tensors on the CPU.
+an NCHW view.  A DepthConvBlock in bfloat16 at batch 1 on the card goes
+through kernels.fused_dcb.fused_dcb, and a StackedDCB through
+fused_dcb_stacked (the hand-written CUDA kernel); every other block, on
+the CPU or in the float32 training forwards, runs the plain PyTorch
+version (`kernel_path`).
 """
 
 import math
@@ -17,8 +18,21 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.shuffle import pixel_shuffle, pixel_unshuffle
-from ..kernels.fused_dcb import fused_dcb, fused_dcb_stacked, \
-    prepare_operands, prepare_operands_stacked, wsilu_f32
+from ..kernels.fused_dcb import fused_dcb, fused_dcb_reference, \
+    fused_dcb_stacked, fused_dcb_stacked_reference, prepare_operands, \
+    prepare_operands_stacked, wsilu_f32
+
+
+def kernel_path(x, batch):
+    """True where a DepthConvBlock runs K1: a bfloat16 tensor off the CPU
+    (on the card, or on the meta device where perf_probe derives the
+    launches) at batch 1, the inference form dcvc_tpu's gate (layers/blocks.py
+    _fused_ok) sends to its Pallas kernel.  Anything else, the float32
+    training forwards at batch > 1 among them, takes the plain block,
+    which autograd differentiates (K1 has no backward, as the TPU kernel
+    has none)."""
+    return x.device.type != "cpu" and x.dtype == torch.bfloat16 \
+        and batch == 1
 
 
 class WSiLU(nn.Module):
@@ -119,8 +133,9 @@ class DepthConvBlock(nn.Module):
 
     def forward(self, x):
         x = x.contiguous()
-        if x.device.type == "cpu":
-            return fused_dcb(x, self.block_params(), shortcut=self.shortcut)
+        if not kernel_path(x, x.shape[0]):
+            return fused_dcb_reference(x, self.block_params(),
+                                       shortcut=self.shortcut)
         return fused_dcb(x, None, shortcut=self.shortcut,
                          ops=self._kernel_operands())
 
@@ -166,8 +181,8 @@ class StackedDCB:
         """rows=(lo, hi): run entries lo..hi-1 only (x then has hi - lo
         entries)."""
         lo, hi = rows if rows is not None else (0, len(self.blocks))
-        if x.device.type == "cpu":
-            return fused_dcb_stacked(x, self.stacked_params(lo, hi))
+        if not kernel_path(x, x.shape[1]):
+            return fused_dcb_stacked_reference(x, self.stacked_params(lo, hi))
         ops = {k: v[lo:hi] for k, v in self._kernel_operands().items()}
         return fused_dcb_stacked(x, None, ops=ops)
 

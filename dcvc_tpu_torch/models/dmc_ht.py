@@ -26,7 +26,8 @@ the flax params): `encoder.conv1.0.adaptor.weight`,
 The stage methods are what the runtime calls; the encoder and the decoder
 call the same adaptor / prior0 / prior_step / synthesis_feature /
 recon_frames, which keeps their priors and reconstructions bit-identical.
-The training forward is not ported yet.
+`forward(x, ref_feature, memory, qp, noise)` is the training forward of
+one chunk; memory None takes the feature adaptor I branch, else M.
 """
 
 import collections
@@ -36,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from ..core.padding import pad_for_y
+from ..core.quant import ste_round
 from ..core.shuffle import pixel_shuffle, pixel_unshuffle
 from ..layers.blocks import (
     Conv1x1, Conv3x3, DepthConvBlock, DepthwiseConv3x3, ResidualBlockUpsample,
@@ -96,6 +98,13 @@ TINY_HTL_CONFIG = DMCHTConfig(is_hts=False, ch_y=16, ch_z=8, ch_d=32,
                               ch_m=32, ch_recon=16, qp_num=8,
                               enc_depth=1, dec_depth=1, fa_i_depth=1,
                               fa_m_depth=1, fx_depth=1, recon_depth=1)
+
+
+# mid-size config for trained quality gates (see dmci.SMALL_CONFIG)
+SMALL_HT_CONFIG = DMCHTConfig(is_hts=True, ch_y=64, ch_z=32, ch_d=128,
+                              ch_m=128, ch_recon=64, qp_num=16,
+                              enc_depth=2, dec_depth=2, fa_i_depth=1,
+                              fa_m_depth=2, fx_depth=2, recon_depth=1)
 
 
 def _head_out(c):
@@ -360,8 +369,9 @@ class DMCHT(nn.Module):
         return self.q_encoder.dtype
 
     def _q(self, table, qp):
-        """(qp_num, C) table -> the (C,) row of `qp`."""
-        return table[int(qp)]
+        """(qp_num, C) table -> the (C,) row of an int `qp`, or the
+        (B, 1, 1, C) rows of a per-sample qp (B,)."""
+        return common.select_qp(table, qp)
 
     # ----------------------------------------------------- temporal state
 
@@ -387,16 +397,22 @@ class DMCHT(nn.Module):
 
     # ------------------------------------------------------ shared stages
 
+    def _prior_params(self, z_hat, memory, qp):
+        """Fused hyper and temporal prior.  The hyper output lives on the
+        4-aligned grid; it is cropped to the temporal prior's (y) grid
+        BEFORE the fusion (reference crop_hyper_params)."""
+        temporal = self.temporal_prior_encoder(memory,
+                                               self._q(self.q_feature, qp))
+        hyper = self.hyper_decoder(z_hat)[
+            :, :temporal.shape[1], :temporal.shape[2], :]
+        return self.y_prior_fusion(hyper, temporal)
+
     def prior0(self, z_int8, memory, qp, yh, yw):
         """Shared enc/dec: fused prior -> (q_enc, q_dec, scales, means,
-        spatial context).  The hyper output lives on the 4-aligned grid;
-        it is cropped to the temporal prior's (y) grid BEFORE the fusion
-        (reference crop_hyper_params)."""
-        temporal = self.temporal_prior_encoder(memory.to(self.dtype),
-                                               self._q(self.q_feature, qp))
-        hyper = self.hyper_decoder(z_int8.to(self.dtype))[
-            :, :temporal.shape[1], :temporal.shape[2], :]
-        params = self.y_prior_fusion(hyper, temporal)[:, :yh, :yw, :]
+        spatial context)."""
+        params = self._prior_params(z_int8.to(self.dtype),
+                                    memory.to(self.dtype), qp)
+        params = params[:, :yh, :yw, :]
         q_enc, q_dec, scales, means = common.separate_prior_video_infer(
             params)
         ctx = self.y_spatial_prior_reduction(params)
@@ -437,3 +453,50 @@ class DMCHT(nn.Module):
         out = self.recon_head(feature.to(self.dtype))
         x = torch.clamp(pixel_shuffle(out[:, 0], 8).float(), -0.5, 0.5)
         return x[:, :out_h, :out_w, :]
+
+    # ------------------------------------------------------ training path
+
+    def forward(self, x, ref_feature, memory, qp, noise):
+        """Training forward of one chunk (video_model_ht.py:452-496).
+
+        x: (B, H, W, 3 * frame_delay) YCbCr - 0.5, H and W multiples of
+        64; ref_feature: (B, H/8, W/8, 192) for the first chunk, else the
+        previous chunk's decoder feature; memory: None for the first
+        chunk (feature adaptor I), else the previous memory (adaptor M);
+        qp: int or (B,); noise: the rate terms' noise (common.rate_terms).
+        Returns (result, feature, memory): result holds bits_y, bits_z and
+        bpp, each (B,), and per frame the mse (B,) and x_hat."""
+        c = self.cfg
+        if memory is None:
+            memory = self.feature_adaptor_i(ref_feature)
+        else:
+            memory = self.feature_adaptor_m(memory, ref_feature)
+        ctx = self.feature_extractor(memory)
+
+        y = self.encoder(x, ctx, self._q(self.q_encoder, qp))
+        z = self.hyper_encoder(y)
+        params = self._prior_params(ste_round(z), memory, qp)
+        params = params[:, :y.shape[1], :y.shape[2], :]
+        adaptors = (self.y_spatial_prior_adaptor_1,
+                    self.y_spatial_prior_adaptor_2,
+                    self.y_spatial_prior_adaptor_3)
+        if c.is_hts:
+            # means only: each adaptor takes (y_hat so far, common)
+            adaptors = [lambda a, b, f=f: f(torch.cat([a, b], dim=-1))
+                        for f in adaptors]
+        y_res, _, y_hat, scales_hat = common.forward_prior_4x_train(
+            y, None, None, params, self.y_spatial_prior_reduction,
+            adaptors, self.y_spatial_prior,
+            spatial_prior_has_scales=not c.is_hts)
+
+        feature = self.decoder(y_hat, ctx, self._q(self.q_decoder, qp))
+        head_out = self.recon_head(feature)          # (F, B, h, w, 192)
+        x_hat = [pixel_shuffle(head_out[i], 8) for i in range(c.frame_delay)]
+        bits_y, bits_z, bpp = common.rate_terms(
+            self.bit_estimator_z, y_res, scales_hat, z, qp, noise,
+            x.shape[1] * x.shape[2])
+        mse = [common.get_mse(xf, xh)
+               for xf, xh in zip(x.chunk(c.frame_delay, dim=-1), x_hat)]
+        result = {"bits_y": bits_y, "bits_z": bits_z, "bpp": bpp,
+                  "mse": mse, "x_hat": x_hat}
+        return result, feature, memory

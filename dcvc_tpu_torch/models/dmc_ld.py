@@ -19,8 +19,8 @@ dcvc_tpu.utils.torch_import.key_fn_dmc_ld gives the flax params):
 The stage methods are what the runtime calls; the encoder and the decoder
 call the same adaptor_i / adaptor_m / prior0 / prior_step /
 synthesis_feature / recon_frames / reset_feature, which keeps their priors
-and reconstructions bit-identical.  The training forward is not ported
-yet.
+and reconstructions bit-identical.  `forward(x, ref_feature, memory, qp,
+noise)` is the training forward of one frame.
 """
 
 import dataclasses
@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from ..core.padding import pad_for_y
+from ..core.quant import ste_round
 from ..core.shuffle import pixel_shuffle, pixel_unshuffle
 from ..layers.blocks import (
     Conv1x1, Conv3x3, DepthConvBlock, ResidualBlockUpsample,
@@ -193,8 +194,9 @@ class DMCLD(nn.Module):
         return self.q_encoder.dtype
 
     def _q(self, table, qp):
-        """(qp_num, C) table -> the (C,) row of `qp`."""
-        return table[int(qp)]
+        """(qp_num, C) table -> the (C,) row of an int `qp`, or the
+        (B, 1, 1, C) rows of a per-sample qp (B,)."""
+        return common.select_qp(table, qp)
 
     # ----------------------------------------------------- temporal state
 
@@ -216,17 +218,21 @@ class DMCLD(nn.Module):
 
     # ------------------------------------------------------ shared stages
 
+    def _prior_params(self, z_hat, memory, qp):
+        """Fused hyper and temporal prior.  The hyper output lives on the
+        4-aligned grid; it is cropped to the temporal prior's (y) grid
+        BEFORE the fusion (reference crop_hyper_params)."""
+        temporal = self.temporal_prior_encoder(memory)
+        hyper = self.hyper_decoder(z_hat)[
+            :, :temporal.shape[1], :temporal.shape[2], :]
+        return self.y_prior_fusion(torch.cat(
+            [hyper, temporal * self._q(self.q_feature, qp)], dim=-1))
+
     def prior0(self, z_int8, memory, qp, yh, yw):
         """Shared enc/dec: fused prior -> (q_enc, q_dec, scales, means,
-        params).  The hyper output lives on the 4-aligned grid; it is
-        cropped to the temporal prior's (y) grid BEFORE the fusion
-        (reference crop_hyper_params).  params is the spatial prior's
-        context."""
-        temporal = self.temporal_prior_encoder(memory.to(self.dtype))
-        hyper = self.hyper_decoder(z_int8.to(self.dtype))[
-            :, :temporal.shape[1], :temporal.shape[2], :]
-        params = self.y_prior_fusion(torch.cat(
-            [hyper, temporal * self._q(self.q_feature, qp)], dim=-1))
+        params); params is the spatial prior's context."""
+        params = self._prior_params(z_int8.to(self.dtype),
+                                    memory.to(self.dtype), qp)
         params = params[:, :yh, :yw, :]
         q_enc, q_dec, scales, means = common.separate_prior_video_infer(
             params)
@@ -258,3 +264,38 @@ class DMCLD(nn.Module):
         frame = self.recon_head(feature.to(self.dtype))
         frame = torch.clamp(frame.float(), -0.5, 0.5)
         return frame[:, :out_h, :out_w, :]
+
+    # ------------------------------------------------------ training path
+
+    def forward(self, x, ref_feature, memory, qp, noise):
+        """Training forward of one frame (video_model_ld.py:308-343).
+
+        x: (B, H, W, 3) YCbCr - 0.5, H and W multiples of 64;
+        ref_feature: (B, H/8, W/8, 192) for the first frame, else the
+        previous frame's decoder feature; memory: None for the first frame
+        (feature adaptor I), else the previous memory (adaptor M); qp: int
+        or (B,); noise: the rate terms' noise (common.rate_terms).
+        Returns (result, feature, memory); result holds x_hat and mse,
+        bpp, bits_y and bits_z, each (B,)."""
+        if memory is None:
+            memory = self.feature_adaptor_i(ref_feature)
+        else:
+            memory = self.feature_adaptor_m(
+                torch.cat([memory, ref_feature], dim=-1))
+        ctx = self.feature_extractor(memory)
+
+        y = self.encoder(x, ctx, self._q(self.q_encoder, qp))
+        z = self.hyper_encoder(y)
+        params = self._prior_params(ste_round(z), memory, qp)
+        params = params[:, :y.shape[1], :y.shape[2], :]
+        y_res, _, y_hat, scales_hat = common.forward_prior_2x_train(
+            y, params, self.y_spatial_prior)
+
+        feature = self.decoder(y_hat, ctx, self._q(self.q_decoder, qp))
+        x_hat = self.recon_head(feature)
+        bits_y, bits_z, bpp = common.rate_terms(
+            self.bit_estimator_z, y_res, scales_hat, z, qp, noise,
+            x.shape[1] * x.shape[2])
+        result = {"bits_y": bits_y, "bits_z": bits_z, "bpp": bpp,
+                  "mse": common.get_mse(x, x_hat), "x_hat": x_hat}
+        return result, feature, memory

@@ -13,7 +13,7 @@ so its state_dict keys are the reference's: `enc.enc_2.6.weight`,
 The stage methods (analysis / prior0 / prior_step / synthesis) are what
 the runtime calls; the encoder and the decoder call the same prior0 /
 prior_step / synthesis, which is what keeps their priors bit-identical.
-The training forward waits for the training port.
+`forward(x, qp, noise)` is the training forward, with per-sample QPs.
 """
 
 import collections
@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..core.padding import pad_for_y
+from ..core.quant import ste_round
 from ..core.shuffle import pixel_shuffle, pixel_unshuffle
 from ..layers.blocks import (
     Conv1x1, Conv3x3, DepthConvBlock, ResidualBlockUpsample,
@@ -44,6 +45,10 @@ class DMCIConfig:
 
 TINY_CONFIG = DMCIConfig(ch_enc_dec=32, ch_y=16, ch_z=8,
                          enc_depth=1, dec_depth=1, qp_num=8)
+# mid-size config for trained quality gates: big enough that the RD
+# behavior is representative, small enough to train on one chip in hours
+SMALL_CONFIG = DMCIConfig(ch_enc_dec=128, ch_y=64, ch_z=32,
+                          enc_depth=2, dec_depth=3, qp_num=16)
 
 # the reference's enc_2 Sequential holds 6 DCBs, so its strided conv is
 # entry 6 whatever enc_depth is
@@ -167,8 +172,35 @@ class DMCI(nn.Module):
         return self.q_scale_enc.dtype
 
     def _q(self, table, qp):
-        """(qp_num, C) table -> the (C,) row of `qp`."""
-        return table[int(qp)]
+        """(qp_num, C) table -> the (C,) row of an int `qp`, or the
+        (B, 1, 1, C) rows of a per-sample qp (B,)."""
+        return common.select_qp(table, qp)
+
+    # ------------------------------------------------------ training path
+
+    def forward(self, x, qp, noise):
+        """Training forward (reference forward_one_frame,
+        image_model.py:150).  x: (B, H, W, 3) YCbCr - 0.5, H and W
+        multiples of 64; qp: int or (B,); noise: the y / z noise of the
+        rate terms (common.rate_terms).  Returns x_hat and the per-sample
+        mse, bpp, bits_y and bits_z, each (B,)."""
+        y = self.enc(x, self._q(self.q_scale_enc, qp))
+        z = self.hyper_enc(y)
+        params = self.y_prior_fusion(self.hyper_dec(ste_round(z)))
+        params = params[:, :y.shape[1], :y.shape[2], :]
+        adaptors = (self.y_spatial_prior_adaptor_1,
+                    self.y_spatial_prior_adaptor_2,
+                    self.y_spatial_prior_adaptor_3)
+        y_res, _, y_hat, scales_hat = common.forward_prior_4x_train(
+            y, self._q(self.q_scale_y_enc, qp),
+            self._q(self.q_scale_y_dec, qp), params,
+            self.y_spatial_prior_reduction, adaptors, self.y_spatial_prior)
+        x_hat = self.dec(y_hat, self._q(self.q_scale_dec, qp))
+        bits_y, bits_z, bpp = common.rate_terms(
+            self.bit_estimator_z, y_res, scales_hat, z, qp, noise,
+            x.shape[1] * x.shape[2])
+        return {"x_hat": x_hat, "mse": common.get_mse(x, x_hat), "bpp": bpp,
+                "bits_y": bits_y, "bits_z": bits_z}
 
     # ----------------------------------------------------- inference path
 

@@ -6,6 +6,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe k2 [--symbols N] [--lanes n]
                                             [--clocks]
     python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
+    python3 -m dcvc_tpu_torch.perf_probe train [--runs 1]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
@@ -39,6 +40,12 @@ synchronised, profiler on), the device busy time (the union of the
 intervals of every kernel, copy and memset the profiler saw on the card),
 the device idle share (1 - busy / wall), the host rANS coder's time
 (inside its methods), and the kernels with the most device time.
+
+`train` builds each full-width training cell of TRAIN_CELLS (DMCI, LD,
+HTS, HTL at their published widths in float32, TF32 off), takes one warm
+step and then profiles `runs` steps, printing per step the JSON line of
+`profile` (wall, device busy, idle share, top device operations).
+chip_smoke.py times the same cells without the profiler.
 
 Needs one CUDA device; prints the card's name and power limit first.
 """
@@ -776,9 +783,13 @@ def busy_ms(intervals):
 
 
 def profile_call(label, codec, fn, run, top=10):
+    """One profiled call of fn (codec: its host coder is timed apart; None
+    for a call without one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with host_coder_timer(codec) as coder_s, profile(
+    timer = host_coder_timer(codec) if codec is not None \
+        else contextlib.nullcontext([0.0])
+    with timer as coder_s, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
             acc_events=True) as prof:
         torch.cuda.synchronize()
@@ -807,6 +818,111 @@ def run_profile(dev, runs):
     for label, codec, fn in warm_calls(dev):
         for r in range(runs):
             profile_call(label, codec, fn, r)
+
+
+# ------------------------------------------------------------ training
+
+class TrainCell(NamedTuple):
+    """One full-width training step shape: the structure ("dmci", "ld",
+    "hts", "htl"), batch, patch side, coding units after the intra frame
+    (0 for the image trainer), cascaded, rematerialised, steps to run."""
+    label: str
+    structure: str
+    batch: int
+    patch: int
+    units: int
+    cascaded: bool
+    remat: bool
+    steps: int
+
+
+# DMCI: train_image.py's first stage; LD: its stage0 shape (1 + 1
+# frames); HTS: its stage1 shape (1 + 8 + 8 frames, cascaded, here with
+# remat); HTL: 1 + 8 frames
+TRAIN_CELLS = [
+    TrainCell("DMCI 4x256x256", "dmci", 4, 256, 0, False, False, 4),
+    TrainCell("LD stage0 4x(1+1)x256x256", "ld", 4, 256, 1, False, False, 3),
+    TrainCell("HTS stage1 2x(1+8+8)x256x256 cascaded remat", "hts", 2, 256,
+              2, True, True, 3),
+    TrainCell("HTL 2x(1+8)x256x256", "htl", 2, 256, 1, False, False, 3),
+]
+# random conv kernels x 0.6: at 1.0 the full-width models' outputs
+# overflow (DMCI's x_hat reaches ~1e9 at 128x128 and the video losses
+# inf), at 0.5 they vanish (every y symbol 0)
+TRAIN_INIT_SCALE = 0.6
+TRAIN_LR = 1e-4
+TRAIN_LAMBDAS = (8.0, 256.0)
+
+
+def damped_model(cls, cfg, seed, scale):
+    """cls(cfg) with seeded random weights, conv kernels x scale."""
+    model = cls(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".weight"):
+                p.mul_(scale)
+    return model
+
+
+def train_setup(cell, dev, scale=TRAIN_INIT_SCALE):
+    """A cell's model, optimizer and batch on the card.  Returns (model,
+    step): step() takes one training step (the trainers' step functions,
+    fresh noise from a seeded generator) and returns its metrics."""
+    from .models.common import draw_noise, get_training_lambdas
+    from .models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG
+    from .models.dmc_ld import DMCLD, LD_CONFIG
+    from .models.dmci import DMCI
+    from .train.step import Optimizer, image_train_step, training_device
+    from .train.video_step import intra_seed, video_train_step
+    training_device(str(dev))
+    i_cfg = DMCIConfig()
+    b, p = cell.batch, cell.patch
+    gen = torch.Generator(device=dev).manual_seed(42)
+
+    def u8(frame):
+        return torch.round((frame + 0.5) * 255).to(torch.uint8)
+    samples = [make_sequence(p, p, 1 + cell.units * 8, 100 + i, dev)
+               for i in range(b)]
+    qp = torch.arange(b, device=dev) * 17 % i_cfg.qp_num
+    if cell.structure == "dmci":
+        model = damped_model(DMCI, i_cfg, 0, scale).to(dev)
+        cfg, clip = i_cfg, 0.1
+        x = u8(torch.cat([s[0] for s in samples]))
+    else:
+        cls, cfg = {"ld": (DMCLD, LD_CONFIG), "hts": (DMCHT, HTS_CONFIG),
+                    "htl": (DMCHT, HTL_CONFIG)}[cell.structure]
+        model = damped_model(cls, cfg, 0, scale).to(dev)
+        i_model = damped_model(DMCI, i_cfg, 10, scale).to(dev).eval() \
+            .requires_grad_(False)
+        clip, fd = 0.2, cfg.frame_delay
+        intra = u8(torch.cat([s[0] for s in samples]))
+        chunks = u8(torch.stack([torch.stack([torch.cat(
+            s[1 + u * fd:1 + (u + 1) * fd], dim=-1)[0]
+            for u in range(cell.units)]) for s in samples]))
+    lambdas = torch.tensor(get_training_lambdas(TRAIN_LAMBDAS, cfg.qp_num),
+                           dtype=torch.float32, device=dev)
+    opt = Optimizer(model, TRAIN_LR, clip)
+
+    def step():
+        if cell.structure == "dmci":
+            return image_train_step(model, opt, x, qp, lambdas,
+                                    draw_noise(cfg, b, p, p, gen, dev))
+        seed = intra_seed(i_model, intra, qp,
+                          draw_noise(i_cfg, b, p, p, gen, dev))
+        return video_train_step(model, opt, seed, chunks, qp, lambdas, gen,
+                                cascaded=cell.cascaded,
+                                use_remat=cell.remat)
+    return model, step
+
+
+def run_train(dev, runs):
+    for cell in TRAIN_CELLS:
+        _, step = train_setup(cell, dev)
+        step()
+        torch.cuda.synchronize()
+        for r in range(runs):
+            profile_call(f"train {cell.label}", None, step, r)
 
 
 # the heaviest K1 shapes of chip_smoke.py's main path (launches x device
@@ -1024,11 +1140,12 @@ def run_k2(dev, symbols, lanes, clocks=False):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles"))
+    ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles",
+                                     "train"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
-                    help="profiled runs per call (profile)")
+                    help="profiled runs per call (profile, train)")
     ap.add_argument("--symbols", type=int, default=2_000_000,
                     help="symbols of the synthetic stream (k2)")
     ap.add_argument("--lanes", type=int, default=8,
@@ -1049,6 +1166,8 @@ def main():
         run_k2(dev, args.symbols, args.lanes, args.clocks)
     elif args.mode == "tiles":
         run_tiles(dev, args.iters)
+    elif args.mode == "train":
+        run_train(dev, args.runs)
     else:
         run_profile(dev, args.runs)
 

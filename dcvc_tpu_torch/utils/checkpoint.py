@@ -1,4 +1,5 @@
-"""Reference checkpoints (.pth.tar of microsoft/DCVC) -> the port's models.
+"""Checkpoints: reference .pth.tar files (microsoft/DCVC) <-> the port's
+models, and the trainers' per-epoch status files.
 
 The port names its parameters after the reference torch module tree
 (utils/keys.py), so a reference state_dict loads without a key map.
@@ -6,8 +7,18 @@ load_state_dict_file is the port's copy of dcvc_tpu's
 load_torch_checkpoint (get_state_dict semantics) with torch tensors in
 place of numpy arrays; load_reference_into fills a model from it and, as
 dcvc_tpu's import_state_dict does, ignores only the entropy coder's
-cached tables (`quantized_cdf`, `cdf_length`).
+cached tables (`quantized_cdf`, `cdf_length`).  save_reference writes a
+model's state_dict in that format, which load_reference_into reads back.
+
+save_status / load_latest_status keep the trainers' resumable state
+(model, optimizer, epoch, step, config) as dcvc_tpu's save_status /
+load_latest_status do: one `status_epo{epoch}` file, older ones pruned,
+the newest of the last two that loads is resumed.
 """
+
+import dataclasses
+import os
+import pickle
 
 import torch
 
@@ -47,3 +58,44 @@ def load_reference_into(model, path):
                        f"({len(unused)})")
     model.load_state_dict(state)
     return model
+
+
+def save_reference(path, model):
+    """model's state_dict as a reference-format checkpoint
+    ({"state_dict": ...}, CPU tensors)."""
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"state_dict": state}, path)
+
+
+def save_status(save_dir, model, optimizer, epoch, step, cfg):
+    """The resumable status after `epoch`: written to a temporary file and
+    renamed into place, then older status files are removed."""
+    os.makedirs(save_dir, exist_ok=True)
+    curr = os.path.join(save_dir, f"status_epo{epoch}.pth")
+    status = {"epoch": epoch, "step": step,
+              "model": {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()},
+              "optimizer": optimizer.state_dict(),
+              "config": dataclasses.asdict(cfg)}
+    torch.save(status, curr + ".tmp")
+    os.replace(curr + ".tmp", curr)
+    for fn in os.listdir(save_dir):
+        full = os.path.join(save_dir, fn)
+        if fn.startswith("status_epo") and full != curr:
+            os.remove(full)
+
+
+def load_latest_status(save_dir):
+    """The newest status of save_dir that loads (of the last two), as
+    save_status wrote it; None if there is none."""
+    if not os.path.isdir(save_dir):
+        return None
+    files = [os.path.join(save_dir, f) for f in os.listdir(save_dir)
+             if f.startswith("status_epo") and f.endswith(".pth")]
+    files.sort(key=os.path.getmtime)
+    for path in reversed(files[-2:]):
+        try:
+            return torch.load(path, map_location="cpu", weights_only=True)
+        except (RuntimeError, EOFError, pickle.UnpicklingError):
+            continue
+    return None

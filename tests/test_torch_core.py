@@ -8,6 +8,7 @@ CDF banks, and the pins on the code the port copies from the JAX package.
 
 import ast
 import glob
+import importlib.util
 import inspect
 import os
 import subprocess
@@ -24,15 +25,28 @@ from dcvc_tpu.core import padding as jpadding
 from dcvc_tpu.core import shuffle as jshuffle
 from dcvc_tpu.entropy import bit_estimator as jbe
 from dcvc_tpu.entropy import gaussian as jgauss
+from dcvc_tpu.models import common as jcommon
 from dcvc_tpu.rans import device_decode as jdevice_decode
 from dcvc_tpu.utils import torch_import as jkeys
 from dcvc_tpu_torch.core import color, masks, padding, shuffle
 from dcvc_tpu_torch.entropy import bit_estimator as tbe
 from dcvc_tpu_torch.entropy import gaussian as tgauss
+from dcvc_tpu_torch.models import common as tcommon
 from dcvc_tpu_torch.rans import device_decode
+from dcvc_tpu_torch.train import image_main, video_main
 from dcvc_tpu_torch.utils import keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _root_module(name):
+    """A script at the repo root (train_image.py, ...), imported from its
+    file."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _rand(shape, seed=0):
@@ -184,6 +198,13 @@ def test_copied_files_byte_equal(copy, original):
     (keys.key_fn_dmc_ht, jkeys.key_fn_dmc_ht),
     (keys._map_dmc_ld, jkeys._map_dmc_ld),
     (keys.key_fn_dmc_ld, jkeys.key_fn_dmc_ld),
+    (masks.make_mask_4x.__wrapped__, jmasks.make_mask_4x.__wrapped__),
+    (tcommon.get_training_lambdas, jcommon.get_training_lambdas),
+    (tcommon.mse_8frames_sum, jcommon.mse_8frames_sum),
+    (image_main.get_training_strategy,
+     _root_module("train_image").get_training_strategy),
+    (video_main.get_training_strategy,
+     _root_module("train_video").get_training_strategy),
 ])
 def test_copied_functions_source_equal(copy, original):
     assert inspect.getsource(copy) == inspect.getsource(original)
@@ -230,7 +251,9 @@ def test_port_sources_import_no_jax():
     assert len(files) > 20
     scanned = {os.path.relpath(f, REPO) for f in files}
     for sub in ("eval/harness.py", "eval/video_main.py", "bitstream/nal.py",
-                "models/dmc_ld.py", "utils/checkpoint.py"):
+                "models/dmc_ld.py", "utils/checkpoint.py", "core/quant.py",
+                "train/step.py", "train/video_step.py", "train/image_main.py",
+                "train/video_main.py", "data/datasets.py", "utils/png.py"):
         assert f"dcvc_tpu_torch/{sub}" in scanned, sub
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
@@ -256,6 +279,8 @@ def test_port_imports_no_jax():
             "dcvc_tpu_torch.runtime.video_codec, dcvc_tpu_torch.models.dmc_ld, "
             "dcvc_tpu_torch.eval.video_main, dcvc_tpu_torch.eval.harness, "
             "dcvc_tpu_torch.bitstream, dcvc_tpu_torch.utils.checkpoint, "
+            "dcvc_tpu_torch.train.image_main, dcvc_tpu_torch.train.video_main, "
+            "dcvc_tpu_torch.data.datasets, dcvc_tpu_torch.utils.png, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dcvc_tpu'))\n"

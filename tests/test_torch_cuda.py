@@ -72,8 +72,29 @@ def test_cuda_wrapper_raises(cuda_device, ch, dtype, match):
     blk = blocks.DepthConvBlock(ch, ch).to(cuda_device, dtype)
     n = K1.fused_dcb.launches
     with pytest.raises(ValueError, match=match):
-        blk(torch.zeros(1, 4, 4, ch, device=cuda_device, dtype=dtype))
+        K1.fused_dcb(torch.zeros(1, 4, 4, ch, device=cuda_device,
+                                 dtype=dtype), blk.block_params())
     assert K1.fused_dcb.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,batch", [(torch.float32, 1),
+                                         (torch.bfloat16, 2)])
+def test_cuda_block_outside_the_kernel_path_runs_plain(cuda_device, dtype,
+                                                       batch):
+    """A block in float32 or at batch > 1 (the training forwards) takes
+    the plain version, with autograd, and launches nothing."""
+    gen = torch.Generator().manual_seed(4)
+    blk = blocks.DepthConvBlock(128, 128)
+    blocks.lecun_init_(blk, gen)
+    blk = blk.to(cuda_device, dtype)
+    x = torch.randn(batch, 8, 16, 128, generator=gen).to(cuda_device, dtype)
+    n = K1.fused_dcb.launches
+    out = blk(x)
+    out.float().sum().backward()
+    assert K1.fused_dcb.launches == n
+    assert torch.equal(out, K1.fused_dcb_reference(x, blk.block_params()))
+    assert blk.dc[0].weight.grad is not None
 
 
 @pytest.mark.cuda
