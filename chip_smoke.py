@@ -52,6 +52,23 @@ every K2 launch's inputs:
     the checkout (LD, HTS, and LD at two rates), then one point again
     with fresh codecs (the same .bin) and with device_ec (the same bits
     and PSNRs per frame).
+  - the evaluation surface, each part timed: params.v1 (the float32
+    DMCI and HTS models written by save_native, read by load_native_into,
+    their codecs coding a 1080p frame and a chunk to the in-memory
+    codecs' bytes and DPB); the image CLI (image_main on three seeded
+    PNGs, 1920x1080, 1280x720 and 768x512, host and device decodes, every
+    image bit-exact); the workers (video_main --worker 2, two spawned
+    processes on the one card, against --worker 1: the same .bin bytes
+    and numbers; the pool's launches are its processes' and not counted
+    here); the BD gate (bd_gate, random full-width weights,
+    --allow_extrapolation, 4 rates on a 256x384 sequence of GATE_FRAMES
+    frames: strict finite JSON, RD points printed as pipeline
+    validation); card vs CPU symbols (DMCI in float32 on a 256x256 frame
+    at qp 8 and 32, collect_symbols on both: the share of differing z / y
+    / idx symbols printed, a measurement; the card's round trip
+    bit-exact).  Their K2 calls are counted, not replayed.  Then each
+    full-width model's kMACs per pixel at 1080p (FlopCounterMode on the
+    meta device).
 Every device decode of the parts before the evaluation entry runs under
 torch.cuda.set_sync_debug_mode("error") once its lanes are uploaded: a
 host sync fails it.  Last, both forms of K1 are held against their plain
@@ -68,12 +85,14 @@ training step on the card disagrees with the CPU's, a full-width step's
 loss is not finite or its step was skipped, a
 device decode syncs with the host, two encodes give different streams,
 or a point of the evaluation entry is incomplete, not finite or not
-reproducible.
+reproducible, or a part of the evaluation surface is not bit-exact or
+differs from its serial / in-memory counterpart.
 
 Output: one line per phase (K2's: a JSON line of its time, ns per symbol
 per lane, cycles per symbol and latency bound per main-path label, with
 the SM clock under load); then a JSON line with the kernel table; the
-card's name and power limit; and last {"ok": true, "device": {...}}.
+card's name and power limit; the smoke's total seconds; and last
+{"ok": true, "device": {...}}.
 """
 
 import collections
@@ -90,13 +109,13 @@ import time
 import numpy as np
 import torch
 
-from dcvc_tpu_torch.eval import video_main
+from dcvc_tpu_torch.eval import bd_gate, image_main, video_main
 from dcvc_tpu_torch.eval.harness import run_one_point_with_stream
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
 from dcvc_tpu_torch.models.common import draw_noise, get_training_lambdas
-from dcvc_tpu_torch.models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG, \
-    TINY_HT_CONFIG
+from dcvc_tpu_torch.models.dmc_ht import DMCHT, DMCHTConfig, HTL_CONFIG, \
+    HTS_CONFIG, TINY_HT_CONFIG
 from dcvc_tpu_torch.models.dmc_ld import DMCLD, LD_CONFIG
 from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig, TINY_CONFIG
 from dcvc_tpu_torch.kernels._build import library_path
@@ -115,6 +134,9 @@ from dcvc_tpu_torch.train.step import Optimizer, image_train_step
 from dcvc_tpu_torch.train.video_step import video_train_step
 from dcvc_tpu_torch.utils.checkpoint import load_latest_status, \
     load_reference_into, save_reference
+from dcvc_tpu_torch.utils.jax_bridge import load_native_into, \
+    native_config, save_native
+from dcvc_tpu_torch.utils.model_complexity import model_macs_per_pixel
 from dcvc_tpu_torch.utils.png import write_png
 
 K1_SOURCE = "dcvc_tpu_torch/csrc/fused_dcb.cu"
@@ -192,6 +214,13 @@ CLI_FRAMES = 10
 CLI_H, CLI_W = 1080, 1920
 # side of the synthetic training folders' frames (the trainers' 256 patch)
 TRAIN_SIDE = 256
+# the evaluation surface: the image CLI's seeded PNGs (height, width,
+# seed); the BD gate's sequence length (run_bd_gate.py's default is 65);
+# the card-vs-CPU symbol capture's frame side and QPs
+IMAGE_CASES = [(1080, 1920, 40), (720, 1280, 41), (512, 768, 42)]
+GATE_H, GATE_W, GATE_FRAMES = 256, 384, 33
+SYMBOL_SIDE = 256
+SYMBOL_QPS = (8, 32)
 
 
 def log(*args):
@@ -956,6 +985,333 @@ def phase_cli(dev, launch_log):
     return tuple(derived)
 
 
+# ------------------------------------------------- the evaluation surface
+
+def scratch_dir(kind):
+    """A temporary directory of the checkout (gitignored: _smoke_*)."""
+    return tempfile.mkdtemp(prefix=f"_smoke_{kind}_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+
+
+def seeded_model(codec_cls, cfg, init_scale=1.0):
+    """The float32 model that codec_cls.init_random(seed 0, cfg,
+    init_scale) starts from, on the CPU."""
+    model = DMCI(cfg) if codec_cls is DMCICodec else codec_cls.MODEL(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if init_scale != 1.0 and codec_cls._damped(name):
+                p.mul_(init_scale)
+    return model
+
+
+def phase_params_v1(dmci, hts, dev, launch_log):
+    """dcvc_tpu.params.v1 at full width: the float32 models of the main
+    path's DMCI (DMCIConfig()) and HTS (HTS_CONFIG, init_scale 0.5)
+    codecs written by save_native and read back by load_native_into into
+    fresh models at the headers' configs; codecs on them (bf16, skip
+    0.15) code a 1080p DMCI frame and, seeded by it, an HTS chunk to the
+    in-memory codecs' bytes, with equal x_hat and a bit-exact DPB.
+    Returns the (S = 1, stacked, K2) launches derived for it."""
+    t0 = time.perf_counter()
+    root = scratch_dir("ckpt")
+    try:
+        paths = {"DMCI": os.path.join(root, "dmci.bin"),
+                 "HTS": os.path.join(root, "hts.bin")}
+        save_native(seeded_model(DMCICodec, DMCIConfig()), paths["DMCI"])
+        save_native(seeded_model(DMCHTCodec, HTS_CONFIG, 0.5), paths["HTS"])
+        i_cfg = native_config(paths["DMCI"], DMCIConfig, None)
+        p_cfg = native_config(paths["HTS"], DMCHTConfig, None)
+        if i_cfg != DMCIConfig() or p_cfg != HTS_CONFIG:
+            raise AssertionError(f"params.v1 headers: {i_cfg}, {p_cfg}")
+        kw = {"dtype": torch.bfloat16, "device": dev, "skip_thres": 0.15}
+        loaded = (DMCICodec(load_native_into(DMCI(i_cfg), paths["DMCI"])
+                            .state_dict(), cfg=i_cfg, **kw),
+                  DMCHTCodec(load_native_into(DMCHT(p_cfg), paths["HTS"])
+                             .state_dict(), cfg=p_cfg, **kw))
+        sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+        io_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    x = smooth_frame(1080, 1920, 11, dev)
+    chunk = torch.cat(make_sequence(1080, 1920, 8, 12, dev), dim=-1)
+    derived, runs = [0, 0, 0], []
+    for tag, (ic, pc) in (("in memory", (dmci, hts)),
+                          ("from params.v1", loaded)):
+        res, _, *n = counted(launch_log, f"params.v1 DMCI {tag}",
+                             lambda: ic.compress(x, 32))
+        expect(f"params.v1 DMCI {tag}", tuple(n), (ENCODE_LAUNCHES, 0, 0))
+        pc.clear_dpb()
+        pc.add_ref_feature_from_frame(res["x_hat"])
+        enc, _, *m = counted(launch_log, f"params.v1 HTS {tag}",
+                             lambda: pc.compress(chunk, 32))
+        want = unit_launches(VIDEO["HTS"], True, False, True, False)
+        expect(f"params.v1 HTS {tag}", tuple(m), want)
+        derived[0] += ENCODE_LAUNCHES + want[0]
+        runs.append((res, enc, pc.ref_feature))
+    (r1, e1, d1), (r2, e2, d2) = runs
+    if r1["bit_stream"] != r2["bit_stream"] or not torch.equal(
+            r1["x_hat"], r2["x_hat"]) or e1["bit_stream"] != \
+            e2["bit_stream"] or not torch.equal(d1, d2):
+        raise AssertionError("params.v1: the loaded codecs' streams, x_hat "
+                             "or DPB differ from the in-memory codecs'")
+    log(f"params.v1: DMCI {sizes['DMCI']} bytes, HTS {sizes['HTS']} bytes "
+        f"written and read back in {io_s:.3f} s; a 1080p DMCI frame "
+        f"({len(r1['bit_stream'])} bytes) and an HTS chunk "
+        f"({len(e1['bit_stream'])} bytes) coded identically, DPB bit-exact "
+        f"{tuple(d1.shape)} ({time.perf_counter() - t0:.3f} s)")
+    return tuple(derived)
+
+
+def phase_image_cli(dev, launch_log):
+    """image_main (DMCIConfig(), bf16, seeded random weights, skip 0.15) on
+    three seeded PNGs, with and without device_ec: every image bit-exact
+    (exit code 0), the .bin files and the bits and PSNRs of the two runs
+    equal.  Returns the (S = 1, stacked, K2) launches derived for it."""
+    t0 = time.perf_counter()
+    root = scratch_dir("image")
+    derived = [0, 0, 0]
+    try:
+        os.makedirs(os.path.join(root, "png"))
+        for h, w, seed in IMAGE_CASES:
+            frame = smooth_frame(h, w, seed, dev)
+            write_png(os.path.join(root, "png", f"im_{w}x{h}.png"),
+                      torch.round((frame[0] + 0.5) * 255).to(torch.uint8)
+                      .cpu().numpy())
+        runs = []
+        for ec in (0, 1):
+            argv = ["--image_path", os.path.join(root, "png"),
+                    "--stream_path", os.path.join(root, f"bin{ec}"),
+                    "--output_path", os.path.join(root, f"out{ec}.json"),
+                    "--qp", "32", "--device_ec", str(ec),
+                    "--device", dev.type]
+            label = f"image CLI device_ec={ec}"
+            rc, ms, *n = counted(launch_log, label,
+                                 lambda: image_main.main(argv))
+            k = len(IMAGE_CASES)
+            want = (k * (ENCODE_LAUNCHES + DECODE_LAUNCHES), 0,
+                    k * DMCI_K2_LAUNCHES * ec)
+            expect(label, tuple(n), want)
+            derived = [a + b for a, b in zip(derived, want)]
+            with open(os.path.join(root, f"out{ec}.json")) as f:
+                result = json.load(f)
+            if rc != 0 or not all(r["bitexact"] for r in
+                                  result["per_image"].values()):
+                raise AssertionError(f"{label}: exit code {rc}, "
+                                     f"{result['per_image']}")
+            bins = {}
+            for name in sorted(os.listdir(os.path.join(root, f"bin{ec}"))):
+                with open(os.path.join(root, f"bin{ec}", name), "rb") as f:
+                    bins[name] = f.read()
+            runs.append((result, bins))
+            log(f"{label}: " + "; ".join(
+                f"{name} ms={1e3 * r['time']} bpp={r['bpp']} "
+                f"psnr={r['psnr']} bitexact={r['bitexact']}"
+                for name, r in result["per_image"].items())
+                + f"; K1 {n[0]} + {n[1]} stacked, K2 {n[2]} launches "
+                f"(run {ms} ms with its codec build)")
+        (res0, bins0), (res1, bins1) = runs
+        if bins0 != bins1 or any(
+                (a["bpp"], a["psnr"]) != (b["bpp"], b["psnr"]) for a, b in
+                zip(res0["per_image"].values(), res1["per_image"].values())):
+            raise AssertionError("image CLI: the device_ec run differs")
+    finally:
+        shutil.rmtree(root)
+    log(f"image CLI: {len(IMAGE_CASES)} images x 2 runs bit-exact, host and "
+        f"device decodes equal ({time.perf_counter() - t0:.3f} s)")
+    return tuple(derived)
+
+
+def untimed(result):
+    """A result JSON without its time fields."""
+    return {ds: {seq: {rate: {k: v for k, v in point.items()
+                              if "time" not in k}
+                       for rate, point in rates.items()}
+                 for seq, rates in seqs.items()}
+            for ds, seqs in result.items()}
+
+
+def phase_workers(dev, launch_log):
+    """video_main --model_structure ld --rate_num 2 on the evaluation
+    entry's seeded 1080p file with --worker 1 (in this process) and
+    --worker 2 (two spawned processes on the one card, each with its own
+    codecs): the same .bin bytes and the same JSON numbers, times aside.
+    The pool's launches happen in its processes and are not counted
+    here.  Returns the (S = 1, stacked, K2) launches derived for it."""
+    t0 = time.perf_counter()
+    root = scratch_dir("workers")
+    try:
+        cfg_path, seq = write_cli_inputs(root, dev)
+        out = {}
+        for n in (1, 2):
+            argv = ["--test_config", cfg_path, "--model_structure", "ld",
+                    "--rate_num", "2", "--worker", str(n),
+                    "--output_path", os.path.join(root, f"w{n}.json"),
+                    "--stream_path", os.path.join(root, f"w{n}"),
+                    "--device", dev.type]
+            result, ms, *got = counted(launch_log, f"workers {n}",
+                                       lambda: video_main.main(argv))
+            points = video_main.build_points(video_main.parse_args(argv),
+                                             DMCIConfig().qp_num)[0]
+            want = [0, 0, 0]
+            if n == 1:
+                for point in points:
+                    want = [a + b for a, b in
+                            zip(want, cli_launches(VIDEO["LD"], point))]
+            expect(f"workers {n}", tuple(got), tuple(want))
+            if n == 1:
+                derived = want
+            bins = {}
+            folder = os.path.join(root, f"w{n}", "Smoke")
+            for name in sorted(os.listdir(folder)):
+                if name.endswith(".bin"):
+                    with open(os.path.join(folder, name), "rb") as f:
+                        bins[name] = f.read()
+            with open(os.path.join(root, f"w{n}.json")) as f:
+                out[n] = (untimed(json.load(f)), bins, ms)
+        if out[1][:2] != out[2][:2] or len(out[1][1]) != 2:
+            raise AssertionError("--worker 2 differs from --worker 1")
+        log(f"workers: video_main LD, 2 points of {CLI_FRAMES} "
+            f"{CLI_W}x{CLI_H} frames: --worker 1 {out[1][2]} ms, "
+            f"--worker 2 {out[2][2]} ms "
+            f"wall (each with its codec builds; the pool's with its process "
+            f"starts); .bin files and JSON numbers equal "
+            f"({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(root)
+    return tuple(derived)
+
+
+def phase_bd_gate(dev, launch_log):
+    """bd_gate with random weights at full width (DMCI + HTS, bf16) and
+    --allow_extrapolation, 4 rates on the GATE_H x GATE_W stand-in
+    sequence of GATE_FRAMES frames: exit code 0 and a strict, finite
+    JSON of 4 RD points.  Returns the (S = 1, stacked, K2) launches derived for it."""
+    root = scratch_dir("gate")
+    path = os.path.join(root, "gate.json")
+    try:
+        argv = ["--output_path", path, "--allow_extrapolation", "--frames",
+                str(GATE_FRAMES), "--height", str(GATE_H), "--width",
+                str(GATE_W), "--device", dev.type]
+        rc, ms, *got = counted(launch_log, "BD gate",
+                               lambda: bd_gate.main(argv))
+        point = {"frame_num": GATE_FRAMES, "reset_interval": 32}
+        want = tuple(4 * n for n in cli_launches(VIDEO["HTS"], point))
+        expect("BD gate", tuple(got), want)
+
+        def strict(token):
+            raise AssertionError(f"BD gate JSON: {token}")
+        with open(path) as f:
+            artifact = json.load(f, parse_constant=strict)
+    finally:
+        shutil.rmtree(root)
+    points = artifact["rd_points"]
+    if rc != 0 or len(points) != 4 or not all(
+            np.isfinite(p["bpp"]) and np.isfinite(p["psnr"]) and p["bpp"] > 0
+            for p in points.values()):
+        raise AssertionError(f"BD gate: exit code {rc}, points {points}")
+    log(f"BD gate (pipeline validation, untrained full-width weights, "
+        f"{GATE_FRAMES} frames of {GATE_W}x{GATE_H}): rd_monotone="
+        f"{artifact['rd_monotone']} bd_rate_pct_vs_vtm17="
+        f"{json.dumps(artifact['bd_rate_pct_vs_vtm17'])} RD points "
+        + "; ".join(f"{k}: bpp={p['bpp']} psnr={p['psnr']}"
+                    for k, p in points.items()) + f" ({ms} ms)")
+    return want
+
+
+def symbol_diff(a, b):
+    """{kind: (differing, total)} between two captures of one call's
+    symbols; y / idx of unequal length count the excess as differing."""
+    out = {"z": (int((a["z"] != b["z"]).sum()), a["z"].size)}
+    for kind in ("y", "idx"):
+        bad = total = 0
+        for u, v in zip(a[kind], b[kind]):
+            m = min(len(u), len(v))
+            bad += int((u[:m] != v[:m]).sum()) + abs(len(u) - len(v))
+            total += max(len(u), len(v))
+        out[kind] = (bad, total)
+    return out
+
+
+def phase_symbols(dev, launch_log):
+    """Card vs CPU decisions (a measurement, as dcvc_tpu's
+    scripts/cross_platform_conformance.py; not a gate): DMCI at
+    DMCIConfig() in float32 (the plain DepthConvBlock: K1 runs bf16
+    only), skip 0.15, seeded random weights, on a seeded SYMBOL_SIDE^2
+    frame at SYMBOL_QPS, captured with collect_symbols on the card and on
+    the CPU; the differing z / y / idx symbols are printed, and whether
+    the CPU's decode of the card's stream reads the card's symbols.  The
+    card's own round trip (host and K2 decodes) stays bit-exact.
+    Returns the (S = 1, stacked, K2) launches derived for it."""
+    t0 = time.perf_counter()
+    kw = {"cfg": DMCIConfig(), "skip_thres": 0.15, "dtype": torch.float32}
+    card = DMCICodec.init_random(torch.Generator().manual_seed(0),
+                                 device=dev, **kw)
+    cpu = DMCICodec.init_random(torch.Generator().manual_seed(0),
+                                device="cpu", **kw)
+    x = smooth_frame(SYMBOL_SIDE, SYMBOL_SIDE, 13, dev)
+    side = SYMBOL_SIDE
+    derived = [0, 0, 0]
+    for qp in SYMBOL_QPS:
+        card.collect_symbols = []
+
+        def card_round_trip():
+            res = card.compress(x, qp)
+            host = card.decompress(res["bit_stream"], qp, side, side,
+                                   res["ec_parallel"])["x_hat"]
+            card.device_ec = True
+            try:
+                dev_x = card.decompress(res["bit_stream"], qp, side, side,
+                                        res["ec_parallel"])["x_hat"]
+            finally:
+                card.device_ec = False
+            return res, host, dev_x
+        (res, host, dev_x), _, *n = counted(
+            launch_log, f"symbols card qp={qp}", card_round_trip)
+        want = (0, 0, DMCI_K2_LAUNCHES)
+        expect(f"symbols card qp={qp}", tuple(n), want)
+        derived[2] += want[2]
+        if not (torch.equal(res["x_hat"], host)
+                and torch.equal(host, dev_x)):
+            raise AssertionError(f"symbols qp={qp}: the card's round trip "
+                                 f"is not bit-exact")
+        enc_card = card.collect_symbols[0]
+        cpu.collect_symbols = []
+        cpu.compress(x.cpu(), qp)
+        cpu.decompress(res["bit_stream"], qp, side, side,
+                       res["ec_parallel"])
+        enc_cpu, dec_cpu = cpu.collect_symbols
+        diff = symbol_diff(enc_card, enc_cpu)
+        portable = all(v[0] == 0 for v in symbol_diff(enc_card,
+                                                      dec_cpu).values())
+        log(f"symbols card vs CPU, DMCI f32 {side}x{side} qp={qp}: "
+            + "; ".join(f"{k} {bad} of {tot} differ (share {bad / tot})"
+                        for k, (bad, tot) in diff.items())
+            + f"; card stream read on the CPU gives the card's symbols: "
+            f"{portable}; card round trip bit-exact (host and K2)")
+    log(f"symbols: {time.perf_counter() - t0:.3f} s")
+    return tuple(derived)
+
+
+def phase_complexity():
+    """kMACs per pixel of each full-width model's training forward at
+    1080p (1088x1920, the training forward's multiple of 64), counted by
+    FlopCounterMode on the meta device (shapes only, no compute):
+    products and convolutions, not elementwise work."""
+    t0 = time.perf_counter()
+    parts = []
+    for name, cls, cfg in (("DMCI", DMCI, DMCIConfig()),
+                           ("HTS", DMCHT, HTS_CONFIG),
+                           ("HTL", DMCHT, HTL_CONFIG),
+                           ("LD", DMCLD, LD_CONFIG)):
+        with torch.device("meta"):
+            model = cls(cfg)
+        parts.append(f"{name} {model_macs_per_pixel(model, 1080, 1920)}")
+    log("complexity, kMACs per pixel at 1080p (training forward, "
+        "FlopCounterMode, per frame): " + "; ".join(parts)
+        + f" ({time.perf_counter() - t0:.3f} s)")
+
+
 # ---------------------------------------------------------------- training
 
 # card-vs-CPU parity of one training step at the TINY configs: random
@@ -1258,10 +1614,21 @@ def main():
                 zero_launch_counts()
                 want[part] = run()
                 got[part] = launch_counts()
-        parts.append(("CLI", None))
-        zero_launch_counts()
-        want["CLI"] = phase_cli(dev, launch_log)
-        got["CLI"] = launch_counts()
+        # parts whose K2 calls are counted, not replayed
+        counted_only = [
+            ("CLI", lambda: phase_cli(dev, launch_log)),
+            ("params.v1", lambda: phase_params_v1(dmci, video["HTS"], dev,
+                                                  launch_log)),
+            ("image CLI", lambda: phase_image_cli(dev, launch_log)),
+            ("workers", lambda: phase_workers(dev, launch_log)),
+            ("BD gate", lambda: phase_bd_gate(dev, launch_log)),
+            ("symbols", lambda: phase_symbols(dev, launch_log))]
+        for part, run in counted_only:
+            parts.append((part, None))
+            zero_launch_counts()
+            want[part] = run()
+            got[part] = launch_counts()
+    phase_complexity()
     log("main path launches (fused_dcb, fused_dcb_stacked, rans_decode): "
         + "; ".join(f"{part} {got[part]}, derived {want[part]}"
                     for part, _ in parts))
@@ -1270,8 +1637,9 @@ def main():
     recorded = collections.Counter()
     for key, n in launch_log.totals().items():
         recorded[key.kind] += n
+    k2_counted = sum(got[part][2] for part, _ in counted_only)
     if got != want or recorded != launches \
-            or len(k2_log.calls) != totals[2] - got["CLI"][2]:
+            or len(k2_log.calls) != totals[2] - k2_counted:
         raise AssertionError(f"main path launches {got}, recorded "
                              f"{dict(recorded)} + {len(k2_log.calls)} K2, "
                              f"derived {want}")
@@ -1293,10 +1661,12 @@ def main():
         rows = phase_kernels(dev, launch_log, launches)
         rows.append(phase_k2(k2_log, totals[2]))
     log(f"K2: {len(k2_log.calls)} of the main path's {totals[2]} launches "
-        f"replayed and timed; the evaluation entry's {got['CLI'][2]} are "
-        f"counted only")
+        f"replayed and timed; the {k2_counted} of the evaluation entry and "
+        f"surface ({', '.join(p for p, _ in counted_only)}) are counted "
+        f"only")
 
     print(json.dumps({"kernels": rows}))
+    log(f"smoke total: {time.perf_counter() - t0:.3f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

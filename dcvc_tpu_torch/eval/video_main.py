@@ -3,8 +3,8 @@ test_video.py (counterpart of the JAX package's test_video.py).
 
     python3 -m dcvc_tpu_torch.eval.video_main --test_config cfg.json \
         --output_path out.json [--model_structure ld|hts|htl] \
-        [--model_path_i random|ckpt.pth.tar] [--model_path_p ...] \
-        [--device cuda|cpu] ...
+        [--model_path_i random|ckpt.bin|ckpt.pth.tar] [--model_path_p ...] \
+        [--device cuda|cpu] [--worker N] ...
 
 Encodes each (class, sequence, rate) point to a real NAL bitstream,
 decodes it back from disk, and writes the nested {class -> seq -> rate}
@@ -12,12 +12,21 @@ result JSON.  The arguments and the JSON are test_video.py's, plus
 `--device` (default cuda; the models run in bfloat16 there and in
 float32 on the CPU).  With --device cuda and no card it raises.
 Checkpoints are `random` (seeded random weights, the P-codec's damped by
-0.5) or a reference .pth.tar (utils/checkpoint.py) at the published
-config, or the TINY one under --tiny_model.  Points run one after another
-in this process; --worker > 1 is not ported.
+0.5), a dcvc_tpu.params.v1 file (the JAX package's trainers' ckpt.bin,
+or the port's save_native), whose header's config wins over
+--tiny_model as in test_video.py, or a reference .pth.tar
+(utils/checkpoint.py) at the published config, or the TINY one under
+--tiny_model; the file's header tells the two formats apart.  With
+--worker 1 the points run one after another in this process; with
+--worker N > 1 in a pool of N spawned processes, each of which takes an
+explicit slot from a shared counter, pins card slot % device_count
+(--device cuda) and builds its own codecs, as test_video.py's
+_init_worker does; the results come back in point order.
 """
 
 import argparse
+import concurrent.futures
+import copy
 import json
 import os
 import time
@@ -25,13 +34,13 @@ import time
 import numpy as np
 import torch
 
-from ..models.dmc_ht import HTL_CONFIG, HTS_CONFIG, TINY_HT_CONFIG, \
-    TINY_HTL_CONFIG
-from ..models.dmc_ld import LD_CONFIG, TINY_LD_CONFIG
+from ..models.dmc_ht import DMCHTConfig, HTL_CONFIG, HTS_CONFIG, \
+    TINY_HT_CONFIG, TINY_HTL_CONFIG
+from ..models.dmc_ld import DMCLDConfig, LD_CONFIG, TINY_LD_CONFIG
 from ..models.dmci import DMCI, DMCIConfig, TINY_CONFIG
 from ..runtime.image_codec import DMCICodec
 from ..runtime.video_codec import DMCHTCodec, DMCLDCodec
-from ..utils.checkpoint import load_reference_into
+from ..utils.jax_bridge import load_into, native_config
 from ..utils.logjson import dump_json
 from .harness import run_one_point_with_stream
 
@@ -72,32 +81,51 @@ def parse_args(argv=None):
 
 
 def _p_codec_spec(args):
-    """(codec class, config) of --model_structure."""
+    """(codec class, config) of --model_structure; a params.v1
+    --model_path_p's header config wins."""
     if args.model_structure == "ld":
-        return DMCLDCodec, TINY_LD_CONFIG if args.tiny_model else LD_CONFIG
-    if args.model_structure == "hts":
-        return DMCHTCodec, TINY_HT_CONFIG if args.tiny_model else HTS_CONFIG
-    return DMCHTCodec, TINY_HTL_CONFIG if args.tiny_model else HTL_CONFIG
+        cls, cfg_cls = DMCLDCodec, DMCLDConfig
+        cfg = TINY_LD_CONFIG if args.tiny_model else LD_CONFIG
+    else:
+        cls, cfg_cls = DMCHTCodec, DMCHTConfig
+        if args.model_structure == "hts":
+            cfg = TINY_HT_CONFIG if args.tiny_model else HTS_CONFIG
+        else:
+            cfg = TINY_HTL_CONFIG if args.tiny_model else HTL_CONFIG
+    return cls, native_config(args.model_path_p, cfg_cls, cfg)
+
+
+def i_config(args):
+    """The DMCI config: a params.v1 --model_path_i's header's, else TINY
+    under --tiny_model, else the published one."""
+    return native_config(args.model_path_i, DMCIConfig,
+                         TINY_CONFIG if args.tiny_model else DMCIConfig())
+
+
+def check_device(device):
+    """torch.device(device); raises when it names a missing card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device (pass --device "
+                           "cpu to run on the CPU)")
+    return device
 
 
 def build_codecs(args, device_ec=False):
     """(i_codec, p_codec, frame_delay) on args.device: bfloat16 on a CUDA
     device, float32 on the CPU.  device_ec: the codecs decode their
     streams on the device (K2)."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (pass --device "
-                           "cpu to run on the CPU)")
+    device = check_device(args.device)
     kw = {"dtype": torch.bfloat16 if device.type == "cuda"
           else torch.float32, "device": device,
           "skip_thres": args.skip_thres, "device_ec": device_ec}
 
-    i_cfg = TINY_CONFIG if args.tiny_model else DMCIConfig()
+    i_cfg = i_config(args)
     if args.model_path_i == "random":
         i_codec = DMCICodec.init_random(torch.Generator().manual_seed(0),
                                         cfg=i_cfg, **kw)
     else:
-        model = load_reference_into(DMCI(i_cfg), args.model_path_i)
+        model = load_into(DMCI(i_cfg), args.model_path_i)
         i_codec = DMCICodec(model.state_dict(), cfg=i_cfg, **kw)
 
     p_codec, frame_delay = None, 1
@@ -110,9 +138,51 @@ def build_codecs(args, device_ec=False):
             p_codec = cls.init_random(torch.Generator().manual_seed(1),
                                       cfg=cfg, init_scale=0.5, **kw)
         else:
-            model = load_reference_into(cls.MODEL(cfg), args.model_path_p)
+            model = load_into(cls.MODEL(cfg), args.model_path_p)
             p_codec = cls(model.state_dict(), cfg=cfg, **kw)
     return i_codec, p_codec, frame_delay
+
+
+_WORKER_STATE = {}
+
+
+def _init_worker(args, slot_counter):
+    """Pool initializer (test_video.py's _init_worker): an explicit slot
+    from the shared counter, the card of that slot, the worker's own
+    codecs."""
+    with slot_counter.get_lock():
+        slot = slot_counter.value
+        slot_counter.value += 1
+    args = copy.copy(args)
+    if torch.device(args.device).type == "cuda":
+        index = slot % torch.cuda.device_count()
+        torch.cuda.set_device(index)
+        args.device = f"cuda:{index}"
+    i_codec, p_codec, frame_delay = build_codecs(args)
+    _WORKER_STATE.update(i_codec=i_codec, p_codec=p_codec,
+                         frame_delay=frame_delay)
+
+
+def _run_point(cur):
+    return run_one_point_with_stream(
+        _WORKER_STATE["p_codec"], _WORKER_STATE["i_codec"],
+        _WORKER_STATE["frame_delay"], cur)
+
+
+def run_points(args, points):
+    """Every point's result, in point order: in this process, or in a
+    pool of args.worker spawned processes."""
+    if args.worker <= 1:
+        i_codec, p_codec, frame_delay = build_codecs(args)
+        return [run_one_point_with_stream(p_codec, i_codec, frame_delay,
+                                          cur) for cur in points]
+    ctx = torch.multiprocessing.get_context("spawn")
+    slot_counter = ctx.Value("i", 0)
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=args.worker, mp_context=ctx,
+            initializer=_init_worker,
+            initargs=(args, slot_counter)) as pool:
+        return list(pool.map(_run_point, points))
 
 
 def build_points(args, qp_num):
@@ -194,18 +264,13 @@ def main(argv=None):
     begin_time = time.time()
     args = parse_args(argv)
     args.skip_thres = max(0, args.skip_thres)
-    if args.worker > 1:
-        raise ValueError("--worker > 1 is not ported yet (ROADMAP.md §1, "
-                         "'Eval workers'); run with --worker 1")
-
-    i_codec, p_codec, frame_delay = build_codecs(args)
+    check_device(args.device)
     points, count_frames, count_sequences, qp_i = build_points(
-        args, i_codec.cfg.qp_num)
+        args, i_config(args).qp_num)
     print(f"testing {args.rate_num} rates, using qp: "
           f"{', '.join(str(q) for q in qp_i)}")
 
-    results = [run_one_point_with_stream(p_codec, i_codec, frame_delay, cur)
-               for cur in points]
+    results = run_points(args, points)
     for cur, result in zip(points, results):
         result["ds_name"] = cur["ds_name"]
         result["seq"] = cur["seq"]

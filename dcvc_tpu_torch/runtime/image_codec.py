@@ -187,6 +187,13 @@ class DMCICodec(EntropyDecoder):
         self._k2_banks = device_banks(banks, self.device)
         self.model = model.to(self.device, dtype).eval()
         self._plans = {}
+        # diagnostic symbol capture (cross-platform conformance, as
+        # dcvc_tpu's scripts/cross_platform_conformance.py uses it): when
+        # a list, compress and decompress append the exact coded symbols
+        # of each call, {"z": int8 (n_z,), "y": 4 int8 arrays, "idx": 4
+        # uint8 arrays} in the stream's order; None copies nothing and
+        # adds no sync
+        self.collect_symbols = None
 
     @classmethod
     def init_random(cls, generator=None, cfg=None, **kwargs):
@@ -292,6 +299,11 @@ class DMCICodec(EntropyDecoder):
         x_hat = self._synthesis(y_hat, qp, h, w)
 
         coded = [c.cpu().numpy() for c in coded]
+        if self.collect_symbols is not None:
+            self.collect_symbols.append(
+                {"z": z_int8.cpu().numpy().reshape(-1).copy(),
+                 "y": [(c >> 8).astype(np.int8) for c in coded],
+                 "idx": [(c & 0xFF).astype(np.uint8) for c in coded]})
         total = sum(c.size for c in coded)
         ec_parallel = min(self._rans.compute_ec_parallel(total), self.MAX_EC)
         self.encoder.reset()
@@ -321,8 +333,14 @@ class DMCICodec(EntropyDecoder):
             p, z_int8, sync_free)
         y_hat = torch.zeros((1,) + p["y"] + (ch_y,), dtype=torch.float32,
                             device=self.device)
+        collect = ({"z": z_int8.cpu().numpy().reshape(-1), "y": [],
+                    "idx": []} if self.collect_symbols is not None else None)
         for k in range(4):
             state, decoded = self._decode_y(state, packed_idx, count)
+            if collect is not None:
+                c = int(count)
+                collect["y"].append(decoded[:c].cpu().numpy())
+                collect["idx"].append(packed_idx[:c].cpu().numpy())
             y_q = expand_from_pos(packed_pos, decoded, p["n_cand"]).reshape(
                 (1,) + p["cand"] + (ch_y,))
             out = self._step(p, k, y_q, means, y_hat, ctx, sync_free)
@@ -330,4 +348,6 @@ class DMCICodec(EntropyDecoder):
                 y_hat, means, packed_idx, packed_pos, count, _ = out
             else:
                 y_hat = out
+        if collect is not None:
+            self.collect_symbols.append(collect)
         return {"x_hat": self._synthesis(y_hat, qp, h, w)}

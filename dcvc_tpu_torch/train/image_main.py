@@ -12,7 +12,10 @@ with its log-spaced lambda, and a resumable status file per epoch
 (default cuda; with no card it raises).  The model trains in float32
 with TF32 off (runtime.image_codec.set_deterministic), from seeded
 random weights.  At the end it writes `ckpt.pth.tar` in the reference
-format, which DMCICodec and utils/checkpoint.load_reference_into read.
+format and `ckpt.bin` in the JAX package's dcvc_tpu.params.v1 (as
+train_image.py writes it, the config in its header); DMCICodec takes
+either through utils/jax_bridge.load_into, the JAX package's CLIs the
+latter.
 One card: the JAX trainer's data-parallel mesh is not ported.
 """
 
@@ -27,6 +30,7 @@ from ..models.common import draw_noise, get_training_lambdas
 from ..models.dmci import DMCI, DMCIConfig, SMALL_CONFIG, TINY_CONFIG
 from ..utils.checkpoint import load_latest_status, save_reference, \
     save_status
+from ..utils.jax_bridge import save_native
 from .step import Optimizer, image_train_step, training_device
 
 CLIP_NORM = 0.1
@@ -129,8 +133,9 @@ def main(argv=None):
         save_status(args.save_dir, model, opt, epoch, step, cfg)
 
     save_reference(f"{args.save_dir}/ckpt.pth.tar", model)
-    print(f"saved final checkpoint to {args.save_dir}/ckpt.pth.tar",
-          flush=True)
+    save_native(model, f"{args.save_dir}/ckpt.bin", cfg)
+    print(f"saved final checkpoint to {args.save_dir}/ckpt.pth.tar and "
+          f"ckpt.bin", flush=True)
     return model
 
 

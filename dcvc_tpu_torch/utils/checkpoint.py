@@ -10,6 +10,15 @@ dcvc_tpu's import_state_dict does, ignores only the entropy coder's
 cached tables (`quantized_cdf`, `cdf_length`).  save_reference writes a
 model's state_dict in that format, which load_reference_into reads back.
 
+save_params / load_params / load_header read and write the JAX
+package's native format, `dcvc_tpu.params.v1` (dcvc_tpu/utils/
+checkpoint.py:18-47): an 8-byte little-endian header length, a JSON
+header with `format` and `config`, then the flax msgpack of the param
+tree (utils/msgpack.py, the port's own codec of it).  The trees are
+flax's; utils/jax_bridge.py turns them into the port's state_dicts and
+back (load_native_into, save_native).  checkpoint_format tells the two
+kinds of file apart by their header.
+
 save_status / load_latest_status keep the trainers' resumable state
 (model, optimizer, epoch, step, config) as dcvc_tpu's save_status /
 load_latest_status do: one `status_epo{epoch}` file, older ones pruned,
@@ -17,10 +26,15 @@ the newest of the last two that loads is resumed.
 """
 
 import dataclasses
+import json
 import os
 import pickle
 
 import torch
+
+from . import msgpack
+
+PARAMS_V1 = "dcvc_tpu.params.v1"
 
 _SKIPPED = ("quantized_cdf", "cdf_length")
 
@@ -99,3 +113,68 @@ def load_latest_status(save_dir):
         except (RuntimeError, EOFError, pickle.UnpicklingError):
             continue
     return None
+
+
+def save_params(path, params, cfg=None, extra=None,
+                chunk_bytes=msgpack.MAX_CHUNK_SIZE):
+    """A param tree (nested dicts of tensors or numpy arrays) in
+    dcvc_tpu.params.v1, byte for byte as dcvc_tpu's save_params writes
+    it: the header {"format", "config": dataclasses.asdict(cfg), **extra}
+    (json.dumps), then the tree's msgpack (arrays over chunk_bytes
+    chunked, as flax does)."""
+    payload = msgpack.packb(params, chunk_bytes)
+    header = {"format": PARAMS_V1}
+    if cfg is not None:
+        header["config"] = (cfg if isinstance(cfg, dict)
+                            else dataclasses.asdict(cfg))
+    if extra:
+        header.update(extra)
+    header_bytes = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(header_bytes).to_bytes(8, "little"))
+        f.write(header_bytes)
+        f.write(payload)
+
+
+def load_header(path):
+    """The JSON header of a dcvc_tpu.params.v1 file, without the
+    params."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        return json.loads(f.read(n).decode())
+
+
+def load_params(path):
+    """(param tree of tensors, header dict) of a dcvc_tpu.params.v1
+    file."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n).decode())
+        params = msgpack.unpackb(f.read())
+    if header.get("format") != PARAMS_V1:
+        raise ValueError(f"{path}: format {header.get('format')!r}, not "
+                         f"{PARAMS_V1}")
+    return params, header
+
+
+def checkpoint_format(path):
+    """PARAMS_V1 for a file that starts with that format's header, else
+    "pth.tar" (a reference checkpoint; torch.load reads it)."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        if not 0 < n <= min(size - 8, 1 << 20):
+            return "pth.tar"
+        try:
+            header = json.loads(f.read(n).decode())
+        except ValueError:
+            return "pth.tar"
+    if isinstance(header, dict) and header.get("format") == PARAMS_V1:
+        return PARAMS_V1
+    return "pth.tar"
+
+
+def config_from_header(cls, header, default):
+    """cls(**header["config"]), or `default` when the header holds no
+    config."""
+    return cls(**header["config"]) if "config" in header else default

@@ -12,13 +12,27 @@ its shape.  A stacked recon leaf (StackedDCB, the recon head's out_w /
 out_b) maps to one reference key per entry and is split on axis 0: 1x1
 kernels (I, O) -> (O, I, 1, 1), the depthwise dc_dw_w (3, 3, I) ->
 (I, 1, 3, 3), biases as they are.
+
+The other way, dmci_params_to_jax / dmc_ht_params_to_jax /
+dmc_ld_params_to_jax turn a port state_dict into the flax tree (keys
+sorted at every level, as jax.tree.map leaves them, so that a tree the
+JAX package wrote comes back in its own order).  Each reference key is
+parsed back into its flax path (`_flax_path`: a DepthConvBlock's parts,
+SubpelConv2x, the strided conv, each model's numbered scopes, the bare
+conv scope of a plain conv), and the importer's map must give the key
+back from that path, or it raises; the HT recon head's per-frame keys
+are stacked back into their StackedDCB leaves.  load_native_into /
+save_native move a port model to and from a dcvc_tpu.params.v1 file
+(utils/checkpoint.py), its config in the header.
 """
 
 import numpy as np
 import torch
 
-from .keys import _stacked_leaf, key_fn_dmc_ht, key_fn_dmc_ld, \
-    key_fn_dmci
+from .checkpoint import PARAMS_V1, checkpoint_format, config_from_header, \
+    load_header, load_params, load_reference_into, save_params
+from .keys import _LD_SEQ_TOPS, _STACKED_SUB, _stacked_leaf, \
+    key_fn_dmc_ht, key_fn_dmc_ld, key_fn_dmci
 
 
 def _leaves(tree, path=()):
@@ -29,9 +43,17 @@ def _leaves(tree, path=()):
             yield path + (k,), v
 
 
+def _f32(arr):
+    """A flax leaf (numpy / jax array, or a tensor read from a params.v1
+    file, bfloat16 included) as a float32 numpy array."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().float().numpy()
+    return np.asarray(arr, np.float32)
+
+
 def _tensor(arr):
     """One flax leaf -> the port's tensor (conv kernels transposed)."""
-    arr = np.asarray(arr, np.float32)
+    arr = _f32(arr)
     if arr.ndim == 4:  # (kh, kw, I, O) -> (O, I, kh, kw)
         arr = arr.transpose(3, 2, 0, 1)
     return torch.from_numpy(arr.copy())
@@ -39,7 +61,7 @@ def _tensor(arr):
 
 def _split_stacked(name, arr):
     """A stacked leaf (S, ...) -> S per-entry tensors in torch layout."""
-    arr = np.asarray(arr, np.float32)
+    arr = _f32(arr)
     if name == "dc_dw_w":            # (S, 3, 3, I) -> (S, I, 1, 3, 3)
         arr = arr.transpose(0, 3, 1, 2)[:, :, None]
     elif arr.ndim == 3:              # (S, I, O) -> (S, O, I, 1, 1)
@@ -87,3 +109,244 @@ def stacked_dcb_params_from_jax(flax_params):
         for i, t in enumerate(_split_stacked(name, leaf)):
             state[f"{i}.{sub}.{kind}"] = t
     return state
+
+
+# ------------------------------------------------------------- the inverse
+
+_DCB_PARTS = {("dc", "0"): "dc_in", ("dc", "2"): "dc_dw",
+              ("dc", "3"): "dc_out", ("ffn", "0"): "ffn_in",
+              ("ffn", "2"): "ffn_out"}
+_STACKED_NAME = {v: k for k, v in _STACKED_SUB.items()}
+
+
+def _numbered_dmci(out, name, n):
+    if name == "conv":
+        return f"conv_{n}"
+    if name == "enc_2":
+        return "enc_2_down" if n == "6" else f"enc_2_{n}"
+    if name == "dec_1":
+        return "dec_1_up" if n == "0" else f"dec_1_{int(n) - 1}"
+    return None
+
+
+def _numbered_dmc_ht(out, name, n):
+    return f"{name}_{n}" if name in ("conv", "conv1", "conv2") else None
+
+
+def _numbered_dmc_ld(out, name, n):
+    if name == "conv" and out and out[-1] in _LD_SEQ_TOPS:
+        return f"layers_{n}"
+    return f"{name}_{n}" if name in ("conv", "conv1") else None
+
+
+def _flax_path(key, numbered):
+    """Reference key -> flax param path (tuple of str), the inverse of
+    keys._translate; numbered(out, name, n) names the flax scope of a
+    `name.n` pair that is not a DepthConvBlock part (None: not one)."""
+    segs = key.split(".")
+    leaf = {"weight": "kernel"}.get(segs[-1], segs[-1])
+    segs = segs[:-1]
+    out, i = [], 0
+    while i < len(segs):
+        s = segs[i]
+        nxt = segs[i + 1] if i + 1 < len(segs) else None
+        if (s, nxt) in _DCB_PARTS:
+            out += [_DCB_PARTS[(s, nxt)], "conv"]
+            i += 2
+        elif s in ("adaptor", "down"):
+            out += [s, "conv"]
+            i += 1
+        elif s == "up" and segs[i + 1:i + 3] == ["conv", "0"]:
+            out += ["up", "conv"]
+            i += 3
+        elif nxt is not None and nxt.isdigit() and \
+                numbered(out, s, nxt) is not None:
+            out.append(numbered(out, s, nxt))
+            i += 2
+        else:
+            out.append(s)
+            i += 1
+    if leaf in ("kernel", "bias") and (not out or out[-1] != "conv"):
+        out.append("conv")       # a plain conv's own scope
+    return tuple(out) + (leaf,)
+
+
+def _flax_leaf(t):
+    """The port's tensor -> its flax leaf (conv kernels (O, I, kh, kw) ->
+    (kh, kw, I, O)), in its own dtype, on the CPU."""
+    t = t.detach().cpu()
+    if t.dim() == 4:
+        t = t.permute(2, 3, 1, 0)
+    return t.contiguous()
+
+
+def _stack_leaf(name, tensors):
+    """The inverse of _split_stacked: S per-entry tensors -> one stacked
+    leaf."""
+    t = torch.stack([x.detach().cpu() for x in tensors])
+    if name == "dc_dw_w":            # (S, I, 1, 3, 3) -> (S, 3, 3, I)
+        t = t[:, :, 0].permute(0, 2, 3, 1)
+    elif t.dim() == 5:               # (S, O, I, 1, 1) -> (S, I, O)
+        t = t[..., 0, 0].transpose(1, 2)
+    return t.contiguous()
+
+
+def _nest(items):
+    """{path: leaf} -> nested dicts, keys sorted at every level."""
+    tree = {}
+    for path, leaf in items.items():
+        node = tree
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = leaf
+
+    def ordered(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: ordered(node[k]) for k in sorted(node)}
+    return ordered(tree)
+
+
+def _to_jax(state, numbered, key_fn, rename=None):
+    """state_dict -> flax tree for a model without stacked leaves; each
+    path checked against the importer's key map.  rename(key): the key
+    to parse, where the importer's map adds a scope of its own."""
+    items = {}
+    for key, t in state.items():
+        path = _flax_path(rename(key) if rename else key, numbered)
+        if key_fn(path) != key:
+            raise KeyError(f"{key}: no flax path maps to it (tried "
+                           f"{'/'.join(path)})")
+        items[path] = _flax_leaf(t)
+    return _nest(items)
+
+
+def dmci_params_to_jax(state):
+    """The state_dict of a port DMCI (or of one of its blocks) -> the
+    flax DMCI params, the inverse of dmci_params_from_jax."""
+    return _to_jax(state, _numbered_dmci, key_fn_dmci)
+
+
+_LD_TPE = "temporal_prior_encoder.conv."
+
+
+def dmc_ld_params_to_jax(state):
+    """The state_dict of a port DMCLD -> the flax DMCLD params (both
+    adaptor branches), the inverse of dmc_ld_params_from_jax."""
+    def rename(key):
+        # the reference wraps the temporal prior encoder's RBWS2 in `conv`
+        if key.startswith(_LD_TPE):
+            return "temporal_prior_encoder." + key[len(_LD_TPE):]
+        return key
+    return _to_jax(state, _numbered_dmc_ld, key_fn_dmc_ld, rename)
+
+
+def dmc_ht_params_to_jax(state, hts=True):
+    """The state_dict of a port DMCHT -> the flax DMCHT params (both
+    adaptor branches), the inverse of dmc_ht_params_from_jax; hts=False
+    for an HTL model.  The recon head's per-frame keys (`recon_head.
+    conv1.{i}.{j}...` trunk, `conv2` / HTL `conv` heads, the heads' last
+    1x1 as out_w / out_b) are stacked over i."""
+    coll = "conv2" if hts else "conv"
+    items, stacked = {}, {}
+    for key, t in state.items():
+        segs = key.split(".")
+        if segs[0] != "recon_head":
+            path = _flax_path(key, _numbered_dmc_ht)
+            if key_fn_dmc_ht(path, hts=hts) != key:
+                raise KeyError(f"{key}: no flax path maps to it (tried "
+                               f"{'/'.join(path)})")
+            items[path] = _flax_leaf(t)
+            continue
+        trunk = hts and segs[1] == "conv1"
+        if segs[1] not in ("conv1", coll) or (segs[1] == "conv1"
+                                              and not hts):
+            raise KeyError(f"{key}: not a recon head key of "
+                           f"{'HTS' if hts else 'HTL'}")
+        i, j, rest = int(segs[2]), segs[3], segs[4:]
+        suffix = {"weight": "w", "bias": "b"}[rest[-1]]
+        if len(rest) == 1:               # the head's last 1x1
+            path = ("recon_head", f"out_{suffix}")
+        else:
+            name = _STACKED_NAME[".".join(rest[:-1])]
+            path = ("recon_head", f"{'trunk' if trunk else 'heads'}_{j}",
+                    f"{name}_{suffix}")
+        stacked.setdefault(path, {})[i] = (key, t)
+    frame_delay = 1 + max((i for p, e in stacked.items()
+                           if "trunk" not in p[1] for i in e), default=-1)
+    for path, entries in stacked.items():
+        keys = key_fn_dmc_ht(path, frame_delay, hts)
+        got = [entries[i][0] if i in entries else None
+               for i in range(len(keys))]
+        if got != keys or len(entries) != len(keys):
+            raise KeyError(f"recon head leaf {'/'.join(path)}: keys {got}, "
+                           f"expected {keys}")
+        items[path] = _stack_leaf(path[-1], [entries[i][1]
+                                             for i in range(len(keys))])
+    return _nest(items)
+
+
+def _converters(model):
+    """(flax tree -> state_dict, state_dict -> flax tree) of a port
+    model."""
+    from ..models.dmc_ht import DMCHT
+    from ..models.dmc_ld import DMCLD
+    from ..models.dmci import DMCI
+    if isinstance(model, DMCI):
+        return dmci_params_from_jax, dmci_params_to_jax
+    if isinstance(model, DMCLD):
+        return dmc_ld_params_from_jax, dmc_ld_params_to_jax
+    if isinstance(model, DMCHT):
+        hts = model.cfg.is_hts
+        return (lambda tree: dmc_ht_params_from_jax(tree, hts),
+                lambda state: dmc_ht_params_to_jax(state, hts))
+    raise TypeError(f"no flax tree for {type(model).__name__}")
+
+
+def load_native_into(model, path):
+    """Fill `model` (a port DMCI, DMCHT or DMCLD at the file's config:
+    config_from_header of its header) from the dcvc_tpu.params.v1 file at
+    `path`.  Raises KeyError on a parameter the file lacks or one the
+    model does not use; load_state_dict raises on a shape that differs.
+    Returns the model."""
+    tree, _ = load_params(path)
+    state = _converters(model)[0](tree)
+    want = set(model.state_dict())
+    missing = sorted(want - set(state))
+    unused = sorted(set(state) - want)
+    if missing or unused:
+        raise KeyError(f"{path}: keys missing {missing[:5]} "
+                       f"({len(missing)}), unused {unused[:5]} "
+                       f"({len(unused)})")
+    model.load_state_dict(state)
+    return model
+
+
+def save_native(model, path, cfg=None):
+    """`model` as a dcvc_tpu.params.v1 file: its flax tree (in the
+    parameters' own dtype) and `cfg` (the model's when None) in the
+    header, which the JAX package's load_params and its CLIs read."""
+    tree = _converters(model)[1](model.state_dict())
+    save_params(path, tree, model.cfg if cfg is None else cfg)
+
+
+def is_native(path):
+    """True for a dcvc_tpu.params.v1 file ('random' is none)."""
+    return path != "random" and checkpoint_format(path) == PARAMS_V1
+
+
+def native_config(path, cls, default):
+    """The config of a model file: cls(**the header's config) for a
+    dcvc_tpu.params.v1 file that holds one, else `default`."""
+    if not is_native(path):
+        return default
+    return config_from_header(cls, load_header(path), default)
+
+
+def load_into(model, path):
+    """`model` filled from a dcvc_tpu.params.v1 file (load_native_into)
+    or a reference .pth.tar (load_reference_into), as the file's header
+    says."""
+    if is_native(path):
+        return load_native_into(model, path)
+    return load_reference_into(model, path)

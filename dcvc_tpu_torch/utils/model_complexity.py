@@ -1,0 +1,69 @@
+"""Model complexity accounting (counterpart of dcvc_tpu/utils/
+model_complexity.py, the role of the reference EVC model_complexity.py
+MACs counter).
+
+count_macs runs fn(*args) under torch.utils.flop_counter.FlopCounterMode
+and returns its FLOPs / 2.  FlopCounterMode counts only the operators it
+has formulas for: matrix products and convolutions (forward and, if the
+call runs one, backward).  The JAX package reads XLA's cost analysis,
+which counts elementwise work (activations, adds, the rounding) as well,
+so its numbers are larger for the same model; the two are not converted
+into each other.
+"""
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..models.common import draw_noise
+from ..models.dmci import DMCI
+
+
+def count_macs(fn, *args):
+    """Multiply-accumulates of fn(*args): FlopCounterMode's FLOPs / 2."""
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return counter.get_total_flops() // 2
+
+
+def _inputs(model, h, w, device):
+    """A training forward's inputs at (h, w): the frame (a chunk of
+    frame_delay frames for a video model, a later chunk: the previous
+    feature and memory given), qp 0 and its noise."""
+    cfg = model.cfg
+    noise = draw_noise(cfg, 1, h, w, torch.Generator().manual_seed(0),
+                       device)
+    if isinstance(model, DMCI):
+        return (torch.zeros(1, h, w, 3, device=device), 0, noise)
+    zeros = torch.zeros
+    return (zeros(1, h, w, 3 * cfg.frame_delay, device=device),
+            zeros(1, h // 8, w // 8, cfg.ch_d, device=device),
+            zeros(1, h // 8, w // 8, cfg.ch_m, device=device), 0, noise)
+
+
+def model_macs_per_pixel(model, h=256, w=256):
+    """kMACs per pixel of the training forward of a port DMCI, DMCHT or
+    DMCLD (float32) at (h, w), rounded up to multiples of 64 as the
+    training forward needs; per pixel of each of its frames (a video
+    chunk codes frame_delay of them)."""
+    h, w = -(-h // 64) * 64, -(-w // 64) * 64
+    device = next(model.parameters()).device
+    args = _inputs(model, h, w, device)
+    # no autograd graph; FlopCounterMode's module hooks refuse no_grad
+    wants = [p.requires_grad for p in model.parameters()]
+    model.requires_grad_(False)
+    try:
+        macs = count_macs(model, *args)
+    finally:
+        for p, want in zip(model.parameters(), wants):
+            p.requires_grad_(want)
+    frames = 1 if isinstance(model, DMCI) else model.cfg.frame_delay
+    return macs / (h * w * frames) / 1000.0
+
+
+def summarize(model, resolutions=((256, 256), (1080, 1920))):
+    """Human-readable complexity summary across resolutions."""
+    lines = []
+    for h, w in resolutions:
+        kmacs = model_macs_per_pixel(model, h, w)
+        lines.append(f"{h}x{w}: {kmacs:.1f} kMACs/pixel")
+    return "\n".join(lines)

@@ -17,7 +17,8 @@ colour transforms, harness and CLI against dcvc_tpu's, on the CPU.
   lifted by 2, as in tests/test_torch_dmc_ld.py, so that y is coded.
 - CLI: video_main.main(argv) on the CPU with the TINY models writes the
   nested {class -> seq -> rate} JSON with the JAX CLI's keys;
-  --worker 2 and --device cuda without a card raise.
+  --device cuda without a card raises, with --worker 2 before any worker
+  starts (tests/test_torch_eval_tools.py holds --worker 2 to --worker 1).
 """
 
 import io
@@ -275,10 +276,12 @@ def test_cli_writes_the_jax_schema(codecs, data, tmp_path):
 
 
 def test_cli_refuses_workers_and_a_missing_card(data, tmp_path):
-    with pytest.raises(ValueError, match="worker"):
-        video_main.main(_argv(data, tmp_path, "--worker", "2"))
+    argv = _argv(data, tmp_path)[:-2]
+    args = video_main.parse_args(argv)
+    assert args.device == "cuda"
     if not torch.cuda.is_available():
-        args = video_main.parse_args(_argv(data, tmp_path)[:-2])
-        assert args.device == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             video_main.build_codecs(args)
+        # a worker pool on a missing card is refused before it spawns
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            video_main.main(argv + ["--worker", "2"])

@@ -1,9 +1,10 @@
 """The port's trainers end to end on the CPU: `python3 -m
 dcvc_tpu_torch.train.image_main` / `video_main` (their main(argv)) at
 --model_size tiny, two steps on a synthetic folder of PNG files this test
-writes: each writes a status file and a final ckpt.pth.tar; a second run
-resumes from the status; the .pth.tar loads into DMCICodec / DMCLDCodec /
-DMCHTCodec, whose encode -> decode is bit-exact.  With --device cuda and
+writes: each writes a status file and a final ckpt.pth.tar and ckpt.bin
+(dcvc_tpu.params.v1, the same weights); a second run resumes from the
+status; the .pth.tar loads into DMCICodec / DMCLDCodec / DMCHTCodec,
+whose encode -> decode is bit-exact.  With --device cuda and
 no card both raise.
 """
 
@@ -22,6 +23,7 @@ from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec, DMCLDCodec
 from dcvc_tpu_torch.train import image_main, video_main
 from dcvc_tpu_torch.utils.checkpoint import load_latest_status, \
     load_reference_into, save_reference
+from dcvc_tpu_torch.utils.jax_bridge import load_native_into
 from test_torch_datasets import image_folder, video_folder
 
 COMMON = ["--device", "cpu", "--model_size", "tiny", "--batch_size", "2",
@@ -57,18 +59,24 @@ def test_image_main_trains_resumes_and_codes(tmp_path):
     out = str(tmp_path / "out")
     args = COMMON + ["--train_dataset", data, "--save_dir", out]
     model = image_main.main(args + ["-e", "1"])
-    assert sorted(os.listdir(out)) == ["ckpt.pth.tar", "status_epo0.pth"]
+    assert sorted(os.listdir(out)) == ["ckpt.bin", "ckpt.pth.tar",
+                                       "status_epo0.pth"]
     status = load_latest_status(out)
     assert (status["epoch"], status["step"]) == (0, 2)
     assert all(torch.isfinite(p).all() for p in model.parameters())
     # a second run resumes after epoch 0 and runs epoch 1 only
     model = image_main.main(args + ["-e", "2"])
-    assert sorted(os.listdir(out)) == ["ckpt.pth.tar", "status_epo1.pth"]
+    assert sorted(os.listdir(out)) == ["ckpt.bin", "ckpt.pth.tar",
+                                       "status_epo1.pth"]
     status = load_latest_status(out)
     assert (status["epoch"], status["step"]) == (1, 4)
     assert all(int(s["step"]) == 4 for s in status["optimizer"]["state"]
                .values())
     for k, v in model.state_dict().items():
+        assert torch.equal(v, status["model"][k]), k
+    native = load_native_into(DMCI(TINY_CONFIG), os.path.join(out,
+                                                              "ckpt.bin"))
+    for k, v in native.state_dict().items():
         assert torch.equal(v, status["model"][k]), k
     intra_round_trip(os.path.join(out, "ckpt.pth.tar"))
 
@@ -105,9 +113,11 @@ def test_video_main_trains_resumes_and_codes(tmp_path, structure):
                      "--model_path_i", str(tmp_path / "i.pth.tar"),
                      "--pretrain_path", str(tmp_path / "p.pth.tar")]
     video_main.main(args + ["-e", "1"])
-    assert sorted(os.listdir(out)) == ["ckpt.pth.tar", "status_epo0.pth"]
+    assert sorted(os.listdir(out)) == ["ckpt.bin", "ckpt.pth.tar",
+                                       "status_epo0.pth"]
     video_main.main(args + ["-e", "6"])
-    assert sorted(os.listdir(out)) == ["ckpt.pth.tar", "status_epo5.pth"]
+    assert sorted(os.listdir(out)) == ["ckpt.bin", "ckpt.pth.tar",
+                                       "status_epo5.pth"]
     status = load_latest_status(out)
     assert (status["epoch"], status["step"]) == (5, 12)
     # no step was skipped: AdamW took all 12
@@ -116,8 +126,10 @@ def test_video_main_trains_resumes_and_codes(tmp_path, structure):
 
     model = load_reference_into(model_cls(cfg),
                                 os.path.join(out, "ckpt.pth.tar"))
+    native = load_native_into(model_cls(cfg), os.path.join(out, "ckpt.bin"))
     for k, v in model.state_dict().items():
         assert torch.equal(v, status["model"][k]), k
+        assert torch.equal(v, native.state_dict()[k]), k
     assert any(not torch.equal(v, start[k])
                for k, v in model.state_dict().items())
     codec = codec_cls(model.state_dict(), cfg=cfg, dtype=torch.float32,
