@@ -14,8 +14,9 @@ version at the edge-case shapes of tests/test_fused_dcb.py, and K2 against
 its plain version and the host decoder on the fixtures of
 tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
 lanes, escapes, a count below the lane count and of 0, z -> y -> y
-threading).  Checks the stages of the four full-width models (DMCI, HTS,
-HTL, LD) in bf16 on the card against float32 on the CPU, and one TINY
+threading).  Checks the stages of the six full-width models (DMCI, HTS,
+HTL, LD, DCVC-RT's intra and P models) in bf16 on the card against
+float32 on the CPU, and one TINY
 DMCI and one TINY HTS 2-chunk training step on the card against the same
 steps on the CPU (float32, TF32 off).  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
@@ -32,6 +33,16 @@ every K2 launch's inputs:
     (memory reset on the fifth) and 2 at 720p, decoded both ways; LD's K1
     launches per call and its shapes are derived from the model on the
     meta device (perf_probe.ld_stage_launches) and must match the card's;
+  - DCVC-RT: RTIntraCodec at DMCIRTConfig() (the 368-channel trunk: K1's
+    tail tiles) and DMCRTCodec at RT_CONFIG (init_scale 0.4), bf16, skip
+    0.15, frames in [0, 1], the lanes pinned to 2 (force_ec): an intra
+    frame (host decode) then 7 P frames at 1080p on shift_qp's banks
+    (32, 40, 36) and an intra frame and 2 P frames at 720p (the odd 45x80
+    grid), each P stream decoded by the host coder and by K2 (3 calls per
+    frame); RT's K1 launches and shapes are derived from the models on
+    the meta device (perf_probe.rt_stage_launches: 42 / 32 per intra
+    encode / decode, none in the P model, whose two-way DCBs run plain
+    PyTorch as in the JAX package) and must match the card's;
   - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
     float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
     stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
@@ -51,7 +62,9 @@ every K2 launch's inputs:
     on a seeded 1080p YUV420 file written into a temporary directory of
     the checkout (LD, HTS, and LD at two rates), then one point again
     with fresh codecs (the same .bin) and with device_ec (the same bits
-    and PSNRs per frame).
+    and PSNRs per frame); and dcvc_tpu_torch.eval.family_main --model rt
+    on a seeded 1080p YUV420 file of 6 frames (gop 4, 2 rates), twice with
+    fresh codecs: every frame bit-exact, the same .bin bytes.
   - the evaluation surface, each part timed: params.v1 (the float32
     DMCI and HTS models written by save_native, read by load_native_into,
     their codecs coding a 1080p frame and a chunk to the in-memory
@@ -109,7 +122,8 @@ import time
 import numpy as np
 import torch
 
-from dcvc_tpu_torch.eval import bd_gate, image_main, video_main
+from dcvc_tpu_torch.eval import bd_gate, family_main, image_main, \
+    video_main
 from dcvc_tpu_torch.eval.harness import run_one_point_with_stream
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
@@ -119,14 +133,18 @@ from dcvc_tpu_torch.models.dmc_ht import DMCHT, DMCHTConfig, HTL_CONFIG, \
 from dcvc_tpu_torch.models.dmc_ld import DMCLD, LD_CONFIG
 from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig, TINY_CONFIG
 from dcvc_tpu_torch.kernels._build import library_path
+from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, INDEX_MAP, RT_CONFIG, \
+    shift_qp
+from dcvc_tpu_torch.legacy.rt_intra import DMCIRT, DMCIRTConfig
 from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
     k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
     k2_latency_bound_ms, ld_stage_launches, make_sequence, \
     max_sm_clock_mhz, nvidia_smi, profile_launches, run_k2_case, \
-    sass_counts, smooth_frame, TRAIN_CELLS, TRAIN_INIT_SCALE, \
-    damped_model, train_setup
+    rt_stage_launches, sass_counts, smooth_frame, TRAIN_CELLS, \
+    TRAIN_INIT_SCALE, damped_model, train_setup
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
+from dcvc_tpu_torch.runtime.rt_image_codec import RTIntraCodec
 from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec, DMCLDCodec
 from dcvc_tpu_torch.train import image_main as train_image_main
 from dcvc_tpu_torch.train import video_main as train_video_main
@@ -208,6 +226,18 @@ VIDEO = {
                      (720, 1280, 32, 7, (False, False))],
            "k2": 2},
 }
+# DCVC-RT (RGB in [0, 1]): its intra codec at DMCIRTConfig() (the
+# 368-channel trunk) and its P codec at RT_CONFIG (init_scale 0.4, as
+# dcvc_tpu's family runner draws it).  Cases: (height, width, qp, seed, P
+# frames); the P frames code shift_qp(qp, INDEX_MAP[i % 8]) (the banks 32,
+# 40 and 36 at qp 32), the lanes pinned to 2 (force_ec, as the RT SPS pins
+# them at >= 1280x720); a P device decode launches K2 for z and each of
+# the 2 checkerboard steps.  The family entry: family_main on a seeded
+# 1080p YUV420 file of RT_FAMILY_FRAMES frames, gop 4, 2 rates.
+RT_CASES = [(1080, 1920, 32, 13, 7), (720, 1280, 32, 14, 2)]
+RT_FORCE_EC = 2
+RT_K2_LAUNCHES = 3
+RT_FAMILY_FRAMES = 6
 # the evaluation entry's phase: a seeded 1080p YUV420 file of CLI_FRAMES
 # frames, one intra frame then P frames (intra_period -1)
 CLI_FRAMES = 10
@@ -459,46 +489,53 @@ def rel_rms(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-12)).item()
 
 
-def stage_outputs(model, x, qp, z_int8, ctx, y_hat):
+def stage_outputs(model, x, qp, z_int8, ctx, y_hat, q_dec=None):
     """analysis, prior0, prior_step(1) and synthesis of `model` on a 64x64
-    input; the shared inputs (z, ctx, y_hat) are the same for every model,
-    moved to its device and type."""
+    input; the shared inputs (z, ctx, y_hat and, for DCVC-RT's intra
+    model, the q_dec map its synthesis takes) are the same for every
+    model, moved to its device and type."""
     dev, dt = model.q_scale_enc.device, model.dtype
+    rt = q_dec is not None
     with torch.inference_mode():
         y, _ = model.analysis(x.to(dev, dt), qp)
-        scales0, means0, ctx0 = model.prior0(z_int8.to(dev), 4, 4)
+        prior = model.prior0(z_int8.to(dev), 4, 4)
         scales1, means1 = model.prior_step(ctx.to(dev, dt), y_hat.to(dev), 1)
-        x_hat = model.synthesis(y_hat.to(dev), qp, 64, 64)
-    return {"analysis y": y, "prior0 scales": scales0,
-            "prior0 means": means0, "prior0 ctx": ctx0,
-            "prior_step scales": scales1, "prior_step means": means1,
-            "synthesis x_hat": x_hat}
+        x_hat = model.synthesis(y_hat.to(dev), *(
+            (q_dec.to(dev),) if rt else ()), qp, 64, 64)
+    out = {"analysis y": y, "prior0 scales": prior[0],
+           "prior0 means": prior[1], "prior0 ctx": prior[2],
+           "prior_step scales": scales1, "prior_step means": means1,
+           "synthesis x_hat": x_hat}
+    if rt:
+        out["prior0 q_enc"], out["prior0 q_dec"] = prior[3:]
+    return out
 
 
-def phase_stages(codec):
+def phase_stages(codec, name="DMCI"):
     """The full-width model's stages in bf16 on the card (every DCB through
     K1) against the same bf16-valued weights in float32 on the CPU (plain
     DCB).  A stage passes if its relative RMS error is within
     STAGE_REL_TOL, or within twice that of the plain version in bf16 (on
     the CPU): with random weights the decoder's activations grow through
-    its 14 residual blocks, and bf16 error grows with them."""
+    its 14 residual blocks, and bf16 error grows with them.  codec: a
+    DMCICodec or an RTIntraCodec (frames in [0, 1])."""
     gpu = codec.model
     state = {k: v.float().cpu() for k, v in gpu.state_dict().items()}
-    cpu32, cpu16 = DMCI(codec.cfg), DMCI(codec.cfg)
+    cpu32, cpu16 = codec.MODEL_CLS(codec.cfg), codec.MODEL_CLS(codec.cfg)
     cpu32.load_state_dict(state)
     cpu16.load_state_dict(state)
     cpu16.to(torch.bfloat16)
+    rt = isinstance(codec, RTIntraCodec)
     gen = torch.Generator().manual_seed(1)
-    x = torch.rand(1, 64, 64, 3, generator=gen) - 0.5
+    x = torch.rand(1, 64, 64, 3, generator=gen) - (0.0 if rt else 0.5)
     qp = STAGE_QP
     with torch.inference_mode():
         y, z_int8 = cpu32.analysis(x, qp)
-        ctx = cpu32.prior0(z_int8, 4, 4)[2]
+        prior = cpu32.prior0(z_int8, 4, 4)
     y_hat = torch.round(y)
-    ref = stage_outputs(cpu32, x, qp, z_int8, ctx, y_hat)
-    got = stage_outputs(gpu, x, qp, z_int8, ctx, y_hat)
-    plain = stage_outputs(cpu16, x, qp, z_int8, ctx, y_hat)
-    compare_stages("DMCI", ref, got, plain)
+    args = (x, qp, z_int8, prior[2], y_hat) + ((prior[4],) if rt else ())
+    compare_stages(name, stage_outputs(cpu32, *args),
+                   stage_outputs(gpu, *args), stage_outputs(cpu16, *args))
 
 
 def compare_stages(name, ref, got, plain):
@@ -565,12 +602,16 @@ def phase_stages_video(name, codec):
     cpu16.to(torch.bfloat16)
     c = codec.cfg
     gen = torch.Generator().manual_seed(2)
-    x = torch.rand(1, 64, 64, 3 * c.frame_delay, generator=gen) - 0.5
-    # an intra frame's unshuffled pixels (HT: ch_src_intra, LD: ch_src)
-    ch_ref = c.ch_src_intra if hasattr(c, "ch_src_intra") else c.ch_src
-    ref = torch.rand(1, 8, 8, ch_ref, generator=gen) - 0.5
+    # DCVC-RT's frames lie in [0, 1], the UF models' in [-0.5, 0.5]
+    lo = 0.0 if name == "RT" else -0.5
+    x = torch.rand(1, 64, 64, 3 * c.frame_delay, generator=gen) + lo
+    # an intra frame's unshuffled pixels (HT: ch_src_intra, LD: ch_src, RT:
+    # ch_src_d); RT's memory is its adapted feature (ch_d)
+    ch_ref = next(getattr(c, k) for k in ("ch_src_intra", "ch_src",
+                                          "ch_src_d") if hasattr(c, k))
+    ref = torch.rand(1, 8, 8, ch_ref, generator=gen) + lo
     feature = torch.randn(1, 8, 8, c.ch_d, generator=gen)
-    memory = torch.randn(1, 8, 8, c.ch_m, generator=gen)
+    memory = torch.randn(1, 8, 8, getattr(c, "ch_m", c.ch_d), generator=gen)
     qp = STAGE_QP
     with torch.inference_mode():
         y, z_int8 = cpu32.analysis(x, feature, qp)
@@ -836,15 +877,259 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log, cases=None):
     return tuple(derived)
 
 
-def write_cli_inputs(root, dev):
-    """A seeded YUV420 file of CLI_FRAMES CLI_W x CLI_H frames (the
-    drifting picture of make_sequence, read as YCbCr, chroma 2x2-averaged)
-    and a test_config naming it, under `root`.  Returns (config path,
-    sequence name)."""
+def rt_spec():
+    """DCVC-RT's K1 launches per call, from the models on the meta device
+    (perf_probe.rt_stage_launches, at each RT_CASES size): {"encode",
+    "decode"} of the intra codec and the P codec's stage counts
+    {"p.<stage>"}; and the distinct K1 shapes, which the card's launch log
+    must repeat."""
+    shapes, counts = set(), set()
+    for (h, w, *_) in RT_CASES:
+        stages = rt_stage_launches(DMCIRTConfig(), RT_CONFIG, h, w)
+        n = {k: sum(v.values()) for k, v in stages.items()}
+        counts.add(tuple(sorted(n.items())))
+        for v in stages.values():
+            shapes.update(v)
+    if len(counts) != 1:
+        raise AssertionError(f"RT launch counts differ by size: {counts}")
+    decode = n["prior0"] + sum(n[f"prior_step {k}"] for k in (1, 2, 3)) \
+        + n["synthesis"]
+    spec = {"encode": n["analysis"] + decode, "decode": decode,
+            **{k: v for k, v in n.items() if k.startswith("p.")}}
+    log(f"RT K1 launches from the models: intra per stage "
+        f"{ {k: v for k, v in n.items() if not k.startswith('p.')} }; "
+        f"encode {spec['encode']}, decode {spec['decode']}; P codec per "
+        f"stage { {k: v for k, v in n.items() if k.startswith('p.')} } (its "
+        f"DCBs are the two-way kind, not K1's); {len(shapes)} distinct "
+        f"shapes")
+    return spec, shapes
+
+
+def rt_p_launches(spec, first, encode, recon):
+    """(S = 1, stacked, K2) launches of one RT P frame's encode or
+    (host-coder) decode; first: right after the intra frame."""
+    n = spec["p.adaptor_i" if first else "p.adaptor_m"] + spec["p.prior0"] \
+        + spec["p.prior_step"] + spec["p.synthesis_feature"]
+    n += spec["p.analysis"] if encode else 0
+    n += spec["p.recon_frames"] if recon else 0
+    return n, 0, 0
+
+
+def phase_rt(intra, pcodec, spec, dev, launch_log, k2_log):
+    """The main path's DCVC-RT part: at each RT_CASES size an intra frame
+    (RTIntraCodec, cold then warm: the same stream; host decode bit-exact,
+    in [0, 1]), then P frames (DMCRTCodec, seeded by the intra frame's
+    reconstruction) at shift_qp's banks: encode pass 1 (recon=True) against
+    a host-coder decode and a device decode (K2, every call
+    sync-checked), each from a fresh DPB: every frame's x_hat and the
+    final DPB bit-exact; encode pass 2 (recon=False, warm): the same
+    streams.  Every stream's lanes are pinned to RT_FORCE_EC.  Prints the
+    warm ms per frame.  Returns the (S = 1, stacked, K2) launches derived
+    for it, each call's checked."""
+    derived = [0, 0, 0]
+
+    def tally(tag, got, want):
+        expect(tag, got, want)
+        for i in range(3):
+            derived[i] += want[i]
+
+    intra.force_ec = pcodec.force_ec = RT_FORCE_EC
+    try:
+        for (h, w, qp, seed, n_p) in RT_CASES:
+            frames = [f + 0.5 for f in make_sequence(h, w, n_p + 1, seed,
+                                                     dev)]
+            label = f"RT {w}x{h} qp={qp}"
+            runs = []
+            for run in ("cold", "warm"):
+                res, enc_ms, *e = counted(
+                    launch_log, f"{label} intra encode {run}",
+                    lambda: intra.compress(frames[0], qp))
+                x_dec, dec_ms, *d = counted(
+                    launch_log, f"{label} intra decode {run}",
+                    lambda: intra.decompress(bytes(res["bit_stream"]), qp, h,
+                                             w, res["ec_parallel"])["x_hat"])
+                tally(f"{label} intra encode", tuple(e),
+                      (spec["encode"], 0, 0))
+                tally(f"{label} intra decode", tuple(d),
+                      (spec["decode"], 0, 0))
+                if x_dec.shape != (1, h, w, 3) or not torch.equal(
+                        res["x_hat"], x_dec) or res["ec_parallel"] != \
+                        RT_FORCE_EC:
+                    raise AssertionError(f"{label} intra: decoder x_hat "
+                                         f"differs from the encoder's, or "
+                                         f"ec_parallel "
+                                         f"{res['ec_parallel']}")
+                if not (bool(torch.isfinite(x_dec).all())
+                        and 0.0 <= float(x_dec.min())
+                        and float(x_dec.max()) <= 1.0):
+                    raise AssertionError(f"{label} intra: reconstruction "
+                                         f"not finite or not in [0, 1]")
+                runs.append((res, enc_ms, dec_ms))
+            if runs[0][0]["bit_stream"] != runs[1][0]["bit_stream"]:
+                raise AssertionError(f"{label} intra: two encodes gave "
+                                     f"different streams")
+            res, i_enc_ms, i_dec_ms = runs[1]
+            intra_hat = res["x_hat"]
+            qps = [shift_qp(qp, INDEX_MAP[i % len(INDEX_MAP)])
+                   for i in range(1, n_p + 1)]
+            tags = [f"{label} P frame {i} qp={q}" for i, q in
+                    enumerate(qps, 1)]
+
+            def seeded():
+                pcodec.clear_dpb()
+                pcodec.add_ref_feature_from_frame(intra_hat)
+
+            def encode(recon):
+                seeded()
+                kind = "encode (recon)" if recon else "encode"
+                out = [counted(launch_log, f"{tag} {kind}",
+                               lambda: pcodec.compress(x, q, recon=recon))
+                       for tag, x, q in zip(tags, frames[1:], qps)]
+                return out, pcodec.ref_feature
+
+            enc1, dpb1 = encode(True)
+            enc2, dpb2 = encode(False)
+            seeded()
+            dec = [counted(launch_log, f"{tag} decode",
+                           lambda: pcodec.decompress(
+                               bytes(r[0]["bit_stream"]), q, h, w,
+                               r[0]["ec_parallel"])["x_hat"])
+                   for tag, r, q in zip(tags, enc1, qps)]
+            dpb_host = pcodec.ref_feature
+            seeded()
+            ddec = [device_decode(pcodec, k2_log, f"{tag} device decode",
+                                  launch_log, bytes(r[0]["bit_stream"]),
+                                  r[0]["ec_parallel"], q, h, w,
+                                  r[0]["ec_parallel"])
+                    for tag, r, q in zip(tags, enc1, qps)]
+            dpb_dev = pcodec.ref_feature
+            ms = collections.defaultdict(list)
+            for u, tag in enumerate(tags):
+                (r1, rec_ms, *e1), (r2, enc_ms, *e2) = enc1[u], enc2[u]
+                x_dec, dec_ms, *d = dec[u]
+                x_dev, dev_ms, *v = ddec[u]
+                if not (torch.equal(r1["x_hat"], x_dec)
+                        and torch.equal(x_dev, x_dec)):
+                    raise AssertionError(f"{tag}: the host or device "
+                                         f"decode's x_hat differs from the "
+                                         f"encoder's")
+                if x_dec.shape != (1, h, w, 3) or not bool(
+                        torch.isfinite(x_dec).all()):
+                    raise AssertionError(f"{tag}: x_hat "
+                                         f"{tuple(x_dec.shape)} or not "
+                                         f"finite")
+                if r1["bit_stream"] != r2["bit_stream"] or \
+                        r1["ec_parallel"] != RT_FORCE_EC:
+                    raise AssertionError(f"{tag}: two encodes gave "
+                                         f"different streams, or "
+                                         f"ec_parallel {r1['ec_parallel']}")
+                tally(f"{tag} encode (recon)", tuple(e1),
+                      rt_p_launches(spec, u == 0, True, True))
+                tally(f"{tag} encode", tuple(e2),
+                      rt_p_launches(spec, u == 0, True, False))
+                tally(f"{tag} decode", tuple(d),
+                      rt_p_launches(spec, u == 0, False, True))
+                s1, st, _ = rt_p_launches(spec, u == 0, False, True)
+                tally(f"{tag} device decode", tuple(v),
+                      (s1, st, RT_K2_LAUNCHES))
+                nbytes = len(r1["bit_stream"])
+                mse = torch.mean((x_dec - frames[u + 1]) ** 2).item()
+                log(f"{tag}: bytes={nbytes} bpp={8 * nbytes / (h * w)} "
+                    f"psnr={10 * np.log10(1.0 / mse)} "
+                    f"ec_parallel={r1['ec_parallel']} bit_exact=True warm "
+                    f"encode_ms={enc_ms} encode_recon_ms={rec_ms} "
+                    f"decode_ms={dec_ms} device_decode_ms={dev_ms}")
+                for k, t in (("encode", enc_ms), ("decode", dec_ms),
+                             ("device_decode", dev_ms)):
+                    ms[k].append(t)
+            if not all(torch.equal(dpb1, d) for d in (dpb2, dpb_host,
+                                                       dpb_dev)):
+                raise AssertionError(f"{label}: a final DPB differs "
+                                     f"(encoder, host decode, device "
+                                     f"decode)")
+            log(f"{label} warm ms per frame (host clock, synchronised): "
+                f"intra encode {i_enc_ms} decode {i_dec_ms}; P frames "
+                f"(mean of {n_p}) "
+                + " ".join(f"{k} {statistics.mean(v)}"
+                           for k, v in ms.items())
+                + f"; final DPB equal on the encoder, the host decode and "
+                f"the device decode {tuple(dpb1.shape)}")
+    finally:
+        intra.force_ec = pcodec.force_ec = None
+    return tuple(derived)
+
+
+def phase_rt_family(dev, launch_log, spec):
+    """The family entry on the card: family_main.main --model rt (full
+    widths, bf16, seeded random weights) on a seeded 1080p YUV420 file of
+    RT_FAMILY_FRAMES frames, gop 4, 2 rates, run twice with codecs built
+    anew: exit code 0 (every frame bit-exact), finite PSNRs, bpp > 0, and
+    the second run's .bin bytes and JSON numbers those of the first.
+    Returns the (S = 1, stacked, K2) launches derived for it."""
+    t0 = time.perf_counter()
+    root = scratch_dir("rt_family")
+    per_rate = 0
+    for i in range(RT_FAMILY_FRAMES):        # gop 4: I P P P I P
+        if i % 4 == 0:
+            per_rate += spec["encode"] + spec["decode"]
+            continue
+        for encode in (True, False):
+            per_rate += rt_p_launches(spec, i % 4 == 1, encode, True)[0]
+    want = (2 * per_rate, 0, 0)             # 2 rates
+    try:
+        cfg_path, seq = write_cli_inputs(root, dev, RT_FAMILY_FRAMES, 15, 4)
+        out = {}
+        for run in ("first", "again"):
+            argv = ["--model", "rt", "--test_config", cfg_path, "--gop", "4",
+                    "--rate_num", "2",
+                    "--stream_path", os.path.join(root, run),
+                    "--output_path", os.path.join(root, f"{run}.json")]
+            code, ms, *got = counted(launch_log, f"RT family_main {run}",
+                                     lambda: family_main.main(argv))
+            expect(f"RT family_main {run}", tuple(got), want)
+            with open(os.path.join(root, f"{run}.json")) as f:
+                result = json.load(f)["results"]
+            bins = {}
+            for name in sorted(os.listdir(os.path.join(root, run))):
+                with open(os.path.join(root, run, name), "rb") as f:
+                    bins[name] = f.read()
+            for rate, r in result["Smoke"][seq].items():
+                if code != 0 or not r["bitexact"] or r["frame_type"] != \
+                        [0, 1, 1, 1, 0, 1] or not np.isfinite(
+                            r["avg_psnr"]) or not r["avg_bpp"] > 0:
+                    raise AssertionError(f"RT family_main {run} {rate}: "
+                                         f"exit {code}, {r}")
+                if run == "first":
+                    log(f"RT family_main {rate}: q_index={r['q_index']} "
+                        f"bpp={r['avg_bpp']} psnr={r['avg_psnr']} (i "
+                        f"{r['avg_psnr_i']} p {r['avg_psnr_p']}) "
+                        f"avg_frame_encoding_ms="
+                        f"{1e3 * r['avg_frame_encoding_time']} "
+                        f"avg_frame_decoding_ms="
+                        f"{1e3 * r['avg_frame_decoding_time']}")
+            out[run] = (untimed(result), bins, ms)
+        if out["first"][:2] != out["again"][:2] or len(out["first"][1]) != 2:
+            raise AssertionError("RT family_main: the second run's .bin "
+                                 "files or numbers differ from the first's")
+        log(f"RT family_main: 2 runs ({out['first'][2]} and "
+            f"{out['again'][2]} ms with their codec builds), "
+            f"{len(out['first'][1])} .bin files byte-identical, numbers "
+            f"equal ({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(root)
+    return tuple(2 * n for n in want)       # 2 runs
+
+
+def write_cli_inputs(root, dev, frames=CLI_FRAMES, seed=8,
+                     intra_period=-1):
+    """A seeded YUV420 file of `frames` CLI_W x CLI_H frames (the drifting
+    picture of make_sequence, read as YCbCr, chroma 2x2-averaged) and a
+    test_config naming it, under `root`.  Returns (config path, sequence
+    name)."""
     seq = f"smoke_{CLI_W}x{CLI_H}_30.yuv"
     os.makedirs(os.path.join(root, "Smoke"))
     with open(os.path.join(root, "Smoke", seq), "wb") as f:
-        for frame in make_sequence(CLI_H, CLI_W, CLI_FRAMES, 8, dev):
+        for frame in make_sequence(CLI_H, CLI_W, frames, seed, dev):
             yuv = torch.round((frame[0] + 0.5) * 255)
             uv = yuv[..., 1:].reshape(CLI_H // 2, 2, CLI_W // 2, 2, 2).mean(
                 (1, 3)).round().permute(2, 0, 1)
@@ -853,7 +1138,8 @@ def write_cli_inputs(root, dev):
     cfg = {"root_path": root, "test_classes": {"Smoke": {
         "test": 1, "base_path": "Smoke", "src_type": "yuv420",
         "sequences": {seq: {"width": CLI_W, "height": CLI_H,
-                            "frames": CLI_FRAMES, "intra_period": -1}}}}}
+                            "frames": frames,
+                            "intra_period": intra_period}}}}}
     path = os.path.join(root, "test_config.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
@@ -1590,9 +1876,18 @@ def main():
         skip_thres=0.15, dtype=torch.bfloat16, device=dev)
         for name, spec in VIDEO.items()}
     ld_shapes = ld_spec(VIDEO["LD"])
+    rt_intra = RTIntraCodec.init_random(
+        torch.Generator().manual_seed(0), cfg=DMCIRTConfig(),
+        skip_thres=0.15, dtype=torch.bfloat16, device=dev)
+    rt_p = DMCRTCodec.init_random(
+        torch.Generator().manual_seed(1), cfg=RT_CONFIG, init_scale=0.4,
+        skip_thres=0.15, dtype=torch.bfloat16, device=dev)
+    rt, rt_shapes = rt_spec()
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
+    phase_stages(rt_intra, "RT intra")
+    phase_stages_video("RT", rt_p)
     phase_train_parity(dev)
 
     # the main path, one part at a time, each with the counts set to 0
@@ -1604,6 +1899,8 @@ def main():
                lambda name=name: phase_video(name, dmci, video[name], dev,
                                              launch_log, k2_log))
               for name in VIDEO]
+    parts += [("DCVC-RT", lambda: phase_rt(rt_intra, rt_p, rt, dev,
+                                           launch_log, k2_log))]
     parts += [("training", lambda: phase_train(dev)),
               ("trainers -> codecs",
                lambda: phase_trained_codecs(dev, launch_log, k2_log))]
@@ -1617,6 +1914,7 @@ def main():
         # parts whose K2 calls are counted, not replayed
         counted_only = [
             ("CLI", lambda: phase_cli(dev, launch_log)),
+            ("RT family", lambda: phase_rt_family(dev, launch_log, rt)),
             ("params.v1", lambda: phase_params_v1(dmci, video["HTS"], dev,
                                                   launch_log)),
             ("image CLI", lambda: phase_image_cli(dev, launch_log)),
@@ -1656,6 +1954,17 @@ def main():
     log(f"LD's {len(card_ld)} K1 shapes on the card are the ones derived "
         f"from the model on the meta device: "
         + "; ".join(sorted(map(str, card_ld))))
+    card_rt = set()
+    for label, counts in launch_log.calls:
+        if label.startswith("RT "):
+            card_rt.update(counts)
+    if card_rt != rt_shapes:
+        raise AssertionError(
+            f"RT's K1 shapes on the card {sorted(map(str, card_rt))} differ "
+            f"from the models' {sorted(map(str, rt_shapes))}")
+    log(f"RT's {len(card_rt)} K1 shapes on the card are the ones derived "
+        f"from the models on the meta device: "
+        + "; ".join(sorted(map(str, card_rt))))
 
     with torch.inference_mode():
         rows = phase_kernels(dev, launch_log, launches)

@@ -48,8 +48,18 @@
 // No atomics and a fixed summation order: the same input gives the same
 // bits on every run, which the codec's encoder/decoder contract needs.
 //
+// Channel counts are multiples of 16.  Where one has no 64-wide divisor
+// (368, the DCVC-RT intra trunk), the last column tile of a GEMM has a
+// tail: TMA reads the rows of B past N and the columns of A and B past K
+// as zeros (the maps' bounds), so the depth runs over ceil(K / 64) stages
+// and the tail's sums are zero or, in ffn_in, the next plane's; the
+// epilogue stores no column past N.  The dw launch's last channel block
+// likewise stages zeros past I and stores nothing there.  16 keeps every
+// row a multiple of 32 bytes: the 16-byte vectors of the epilogues and the
+// dw launch never straddle the end of a row.
+//
 // Plain C interface for ctypes; dcvc_fused_dcb returns the first CUDA
-// error.  Channel counts must be multiples of 64.
+// error.
 
 #include "hopper_gemm.cuh"
 
@@ -89,7 +99,7 @@ enum Kind { kAdaptor, kH, kDcOut, kFfnIn, kFfnOut };
 
 struct GemmParams {
   int M, N, K;          // rows per entry, output columns, depth
-  int n_tiles;          // output column tiles (N / bn_out)
+  int n_tiles;          // output column tiles (ceil(N / bn_out))
   int bn_out;           // output columns per block
   int stages;           // of the core's ring
   int b_step;           // B rows between a block's boxes (ffn_in: I)
@@ -105,7 +115,9 @@ struct GemmParams {
 
 // The epilogue of each launch, on the block's f32 tile of sums: the
 // consumer threads take 4 adjacent output columns at a time, row by row,
-// so that a warp reads and writes whole rows of global memory.
+// so that a warp reads and writes whole rows of global memory.  A tail
+// tile's columns past N (a multiple of 16, so a group of 4 is all in or
+// all out) are neither read nor stored.
 template <int KIND, int BM, int BN>
 struct Epilogue {
   const GemmParams& p;
@@ -123,6 +135,7 @@ struct Epilogue {
     for (int e = tid; e < rows * kVecs; e += nthreads) {
       const int r = e / kVecs, c = (e % kVecs) * 4;
       const int col = n0 + c;
+      if (col >= p.N) continue;
       const size_t o = (size_t)(m0 + r) * p.N + col;
       const float* t = tile + r * ld + c;
       float4 y;
@@ -166,7 +179,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& a,
   const int n0 = (blockIdx.x % p.n_tiles) * p.bn_out;
   t.b_row0 = n0;
   t.b_step = p.b_step;
-  t.nk = p.K / hgemm::kBK;
+  t.nk = (p.K + hgemm::kBK - 1) / hgemm::kBK;  // a K tail reads as zeros
   t.stages = p.stages;
   const Epilogue<KIND, BM, BN> epi{p, t.s, t.m0, n0};
   hgemm::gemm_core<BM, BN>(reinterpret_cast<uint64_t>(&a),
@@ -217,7 +230,9 @@ const void* gemm_kernel(int kind, int bm, int bn) {
 // A block: TH x TW pixels of one 64-channel chunk of one entry.  It stages
 // the (TH + 2) x (TW + 2) halo of h (zeros outside the image: the TPU
 // kernel's mask, the dw conv's zero padding) in shared memory, 16 bytes a
-// load, and writes d with 16-byte stores.  A thread keeps 8 channels' 9
+// load, and writes d with 16-byte stores.  The last chunk of an I that 64
+// does not divide stages zeros past I and its threads there store
+// nothing.  A thread keeps 8 channels' 9
 // taps and walks one column of the tile; the 9 products are summed in
 // dy-major order, as the TPU kernel sums them.
 constexpr int kDwTH = 8, kDwTW = 32, kDwCh = 64, kDwThreads = 256;
@@ -246,7 +261,7 @@ __global__ void __launch_bounds__(kDwThreads) k1_dw(const DwParams p) {
     const int r = e / kVec, v = e % kVec;
     const int iy = ty0 - 1 + r / kHW, ix = tx0 - 1 + r % kHW;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
+    if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W && c0 + v * 8 < p.I)
       val = *reinterpret_cast<const uint4*>(
           h + ((size_t)iy * p.W + ix) * p.I + v * 8);
     *reinterpret_cast<uint4*>(halo + r * kDwCh + v * 8) = val;
@@ -255,8 +270,8 @@ __global__ void __launch_bounds__(kDwThreads) k1_dw(const DwParams p) {
 
   const int v = threadIdx.x % kVec, qx = threadIdx.x / kVec;
   const int ix = tx0 + qx;
-  if (ix >= p.W) return;
   const int c = c0 + v * 8;
+  if (ix >= p.W || c >= p.I) return;
   float wk[9][8], bias[8];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
@@ -391,8 +406,9 @@ bool gemm_slot_ok(const Slot& q, int S, int M, int N, int K, bool ffn_in,
   if (ffn_in ? (q.bn != 256 || q.bn_out != 64)
              : ((q.bn != 64 && q.bn != 128) || q.bn_out != q.bn))
     return false;
-  if (N % q.bn_out || K % hgemm::kBK || K < hgemm::kBK) return false;
-  if (q.gx != ((M + q.bm - 1) / q.bm) * (N / q.bn_out) || q.gy != S ||
+  if (N % 16 || K % 16 || K < 16) return false;
+  if (q.gx != ((M + q.bm - 1) / q.bm) * ((N + q.bn_out - 1) / q.bn_out) ||
+      q.gy != S ||
       q.gz != 1 || !hgemm::stages_ok(q.bm, q.bn, q.stages))
     return false;
   return q.smem == hgemm::smem_bytes(q.bm, q.bn, q.stages) &&
@@ -403,7 +419,7 @@ bool dw_slot_ok(const Slot& q, int S, int H, int W, int I) {
   return q.on == 1 && q.bm == kDwTH && q.bn == kDwTW && q.bn_out == kDwCh &&
          q.stages == 0 &&
          q.gx == ((H + kDwTH - 1) / kDwTH) * ((W + kDwTW - 1) / kDwTW) &&
-         q.gy == I / kDwCh && q.gz == S && q.smem == kDwSmem;
+         q.gy == (I + kDwCh - 1) / kDwCh && q.gz == S && q.smem == kDwSmem;
 }
 
 // Raises a kernel's dynamic shared-memory limit to what its largest plan
@@ -466,7 +482,7 @@ GemmParams gemm_params(const Slot& q, int M, int N, int K, const void* bias,
   p.K = K;
   p.bn_out = q.bn_out;
   p.stages = q.stages;
-  p.n_tiles = N / q.bn_out;
+  p.n_tiles = (N + q.bn_out - 1) / q.bn_out;
   p.b_step = hgemm::kBoxRows;
   p.bias = static_cast<const bf16*>(bias);
   p.bias_stride = bias_stride;
@@ -493,7 +509,7 @@ extern "C" int dcvc_fused_dcb(
     int C, int I, int shortcut, const int* plan, void* stream) {
   const bool adaptor = wa != nullptr;
   const long long M = (long long)H * W;
-  if (Cin % 64 || C % 64 || I % 64 || H < 1 || W < 1 || S < 1 ||
+  if (Cin % 16 || C % 16 || I % 16 || H < 1 || W < 1 || S < 1 ||
       (adaptor ? xa == nullptr : Cin != C) || plan == nullptr)
     return cudaErrorInvalidValue;
   const bool bcast = S > 1 && x_stride == 0;

@@ -14,7 +14,10 @@
 //    planes at once (ffn_in's four j products, b_step = I).
 //  * Tensor maps are 3-D, (entries, rows, 64-element columns); the entry
 //    is a coordinate, so a tile never reads another entry's rows, and
-//    rows past the end of an entry read as zeros.
+//    rows past the end of an entry read as zeros, as do the columns past
+//    the end of a row: a depth K that 64 does not divide runs ceil(K / 64)
+//    stages, the last one's tail zero in A and in B (the box's bytes,
+//    zeros included, count towards the stage's transaction).
 //  * Pipeline: a ring of `stages` stages (2-4, chosen by the caller: fewer
 //    stages let 2-3 blocks share an SM, so that one block's epilogue
 //    overlaps another's products) with a full and an empty mbarrier each.

@@ -7,7 +7,10 @@ and its plain PyTorch version, in both forms of the TPU kernel: one block
 On the card a call is a chain of launches (adaptor, h, dw, dc_out,
 ffn_in, ffn_out; see csrc/fused_dcb.cu), the GEMMs on one wgmma/TMA core.
 `k1_plan` decides here, in Python, which launches run and each one's
-tile, grid and shared memory; the C entry checks the plan.
+tile, grid and shared memory; the C entry checks the plan.  Channel
+counts are multiples of 16: a width with no 64-wide divisor (368, the
+DCVC-RT intra trunk) gets tail tiles, whose out-of-range columns TMA
+reads as zeros and the epilogues do not store.
 
 Each wrapper launches the CUDA kernel for a tensor on the card and takes
 the plain version only for a tensor on the CPU.  On the card it never
@@ -123,7 +126,8 @@ class K1Launch(NamedTuple):
     blocks of bm rows by bn accumulator columns, bn_out of them output
     columns (ffn_in: four j planes of 64, bn = 256), through a ring of
     `stages` pipeline stages.  'dw': bm x bn is the pixel tile, bn_out the
-    channels of a block, m = H * W, n = I, stages 0."""
+    channels of a block (the last block's tail masked), m = H * W, n = I,
+    stages 0."""
     name: str
     s: int
     m: int
@@ -156,24 +160,31 @@ def epilogue_tile_bytes(bm, bn):
     return bm * (bn + 4) * 4
 
 
+def tile_fits(bn, n):
+    """A bn-wide tile may cover n columns: bn divides n, or n (a multiple
+    of 16) has no 64-wide divisor, and the last tile has a tail that the
+    kernel masks (RT's 368-channel trunk)."""
+    return n % bn == 0 or n % 64 != 0
+
+
 def _gemm(name, s, m, n, k, tile=None):
-    """BM = 128 with the widest BN <= 128 that divides n and gives at
-    least a wave of blocks (K1_SMS), else BM = 64 likewise, else the most
-    blocks (64 x 64).  ffn_in's blocks are 64 output columns wide (four j
-    planes, 256 accumulators).  A 256-wide tile of the other products
-    leaves room for one block per SM; two 128-wide ones share it and
-    measured faster (`perf_probe tiles`, PERF.md §6).  tile=(bm, bn)
-    forces a tile (bn where it is a width the kernel has and divides n,
-    else 64)."""
+    """BM = 128 with the widest BN <= 128 that fits n (tile_fits) and gives
+    at least a wave of blocks (K1_SMS), else BM = 64 likewise, else the
+    most blocks (64 x 64).  ffn_in's blocks are 64 output columns wide
+    (four j planes, 256 accumulators).  A 256-wide tile of the other
+    products leaves room for one block per SM; two 128-wide ones share it
+    and measured faster (`perf_probe tiles`, PERF.md §6).  tile=(bm, bn)
+    forces a tile (bn where it is a width the kernel has and fits n, else
+    64)."""
     widths = (64,) if name == "ffn_in" else (128, 64)
     pick = (64, 64)
     if tile is not None:
         bm, bn = tile
-        pick = (bm, bn if bn in widths and n % bn == 0 else 64)
+        pick = (bm, bn if bn in widths and tile_fits(bn, n) else 64)
     else:
         for bm in (128, 64):
-            fits = [bn for bn in widths if n % bn == 0
-                    and s * math.ceil(m / bm) * (n // bn) >= K1_SMS]
+            fits = [bn for bn in widths if tile_fits(bn, n)
+                    and s * math.ceil(m / bm) * math.ceil(n / bn) >= K1_SMS]
             if fits:
                 pick = (bm, fits[0])
                 break
@@ -181,7 +192,7 @@ def _gemm(name, s, m, n, k, tile=None):
     bn = 4 * bn_out if name == "ffn_in" else bn_out
     stages = gemm_stages(bm, bn)
     return K1Launch(name, s, m, n, k, bm, bn, bn_out, stages,
-                    (math.ceil(m / bm) * (n // bn_out), s, 1),
+                    (math.ceil(m / bm) * math.ceil(n / bn_out), s, 1),
                     gemm_smem(bm, bn, stages))
 
 
@@ -194,7 +205,7 @@ def k1_plan(s, h, w, cin, c, inner, adaptor, tile=None):
     th, tw = DW_TILE
     dw = K1Launch("dw", s, m, inner, 9, th, tw, DW_CHANNELS, 0,
                   (math.ceil(h / th) * math.ceil(w / tw),
-                   inner // DW_CHANNELS, s),
+                   math.ceil(inner / DW_CHANNELS), s),
                   (th + 2) * (tw + 2) * DW_CHANNELS * 2)
     chain = [_gemm("adaptor", s, m, c, cin, tile)] if adaptor else []
     return tuple(chain + [_gemm("h", s, m, inner, c, tile), dw,
@@ -206,10 +217,11 @@ def k1_plan(s, h, w, cin, c, inner, adaptor, tile=None):
 def gemm_block_tile(launch, bx, by):
     """The outputs block (bx, by) of a GEMM launch computes, as the kernel
     decodes it: (entry, first row, end row, first column, end column),
-    rows clipped to m."""
-    m_tile, n_tile = divmod(bx, launch.n // launch.bn_out)
+    rows clipped to m and columns to n (the tail tile's masked stores)."""
+    m_tile, n_tile = divmod(bx, math.ceil(launch.n / launch.bn_out))
     m0, n0 = m_tile * launch.bm, n_tile * launch.bn_out
-    return by, m0, min(launch.m, m0 + launch.bm), n0, n0 + launch.bn_out
+    return (by, m0, min(launch.m, m0 + launch.bm), n0,
+            min(launch.n, n0 + launch.bn_out))
 
 
 PLAN_INTS = 9     # per launch of CHAIN
@@ -259,9 +271,9 @@ def _launch(x, ops, shortcut, lead, tile=None, keep=None):
                          f"x is on {x.device}")
     nst, hh, ww, cin = x.shape
     cout, inner = ops["w2"].shape[-2], ops["w1"].shape[-2]
-    if min(cin, cout, inner) <= 0 or cin % 64 or cout % 64 or inner % 64:
+    if min(cin, cout, inner) <= 0 or cin % 16 or cout % 16 or inner % 16:
         raise ValueError(f"fused_dcb: channel counts must be multiples of "
-                         f"64, got Cin={cin} C={cout} I={inner}")
+                         f"16, got Cin={cin} C={cout} I={inner}")
     dev = x.device
     if x.dtype != torch.bfloat16 or x.stride()[1:] != (ww * cin, cin, 1) \
             or x.data_ptr() % 16:

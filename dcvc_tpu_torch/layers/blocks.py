@@ -74,6 +74,20 @@ class Conv3x3(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class Conv2x2Stride2(nn.Module):
+    """2x2 conv with stride 2 and no padding (DCVC-RT's
+    ResidualBlockWithStride2 down)."""
+
+    def __init__(self, in_ch, out_ch):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, 2, 2))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, stride=2)
+        return y.permute(0, 2, 3, 1)
+
+
 class DepthwiseConv3x3(nn.Module):
     """Weights of a per-channel 3x3 conv, (C, 1, 3, 3) and (C); the
     DepthConvBlock's kernel (or its plain version) applies them."""
@@ -239,7 +253,8 @@ def lecun_init_(module, generator):
     lecun-normal kernels (normal truncated at 2 std, variance 1/fan_in)
     and zero biases.  Draws from `generator` in module order."""
     for m in module.modules():
-        if isinstance(m, (Conv1x1, Conv3x3, DepthwiseConv3x3)):
+        if isinstance(m, (Conv1x1, Conv3x3, Conv2x2Stride2,
+                          DepthwiseConv3x3)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,

@@ -207,6 +207,52 @@ def ld_stage_launches(cfg, h, w):
     return dict(log.calls)
 
 
+def rt_stage_launches(intra_cfg, p_cfg, h, w):
+    """The K1 launches of each stage of DCVC-RT's codecs on an (h, w)
+    frame, from the models themselves (their stage methods on the meta
+    device, in the codecs' order): the intra model's analysis, prior0,
+    prior_step 1-3 and synthesis (RTIntraCodec), and the P model's
+    adaptor_i, adaptor_m, analysis, prior0, prior_step, synthesis_feature,
+    reset_feature and recon_frames (DMCRTCodec; its two-way DCBs are not
+    K1's block, so none launches K1).  Returns {stage: Counter of Launch},
+    the P stages prefixed `p.`."""
+    from .core.padding import get_padding_size
+    from .legacy.dcvc_rt import DMCRT
+    from .legacy.rt_intra import DMCIRT
+    pad_r, pad_b = get_padding_size(h, w, 16)
+    ph, pw = h + pad_b, w + pad_r
+    yh, yw = ph // 16, pw // 16
+    log = LaunchLog()
+    bf = torch.bfloat16
+
+    def stage(name, fn, *args):
+        with log.call(name):
+            return fn(*args)
+    with torch.device("meta"), meta_launches(), log:
+        m = DMCIRT(intra_cfg).to(bf)
+        x = torch.empty(1, ph, pw, 3, dtype=bf)
+        _, z = stage("analysis", m.analysis, x, 0)
+        ctx, q_dec = stage("prior0", m.prior0, z, yh, yw)[2::2]
+        y_hat = torch.empty(1, yh, yw, intra_cfg.ch_y)
+        for k in (1, 2, 3):
+            stage(f"prior_step {k}", m.prior_step, ctx, y_hat, k)
+        stage("synthesis", m.synthesis, y_hat, q_dec, 0, h, w)
+
+        p = DMCRT(p_cfg).to(bf)
+        ref = torch.empty(1, ph // 8, pw // 8, p_cfg.ch_src_d, dtype=bf)
+        feature = stage("p.adaptor_i", p.adaptor_i, ref)[0]
+        stage("p.adaptor_m", p.adaptor_m, feature, feature)
+        _, z = stage("p.analysis", p.analysis, x, feature, 0)
+        spctx = stage("p.prior0", p.prior0, z, feature, 0, yh, yw)[4]
+        y_hat = torch.empty(1, yh, yw, p_cfg.ch_y)
+        stage("p.prior_step", p.prior_step, spctx, y_hat)
+        out = stage("p.synthesis_feature", p.synthesis_feature, y_hat,
+                    feature, 0)
+        stage("p.reset_feature", p.reset_feature, out)
+        stage("p.recon_frames", p.recon_frames, out, 0, h, w)
+    return dict(log.calls)
+
+
 # ------------------------------------------------------------------ K2
 
 class K2Call(NamedTuple):

@@ -54,12 +54,20 @@ def check_qp(qp, qp_num):
         raise ValueError(f"qp {qp} out of range [0, {qp_num})")
 
 
+def qp_bank(cfg):
+    """Rows of a config's per-QP banks: qp_num, or more where the model
+    codes shifted QPs past it (DCVC-RT's qp_shift schedule: qp_num +
+    EXTRA_QP)."""
+    return getattr(cfg, "qp_bank", cfg.qp_num)
+
+
 def cdf_banks(model, skip_thres):
     """((z_cdf, z_len), (y_cdf, y_len)): the z CDF bank of `model`'s
     bit_estimator_z (from its float32 parameters, whatever dtype the model
-    will run in) and the y bank of the Gaussian model."""
+    will run in; qp_bank(cfg) rows of ch_z) and the y bank of the Gaussian
+    model."""
     cfg = model.cfg
-    be = BitEstimator(cfg.qp_num, cfg.ch_z)
+    be = BitEstimator(qp_bank(cfg), cfg.ch_z)
     z = be.compute_cdf_bank(model.bit_estimator_z.bank(), 8)
     return z, GaussianConditional(skip_thres).compute_cdf_bank()
 
@@ -155,35 +163,47 @@ class EntropyDecoder:
         return None, torch.from_numpy(decoded).to(self.device)
 
 
+def ec_parallel_of(rans, total, max_ec, force_ec):
+    """The stream's lane count: force_ec where a container pins it for the
+    whole sequence (DCVC-RT's SPS), else the coder's choice for `total`
+    symbols capped at max_ec."""
+    return force_ec or min(rans.compute_ec_parallel(total), max_ec)
+
+
 class DMCICodec(EntropyDecoder):
     """Holds the model, the CDF banks and the host rANS coders, and
     implements compress/decompress against the bitstream payload.
 
-    params: a state_dict of models.dmci.DMCI (reference key names).  The
-    model runs in `dtype` on `device`; on a CUDA device every
-    DepthConvBlock goes through the fused CUDA kernel, which takes
-    bfloat16 only.  device_ec=True decodes the rANS stream on the device
-    (K2) instead of the host coder: same symbols, same x_hat, and no host
-    sync after the stream's upload.  Off by default, as in the JAX
-    codec."""
+    params: a state_dict of the class's MODEL_CLS (models.dmci.DMCI,
+    reference key names) at a CONFIG_CLS config.  The model runs in
+    `dtype` on `device`; on a CUDA device every DepthConvBlock goes
+    through the fused CUDA kernel, which takes bfloat16 only.
+    device_ec=True decodes the rANS stream on the device (K2) instead of
+    the host coder: same symbols, same x_hat, and no host sync after the
+    stream's upload.  Off by default, as in the JAX codec.  force_ec (None
+    by default) pins the stream's lane count, as a container with a
+    sequence-level lane flag does (DCVC-RT)."""
 
+    MODEL_CLS = DMCI
+    CONFIG_CLS = DMCIConfig
     MAX_EC = 8
 
     def __init__(self, params, cfg=None, skip_thres=0.0,
                  dtype=torch.bfloat16, device="cuda", device_ec=False):
         set_deterministic()
-        self.cfg = cfg or DMCIConfig()
+        self.cfg = cfg or self.CONFIG_CLS()
         self.device = torch.device(device)
         self.dtype = dtype
         self.skip_thres = float(skip_thres)
         # the host coder builds its library with g++ on first import
         from .. import rans
         self._rans = rans
-        model = DMCI(self.cfg)
+        model = self.MODEL_CLS(self.cfg)
         model.load_state_dict(params)
         banks = cdf_banks(model, skip_thres)
         self.encoder, self.decoder = make_coders(rans, banks)
         self.device_ec = bool(device_ec)
+        self.force_ec = None
         self._k2_banks = device_banks(banks, self.device)
         self.model = model.to(self.device, dtype).eval()
         self._plans = {}
@@ -201,8 +221,8 @@ class DMCICodec(EntropyDecoder):
         torch.Generator; seed 0 when None)."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        cfg = cfg or DMCIConfig()
-        model = DMCI(cfg)
+        cfg = cfg or cls.CONFIG_CLS()
+        model = cls.MODEL_CLS(cfg)
         model.reset_parameters(generator)
         return cls(model.state_dict(), cfg=cfg, **kwargs)
 
@@ -226,16 +246,26 @@ class DMCICodec(EntropyDecoder):
         return packed_idx, packed_pos, count, cond
 
     def _analysis(self, p, x, qp):
-        """Encoder-only: pad + analysis transform."""
+        """Encoder-only: pad + analysis transform (DMCI: y already scaled by
+        its per-QP q_scale_y_enc)."""
         pad_b, pad_r = p["pad"]
         x = pad_replicate_nhwc(x, pad_b, pad_r).to(self.dtype)
         y_scaled, z_int8 = self.model.analysis(x, qp)
         return y_scaled.float(), z_int8
 
     def _prior0(self, p, z_int8, sync_free=False):
-        """Shared enc+dec: hyper prior + step-0 compacted indexes."""
+        """Shared enc+dec: hyper prior + step-0 compacted indexes.  Returns
+        (means, ctx, packed_idx, packed_pos, count, cond, q): q is what the
+        prior gives the quantisation besides (None here; RTIntraCodec's
+        hyper-predicted q maps)."""
         scales, means, ctx = self.model.prior0(z_int8, *p["y"])
-        return (means, ctx) + self._build_idx(p, scales, 0, sync_free)
+        return (means, ctx) + self._build_idx(p, scales, 0, sync_free) \
+            + (None,)
+
+    def _enc_y(self, y, q):
+        """Encoder-only: the y that is quantised, from _analysis' y and
+        _prior0's q (DMCI: y as it is)."""
+        return y
 
     def _enc_quant(self, p, step, y_scaled, means, cond, packed_idx):
         """Encoder-only quantization in the candidate domain; cond and
@@ -265,8 +295,8 @@ class DMCICodec(EntropyDecoder):
         return (y_hat_so_far, means_next) + self._build_idx(
             p, scales, step + 1, sync_free)
 
-    def _synthesis(self, y_hat_so_far, qp, h, w):
-        """Shared enc+dec reconstruction."""
+    def _synthesis(self, y_hat_so_far, q, qp, h, w):
+        """Shared enc+dec reconstruction (q: _prior0's)."""
         return self.model.synthesis(y_hat_so_far, qp, h, w)
 
     # -------------------------------------------------------------- encode
@@ -282,8 +312,9 @@ class DMCICodec(EntropyDecoder):
         x = torch.as_tensor(x).to(self.device, torch.float32)
         h, w = x.shape[1], x.shape[2]
         p = self._plan(h, w)
-        y_scaled, z_int8 = self._analysis(p, x, qp)
-        means, ctx, packed_idx, _, count, cond = self._prior0(p, z_int8)
+        y, z_int8 = self._analysis(p, x, qp)
+        means, ctx, packed_idx, _, count, cond, q = self._prior0(p, z_int8)
+        y_scaled = self._enc_y(y, q)
         y_hat = torch.zeros((1,) + p["y"] + (self.cfg.ch_y,),
                             dtype=torch.float32, device=self.device)
         coded = []
@@ -296,7 +327,7 @@ class DMCICodec(EntropyDecoder):
                 y_hat, means, packed_idx, _, count, cond = out
             else:
                 y_hat = out
-        x_hat = self._synthesis(y_hat, qp, h, w)
+        x_hat = self._synthesis(y_hat, q, qp, h, w)
 
         coded = [c.cpu().numpy() for c in coded]
         if self.collect_symbols is not None:
@@ -305,7 +336,8 @@ class DMCICodec(EntropyDecoder):
                  "y": [(c >> 8).astype(np.int8) for c in coded],
                  "idx": [(c & 0xFF).astype(np.uint8) for c in coded]})
         total = sum(c.size for c in coded)
-        ec_parallel = min(self._rans.compute_ec_parallel(total), self.MAX_EC)
+        ec_parallel = ec_parallel_of(self._rans, total, self.MAX_EC,
+                                     self.force_ec)
         self.encoder.reset()
         self.encoder.set_parallel(ec_parallel)
         for k in range(3, -1, -1):  # reverse step order (dmci_proxy.cpp:838)
@@ -329,7 +361,7 @@ class DMCICodec(EntropyDecoder):
         ch_y = self.cfg.ch_y
         sync_free = self.device_ec
         state, z_int8 = self._decode_z(bit_stream, ec_part, p, qp)
-        means, ctx, packed_idx, packed_pos, count, _ = self._prior0(
+        means, ctx, packed_idx, packed_pos, count, _, q = self._prior0(
             p, z_int8, sync_free)
         y_hat = torch.zeros((1,) + p["y"] + (ch_y,), dtype=torch.float32,
                             device=self.device)
@@ -350,4 +382,4 @@ class DMCICodec(EntropyDecoder):
                 y_hat = out
         if collect is not None:
             self.collect_symbols.append(collect)
-        return {"x_hat": self._synthesis(y_hat, qp, h, w)}
+        return {"x_hat": self._synthesis(y_hat, q, qp, h, w)}

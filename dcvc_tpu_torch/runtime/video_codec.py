@@ -52,7 +52,8 @@ from ..entropy.gaussian import scale_to_index
 from ..models.dmc_ht import DMCHT, HTS_CONFIG
 from ..models.dmc_ld import DMCLD, LD_CONFIG
 from .image_codec import EntropyDecoder, cdf_banks, check_qp, \
-    device_banks, grid_plan, make_coders, set_deterministic
+    device_banks, ec_parallel_of, grid_plan, make_coders, qp_bank, \
+    set_deterministic
 from .symbols import compact_idx, compact_idx_sorted, compact_vals, \
     expand_from_pos, quantize_candidate
 
@@ -68,7 +69,10 @@ class VideoCodecBase(EntropyDecoder):
     recon-head block through its stacked form), which take bfloat16 only.
     device_ec=True decodes the rANS stream on the device (K2): same
     symbols, frames and DPB, and no host sync after the stream's upload.
-    Off by default, as in the JAX codec."""
+    Off by default, as in the JAX codec.  QPs run to qp_bank (qp_num, or
+    more for a config with a qp_bank of its own: DCVC-RT's shifted QPs),
+    and force_ec (None by default) pins the stream's lane count, as a
+    container with a sequence-level lane flag does (DCVC-RT)."""
 
     MAX_EC = 8
     MODEL = None
@@ -89,6 +93,8 @@ class VideoCodecBase(EntropyDecoder):
         banks = cdf_banks(model, skip_thres)
         self.encoder, self.decoder = make_coders(rans, banks)
         self.device_ec = bool(device_ec)
+        self.force_ec = None
+        self.qp_bank = qp_bank(self.cfg)
         self._k2_banks = device_banks(banks, self.device)
         self.steps = self.cfg.prior_steps
         self.single_pass = self.cfg.single_pass
@@ -129,9 +135,11 @@ class VideoCodecBase(EntropyDecoder):
 
     @torch.inference_mode()
     def add_ref_feature_from_frame(self, frame):
-        """frame: (1, H, W, 3) in [-0.5, 0.5] (e.g. the intra codec's
-        reconstruction).  Edge-pads it to 16 and 8x-unshuffles it into the
-        DPB seed feature, in the model dtype (video_model_ht.py:413-415)."""
+        """frame: (1, H, W, 3), the intra codec's reconstruction in the
+        model's own signal domain ([-0.5, 0.5] for the UF models, [0, 1]
+        for DCVC-RT), taken as it is.  Edge-pads it to 16 and
+        8x-unshuffles it into the DPB seed feature, in the model dtype
+        (video_model_ht.py:413-415)."""
         frame = torch.as_tensor(frame).to(self.device, torch.float32)
         pad_b, pad_r = self._plan(frame.shape[1], frame.shape[2])["pad"]
         self.ref_feature = pixel_unshuffle(
@@ -264,7 +272,7 @@ class VideoCodecBase(EntropyDecoder):
         the decoder's recon heads on the encoder's feature ((frame_delay,
         H, W, 3) float32 on the codec's device, bit-identical to the
         decoder's)."""
-        check_qp(qp, self.cfg.qp_num)
+        check_qp(qp, self.qp_bank)
         if self.ref_feature is None:
             raise ValueError("DPB empty: add a reference frame first")
         x = torch.as_tensor(x).to(self.device, torch.float32)
@@ -304,7 +312,8 @@ class VideoCodecBase(EntropyDecoder):
 
         coded = [c.cpu().numpy() for c in coded]
         total = sum(c.size for c in coded)
-        ec_parallel = min(self._rans.compute_ec_parallel(total), self.MAX_EC)
+        ec_parallel = ec_parallel_of(self._rans, total, self.MAX_EC,
+                                     self.force_ec)
         self.encoder.reset()
         self.encoder.set_parallel(ec_parallel)
         for c in reversed(coded):     # the ladder's steps in reverse order
@@ -333,7 +342,7 @@ class VideoCodecBase(EntropyDecoder):
         """Returns dict(x_hat) with x_hat (frame_delay, h, w, 3) float32 in
         [-0.5, 0.5], a tensor on the codec's device.  With device_ec,
         bit_stream may also be upload_stream's lanes."""
-        check_qp(qp, self.cfg.qp_num)
+        check_qp(qp, self.qp_bank)
         if self.ref_feature is None:
             raise ValueError("DPB empty: add a reference frame first")
         p = self._plan(h, w)

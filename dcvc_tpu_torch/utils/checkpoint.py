@@ -60,9 +60,13 @@ def load_reference_into(model, path):
     reference checkpoint at `path`.  Raises KeyError on a parameter the
     file lacks or a key of the file that the model does not use (the
     entropy coder's cached tables aside); load_state_dict raises on a
-    shape that differs.  Returns the model."""
+    shape that differs.  A model whose reference names some parameters
+    otherwise (DCVC-RT's z prior) turns the file's state_dict into its
+    own with its `from_reference`.  Returns the model."""
     state = {k: v for k, v in load_state_dict_file(path).items()
              if not any(s in k for s in _SKIPPED)}
+    if hasattr(model, "from_reference"):
+        state = model.from_reference(state)
     want = set(model.state_dict())
     missing = sorted(want - set(state))
     unused = sorted(set(state) - want)

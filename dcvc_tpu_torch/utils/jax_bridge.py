@@ -2,9 +2,10 @@
 
 The port names its parameters after the reference torch module tree, so
 the key of each flax leaf is exactly what dcvc_tpu's checkpoint importer
-maps it from (`key_fn_dmci` for DMCI and its blocks, `key_fn_dmc_ht` for
-DMC-HT, `key_fn_dmc_ld` for DMC-LD; the port's verbatim copies in
-utils/keys.py).  This inverts that
+maps it from (`key_fn_dmci` for DMCI, its blocks and the DCVC-RT intra
+model, `key_fn_dmc_ht` for DMC-HT, `key_fn_dmc_ld` for DMC-LD, `key_fn_rt`
+for the DCVC-RT P model, whose z prior keeps the port's h / b / a banks;
+the port's verbatim copies in utils/keys.py).  This inverts that
 importer's leaf conversion: conv kernels (kh, kw, I, O) go back to
 (O, I, kh, kw),
 depthwise kernels (3, 3, 1, C) to (C, 1, 3, 3); every other leaf keeps
@@ -32,7 +33,7 @@ import torch
 from .checkpoint import PARAMS_V1, checkpoint_format, config_from_header, \
     load_header, load_params, load_reference_into, save_params
 from .keys import _LD_SEQ_TOPS, _STACKED_SUB, _stacked_leaf, \
-    key_fn_dmc_ht, key_fn_dmc_ld, key_fn_dmci
+    key_fn_dmc_ht, key_fn_dmc_ld, key_fn_dmci, key_fn_rt
 
 
 def _leaves(tree, path=()):
@@ -97,6 +98,23 @@ def dmc_ld_params_from_jax(flax_params):
     LD has no stacked leaf: every leaf takes the conv / depthwise
     conversion."""
     return {key_fn_dmc_ld(path): _tensor(leaf)
+            for path, leaf in _leaves(flax_params)}
+
+
+def rt_key(path):
+    """key_fn_rt's reference key of a flax DMCRT path, but the port's own
+    `bit_estimator_z.{h,b,a}` for the z prior's banks (key_fn_rt names the
+    reference's per-layer Bitparm tensors they are stacked from)."""
+    key = key_fn_rt(path)
+    return ".".join(path) if isinstance(key, tuple) else key
+
+
+def dmc_rt_params_from_jax(flax_params):
+    """flax DMCRT params (both adaptor branches merged, as the JAX codec
+    holds them) -> the state_dict of dcvc_tpu_torch.legacy.dcvc_rt.DMCRT.
+    Every leaf takes the conv / depthwise conversion (the 2x2 stride-2
+    kernels too)."""
+    return {rt_key(path): _tensor(leaf)
             for path, leaf in _leaves(flax_params)}
 
 
@@ -241,6 +259,34 @@ def dmc_ld_params_to_jax(state):
     return _to_jax(state, _numbered_dmc_ld, key_fn_dmc_ld, rename)
 
 
+def _numbered_rt(out, name, n):
+    if name in ("conv1", "conv2"):
+        return f"{name}_{n}"
+    if name == "conv":
+        # the recon net's blocks are a list attribute, the rest nn.Sequential
+        return (f"conv_{n}" if out and out[-1] == "recon_generation_net"
+                else f"layers_{n}")
+    return None
+
+
+def dmc_rt_params_to_jax(state):
+    """The state_dict of a port DMCRT -> the flax DMCRT params (both
+    adaptor branches), the inverse of dmc_rt_params_from_jax.  RT's
+    ResidualBlockWithStride2 holds its 2x2 conv bare (`.../down/kernel`);
+    the encoder's strided 3x3 is a wrapped conv (`encoder/down/conv`)."""
+    items = {}
+    for key, t in state.items():
+        path = _flax_path(key, _numbered_rt)
+        if "down" in path and not key.startswith("encoder.down."):
+            i = path.index("down")
+            path = path[:i + 1] + path[i + 2:]
+        if rt_key(path) != key:
+            raise KeyError(f"{key}: no flax path maps to it (tried "
+                           f"{'/'.join(path)})")
+        items[path] = _flax_leaf(t)
+    return _nest(items)
+
+
 def dmc_ht_params_to_jax(state, hts=True):
     """The state_dict of a port DMCHT -> the flax DMCHT params (both
     adaptor branches), the inverse of dmc_ht_params_from_jax; hts=False
@@ -289,11 +335,15 @@ def dmc_ht_params_to_jax(state, hts=True):
 def _converters(model):
     """(flax tree -> state_dict, state_dict -> flax tree) of a port
     model."""
+    from ..legacy.dcvc_rt import DMCRT
+    from ..legacy.rt_intra import DMCIRT
     from ..models.dmc_ht import DMCHT
     from ..models.dmc_ld import DMCLD
     from ..models.dmci import DMCI
-    if isinstance(model, DMCI):
+    if isinstance(model, (DMCI, DMCIRT)):
         return dmci_params_from_jax, dmci_params_to_jax
+    if isinstance(model, DMCRT):
+        return dmc_rt_params_from_jax, dmc_rt_params_to_jax
     if isinstance(model, DMCLD):
         return dmc_ld_params_from_jax, dmc_ld_params_to_jax
     if isinstance(model, DMCHT):
@@ -304,9 +354,9 @@ def _converters(model):
 
 
 def load_native_into(model, path):
-    """Fill `model` (a port DMCI, DMCHT or DMCLD at the file's config:
-    config_from_header of its header) from the dcvc_tpu.params.v1 file at
-    `path`.  Raises KeyError on a parameter the file lacks or one the
+    """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT or DMCRT at the
+    file's config: config_from_header of its header) from the
+    dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter the file lacks or one the
     model does not use; load_state_dict raises on a shape that differs.
     Returns the model."""
     tree, _ = load_params(path)

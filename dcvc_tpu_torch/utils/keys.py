@@ -139,3 +139,27 @@ def key_fn_dmc_ht(path, frame_delay=8, hts=True):
 
 def key_fn_dmc_ld(path):
     return _translate(path, _map_dmc_ld)
+
+
+def _map_rt(out, s):
+    """DCVC-RT module tree (DCVC-RT/src/models/video_model.py): UF-style
+    DCB internals + torch Sequentials wrapped under a '.conv' child."""
+    m = re.fullmatch(r"layers_(\d+)", s)
+    if m:
+        return f"conv.{m.group(1)}"
+    m = re.fullmatch(r"(conv\d)_(\d+)", s)
+    if m:
+        return f"{m.group(1)}.{m.group(2)}"
+    m = re.fullmatch(r"conv_(\d+)", s)
+    if m:
+        return f"conv.{m.group(1)}"
+    return None
+
+
+def key_fn_rt(path):
+    segs = list(path)
+    if segs[0] == "bit_estimator_z" and len(segs) == 2:
+        n = 3 if segs[-1] == "a" else 4
+        return ("stack_last", [f"bit_estimator_z.f{i + 1}.{segs[-1]}"
+                               for i in range(n)])
+    return _translate(path, _map_rt)

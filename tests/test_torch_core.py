@@ -253,7 +253,10 @@ def test_port_sources_import_no_jax():
     for sub in ("eval/harness.py", "eval/video_main.py", "bitstream/nal.py",
                 "models/dmc_ld.py", "utils/checkpoint.py", "core/quant.py",
                 "train/step.py", "train/video_step.py", "train/image_main.py",
-                "train/video_main.py", "data/datasets.py", "utils/png.py"):
+                "train/video_main.py", "data/datasets.py", "utils/png.py",
+                "legacy/dcvc_rt.py", "legacy/rt_intra.py",
+                "runtime/rt_image_codec.py", "bitstream/legacy_container.py",
+                "eval/family.py", "eval/family_main.py"):
         assert f"dcvc_tpu_torch/{sub}" in scanned, sub
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
@@ -281,6 +284,10 @@ def test_port_imports_no_jax():
             "dcvc_tpu_torch.bitstream, dcvc_tpu_torch.utils.checkpoint, "
             "dcvc_tpu_torch.train.image_main, dcvc_tpu_torch.train.video_main, "
             "dcvc_tpu_torch.data.datasets, dcvc_tpu_torch.utils.png, "
+            "dcvc_tpu_torch.legacy.dcvc_rt, dcvc_tpu_torch.legacy.rt_intra, "
+            "dcvc_tpu_torch.runtime.rt_image_codec, "
+            "dcvc_tpu_torch.bitstream.legacy_container, "
+            "dcvc_tpu_torch.eval.family, dcvc_tpu_torch.eval.family_main, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dcvc_tpu'))\n"

@@ -40,6 +40,9 @@ def cuda_device():
     (8, 18, 256, 128, False),
     (17, 30, 128, 128, True),
     (5, 7, 192, 384, False),
+    (45, 80, 368, 368, False),    # DCVC-RT's intra trunk: tail tiles
+    (17, 30, 192, 368, False),    # its first block (an adaptor)
+    (9, 17, 368, 192, True),      # a K tail into 192
 ])
 def test_cuda_kernel_matches_plain(cuda_device, h, w, cin, c, shortcut):
     """The CUDA kernel against its plain version, both bf16: within 2^-6
@@ -64,7 +67,7 @@ def test_cuda_kernel_matches_plain(cuda_device, h, w, cin, c, shortcut):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ch,dtype,match", [
     (64, torch.float32, "bfloat16"),
-    (48, torch.bfloat16, "multiples of 64"),
+    (40, torch.bfloat16, "multiples of 16"),
 ])
 def test_cuda_wrapper_raises(cuda_device, ch, dtype, match):
     """On the card the wrapper launches the kernel or raises; it never
@@ -199,6 +202,13 @@ def _close(name, got, want, rel):
     (1, 7, 13, 768, 768, 768, False, False, (128, 128)),
     (8, 6, 9, 256, 256, 256, False, True, (128, 128)),   # S = 8, one x
     (8, 6, 9, 512, 256, 256, False, True, (64, 128)),    # and an adaptor
+    # channel counts with no 64-wide divisor: tail tiles in N and K
+    (1, 9, 17, 192, 368, 368, False, False, None),       # RT trunk, adaptor
+    (1, 5, 7, 368, 368, 368, True, False, (64, 64)),
+    (1, 12, 40, 368, 368, 368, False, False, (128, 128)),
+    (1, 9, 17, 368, 192, 192, False, False, (128, 64)),  # K tail only
+    (1, 5, 9, 80, 48, 48, False, False, None),           # N < 64
+    (2, 6, 9, 368, 368, 368, False, True, (128, 64)),    # stacked, one x
 ])
 def test_cuda_chain_launches_match_torch(cuda_device, s, h, w, cin, c,
                                          inner, shortcut, bcast, tile):

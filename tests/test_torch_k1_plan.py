@@ -4,14 +4,18 @@ On the card one call of K1 is a chain of launches (adaptor, h, dw,
 dc_out, ffn_in, ffn_out; csrc/fused_dcb.cu).  The plan of each call is
 made in Python and checked by the C entry, so it is tested here, at every
 shape the main path of chip_smoke.py launches K1 at (listed below as its
-launch log prints them), at chip_smoke.py's TEST_SHAPES and at the shapes
-of the card tests: every launch fits in a Hopper block's shared memory,
-the K and N of every GEMM are multiples of 64, the blocks of each GEMM
-cover its S x M x N outputs exactly once (so the h launch computes dc_in
-once per pixel: no halo rows), the dw blocks cover every pixel and
-channel once, and a GEMM with at least a wave of 64 x 64 tiles launches at
-least a wave of blocks.
+launch log prints them, and DCVC-RT's intra codec's, derived from the
+model), at chip_smoke.py's TEST_SHAPES and at the shapes of the card
+tests: every launch fits in a Hopper block's shared memory, the K and N of
+every GEMM are multiples of 16 (a width with no 64-wide divisor, RT's 368,
+takes tail tiles), the blocks of each GEMM cover its S x M x N outputs
+exactly once (so the h launch computes dc_in once per pixel: no halo
+rows), the dw blocks cover every pixel and channel once, and a GEMM with
+at least a wave of 64 x 64 tiles launches at least a wave of blocks.  The
+plans of the 87 shapes that predate the tails are pinned.
 """
+
+import hashlib
 
 import math
 import os
@@ -21,7 +25,9 @@ import sys
 import pytest
 
 from dcvc_tpu_torch.kernels import fused_dcb as K1
-from dcvc_tpu_torch.perf_probe import Launch
+from dcvc_tpu_torch.legacy.dcvc_rt import RT_CONFIG
+from dcvc_tpu_torch.legacy.rt_intra import DMCIRTConfig
+from dcvc_tpu_torch.perf_probe import Launch, rt_stage_launches
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -152,8 +158,25 @@ def parse(line):
                   int(inner), ad == "1", sc == "1", bc == "1")
 
 
+
+def _rt_shapes():
+    """The distinct K1 shapes of DCVC-RT's codecs on chip_smoke.py's 1080p
+    and 720p frames (perf_probe.rt_stage_launches)."""
+    shapes = set()
+    for h, w in ((1080, 1920), (720, 1280)):
+        for counts in rt_stage_launches(DMCIRTConfig(), RT_CONFIG, h,
+                                        w).values():
+            shapes.update(counts)
+    return sorted(shapes, key=str)
+
+
+RT_SHAPES = _rt_shapes()
 SHAPES = ([parse(line) for line in MAIN_PATH] + list(chip_smoke.TEST_SHAPES)
-          + CARD_TESTS)
+          + CARD_TESTS + [k for k in RT_SHAPES if str(k) not in MAIN_PATH])
+# sha256 of repr() of the 87 MAIN_PATH plans as they were before the tail
+# tiles: widening K1 to multiples of 16 changed no launch of them
+MAIN_PATH_PLANS_SHA256 = \
+    "248d799c00b3c4e122ac10b1b93fc436d57eb3f8d5bba629ac551ed4d70b0fe2"
 
 
 def plan_of(key):
@@ -166,6 +189,46 @@ def test_main_path_list_parses_back():
     assert len(set(MAIN_PATH)) == 87
     for line in MAIN_PATH:
         assert str(parse(line)) == line
+
+
+def test_main_path_plans_unchanged():
+    plans = repr([plan_of(parse(line)) for line in MAIN_PATH]).encode()
+    assert hashlib.sha256(plans).hexdigest() == MAIN_PATH_PLANS_SHA256
+
+
+def test_rt_shapes_derived_from_the_model():
+    """DCVC-RT's K1 launches: its intra codec's blocks (42 per encode, 32
+    per decode, as DMCI's), 8 of them new shapes, every one at C or Cin =
+    368; the P model launches none (its DCBs are the two-way kind)."""
+    new = [str(k) for k in RT_SHAPES if str(k) not in MAIN_PATH]
+    assert len(new) == 8
+    assert all("368" in line for line in new)
+    for h, w in ((1080, 1920), (720, 1280)):
+        n = {k: sum(v.values()) for k, v in rt_stage_launches(
+            DMCIRTConfig(), RT_CONFIG, h, w).items()}
+        steps = sum(n[f"prior_step {k}"] for k in (1, 2, 3))
+        assert n["analysis"] + n["prior0"] + steps + n["synthesis"] == 42
+        assert n["prior0"] + steps + n["synthesis"] == 32
+        assert all(v == 0 for k, v in n.items() if k.startswith("p."))
+
+
+@pytest.mark.parametrize("key", [k for k in RT_SHAPES if "368" in str(k)],
+                         ids=str)
+def test_368_wide_trunk_takes_tail_tiles(key):
+    """C = 368 (or a 368-wide K): the GEMMs of width 368 take 128- or
+    64-wide tiles whose last one has a tail (368 = 2 x 128 + 112 = 5 x 64
+    + 48), a K of 368 runs 6 stages of GEMM_BK, and the dw launch 6
+    channel blocks."""
+    plan = {q.name: q for q in plan_of(key)}
+    for q in plan.values():
+        if q.name == "dw":
+            assert q.n != 368 or q.grid[1] == 6
+            continue
+        if q.n == 368:
+            assert q.n % q.bn_out and math.ceil(368 / q.bn_out) in (3, 6)
+            last = K1.gemm_block_tile(q, q.grid[0] - 1, 0)
+            assert last[4] == 368 and last[4] - last[3] < q.bn_out
+        assert math.ceil(q.k / K1.GEMM_BK) * K1.GEMM_BK >= q.k
 
 
 def test_ld_shapes_derived_from_the_model():
@@ -214,8 +277,9 @@ def test_plan_fits_and_covers_once(key):
             th, tw = q.bm, q.bn
             tiles_w = math.ceil(key.w / tw)
             assert q.grid == (math.ceil(key.h / th) * tiles_w,
-                              key.inner // q.bn_out, key.s)
-            assert q.bn_out * q.grid[1] == key.inner
+                              math.ceil(key.inner / q.bn_out), key.s)
+            assert q.bn_out * (q.grid[1] - 1) < key.inner \
+                <= q.bn_out * q.grid[1]
             pixels = set()
             for bx in range(q.grid[0]):
                 y0, x0 = (bx // tiles_w) * th, (bx % tiles_w) * tw
@@ -223,7 +287,8 @@ def test_plan_fits_and_covers_once(key):
                               for x in range(x0, min(key.w, x0 + tw)))
             assert len(pixels) == m
             continue
-        assert q.k % 64 == 0 and q.n % 64 == 0, q
+        assert q.k % 16 == 0 and q.n % 16 == 0, q
+        assert q.n % q.bn_out == 0 or q.n % 64, q   # a tail only past 64s
         assert q.bn == (4 * q.bn_out if q.name == "ffn_in" else q.bn_out)
         assert q.bn in ((256,) if q.name == "ffn_in" else (64, 128))
         assert q.smem == K1.gemm_smem(q.bm, q.bn, q.stages)
@@ -259,10 +324,10 @@ def test_plan_fills_the_card(key):
         blocks = q.grid[0] * q.grid[1]
         if key.s * q.m * q.n >= K1.K1_SMS * 64 * 64:
             assert blocks >= K1.K1_SMS, q
-        wide = key.s * math.ceil(q.m / 128) * (q.n // 64)
+        wide = key.s * math.ceil(q.m / 128) * math.ceil(q.n / 64)
         assert (q.bm == 128) == (wide >= K1.K1_SMS), q
-        if q.name != "ffn_in" and q.bn == 64 and q.n % 128 == 0:
-            assert key.s * math.ceil(q.m / q.bm) * (q.n // 128) \
+        if q.name != "ffn_in" and q.bn == 64 and K1.tile_fits(128, q.n):
+            assert key.s * math.ceil(q.m / q.bm) * math.ceil(q.n / 128) \
                 < K1.K1_SMS, q
 
 
@@ -283,17 +348,19 @@ def test_plan_ints_rows():
 @pytest.mark.parametrize("tile,n", [
     ((64, 64), 512), ((128, 128), 512), ((64, 128), 384),
     ((128, 128), 320),   # 128 does not divide N = 320: 64
+    ((128, 128), 368),   # no 64-wide divisor: 128 with a tail
     ((128, 256), 512),   # no 256-wide tile but ffn_in's: 64
 ])
 def test_plan_tile_override(tile, n):
     """k1_plan(tile=) forces every GEMM's tile (the card tests' BM = 64 /
-    128 cases); a width that does not divide N falls back to 64."""
+    128 cases); a width that does not fit N (K1.tile_fits) falls back to
+    64."""
     for q in K1.k1_plan(1, 9, 17, n, n, n, False, tile):
         if q.name == "dw":
             continue
         assert q.bm == tile[0]
         if q.name != "ffn_in":
-            fits = tile[1] <= 128 and n % tile[1] == 0
+            fits = tile[1] <= 128 and (n % tile[1] == 0 or n % 64)
             assert q.bn == (tile[1] if fits else 64)
 
 
