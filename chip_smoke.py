@@ -16,7 +16,8 @@ tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
 lanes, escapes, a count below the lane count and of 0, z -> y -> y
 threading).  Checks the stages of the six full-width models (DMCI, HTS,
 HTL, LD, DCVC-RT's intra and P models) in bf16 on the card against
-float32 on the CPU, and one TINY
+float32 on the CPU, those of EVC and IntraNoAR (float32) on the card
+against the CPU at 256x256, and one TINY
 DMCI and one TINY HTS 2-chunk training step on the card against the same
 steps on the CPU (float32, TF32 off).  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
@@ -43,6 +44,15 @@ every K2 launch's inputs:
     the meta device (perf_probe.rt_stage_launches: 42 / 32 per intra
     encode / decode, none in the P model, whose two-way DCBs run plain
     PyTorch as in the JAX package) and must match the card's;
+  - the legacy intra codecs (float32, RGB in [0, 1]): EVCCodec at
+    EVC_CONFIG and IntraNoARCodec at INTRA_NOAR_CONFIG at 1080p and 720p,
+    the scalable EVC (SCALABLE_EVC_CONFIG) and FM's IntraNoAR (N 256) at
+    720p, each at q_scale 0.8 and 1.4 (seeded random weights at
+    init_scale 0.4, lifted so that symbols are coded:
+    perf_probe.lifted_legacy_intra): the bytes written and decoded back
+    bit-exact, two encodes equal, the warm 1080p encode and decode timed;
+    their blocks are not K1's, so this part launches no kernel (derived
+    from the models on the meta device, perf_probe.legacy_intra_launches);
   - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
     float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
     stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
@@ -62,16 +72,21 @@ every K2 launch's inputs:
     on a seeded 1080p YUV420 file written into a temporary directory of
     the checkout (LD, HTS, and LD at two rates), then one point again
     with fresh codecs (the same .bin) and with device_ec (the same bits
-    and PSNRs per frame); and dcvc_tpu_torch.eval.family_main --model rt
-    on a seeded 1080p YUV420 file of 6 frames (gop 4, 2 rates), twice with
+    and PSNRs per frame), and LD on a seeded sequence of 3 1080p PNGs
+    read and written without PIL (--save_decoded_frame: the decoded PNGs
+    give the harness's PSNRs); and dcvc_tpu_torch.eval.family_main --model
+    rt in float32 (the reference's type; every DCB plain, so no K1) on a
+    seeded 1080p YUV420 file of 6 frames (gop 4, 2 rates), twice with
     fresh codecs: every frame bit-exact, the same .bin bytes.
   - the evaluation surface, each part timed: params.v1 (the float32
     DMCI and HTS models written by save_native, read by load_native_into,
     their codecs coding a 1080p frame and a chunk to the in-memory
     codecs' bytes and DPB); the image CLI (image_main on three seeded
-    PNGs, 1920x1080, 1280x720 and 768x512, host and device decodes, every
-    image bit-exact); the workers (video_main --worker 2, two spawned
-    processes on the one card, against --worker 1: the same .bin bytes
+    PNGs, 1920x1080, 1280x720 and 768x512, host and device decodes, then
+    --i_frame_model evc and intra_noar on params.v1 files of the legacy
+    part's weights; every image bit-exact); the workers (video_main
+    --worker 2, two spawned processes on the one card, against --worker
+    1: the same .bin bytes
     and numbers; the pool's launches are its processes' and not counted
     here); the BD gate (bd_gate, random full-width weights,
     --allow_extrapolation, 4 rates on a 256x384 sequence of GATE_FRAMES
@@ -135,14 +150,19 @@ from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig, TINY_CONFIG
 from dcvc_tpu_torch.kernels._build import library_path
 from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, INDEX_MAP, RT_CONFIG, \
     shift_qp
+from dcvc_tpu_torch.legacy.evc import EVC_CONFIG, SCALABLE_EVC_CONFIG
+from dcvc_tpu_torch.legacy.hem_intra import INTRA_NOAR_CONFIG, \
+    INTRA_NOAR_FM_CONFIG
 from dcvc_tpu_torch.legacy.rt_intra import DMCIRT, DMCIRTConfig
 from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
     k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
-    k2_latency_bound_ms, ld_stage_launches, make_sequence, \
+    k2_latency_bound_ms, ld_stage_launches, legacy_intra_launches, \
+    lifted_legacy_intra, make_sequence, \
     max_sm_clock_mhz, nvidia_smi, profile_launches, run_k2_case, \
     rt_stage_launches, sass_counts, smooth_frame, TRAIN_CELLS, \
     TRAIN_INIT_SCALE, damped_model, train_setup
+from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
 from dcvc_tpu_torch.runtime.rt_image_codec import RTIntraCodec
 from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec, DMCLDCodec
@@ -154,8 +174,9 @@ from dcvc_tpu_torch.utils.checkpoint import load_latest_status, \
     load_reference_into, save_reference
 from dcvc_tpu_torch.utils.jax_bridge import load_native_into, \
     native_config, save_native
+from dcvc_tpu_torch.utils.metrics import calc_psnr
 from dcvc_tpu_torch.utils.model_complexity import model_macs_per_pixel
-from dcvc_tpu_torch.utils.png import write_png
+from dcvc_tpu_torch.utils.png import load_rgb, write_png
 
 K1_SOURCE = "dcvc_tpu_torch/csrc/fused_dcb.cu"
 K2_SOURCE = "dcvc_tpu_torch/csrc/rans_decode.cu"
@@ -238,6 +259,27 @@ RT_CASES = [(1080, 1920, 32, 13, 7), (720, 1280, 32, 14, 2)]
 RT_FORCE_EC = 2
 RT_K2_LAUNCHES = 3
 RT_FAMILY_FRAMES = 6
+# the legacy intra codecs (RGB in [0, 1], float32, the weights of
+# perf_probe.lifted_legacy_intra): (name, codec class, config, seed,
+# sizes), each size at the two q_scales of tests/test_evc_codec.py; the
+# warm 1080p encodes and decodes timed per codec (median); the card-vs-CPU
+# stage check's side and its bound on the relative RMS error (float32 on
+# both, TF32 off: the two differ in summation order only, ~1e-6 relative
+# per layer over ~40 layers)
+LEGACY_CODECS = [
+    ("EVC", EVCCodec, EVC_CONFIG, 20, ((1080, 1920), (720, 1280))),
+    ("IntraNoAR", IntraNoARCodec, INTRA_NOAR_CONFIG, 21,
+     ((1080, 1920), (720, 1280))),
+    ("scalable EVC", EVCCodec, SCALABLE_EVC_CONFIG, 22, ((720, 1280),)),
+    ("IntraNoAR FM", IntraNoARCodec, INTRA_NOAR_FM_CONFIG, 23,
+     ((720, 1280),)),
+]
+LEGACY_Q_SCALES = (0.8, 1.4)
+LEGACY_TIMED = 3
+LEGACY_STAGE_SIDE = 256
+LEGACY_STAGE_REL_TOL = 1e-4
+# the evaluation entry's PNG source: PNG_FRAMES seeded 1080p frames
+PNG_FRAMES = 3
 # the evaluation entry's phase: a seeded 1080p YUV420 file of CLI_FRAMES
 # frames, one intra frame then P frames (intra_period -1)
 CLI_FRAMES = 10
@@ -877,15 +919,15 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log, cases=None):
     return tuple(derived)
 
 
-def rt_spec():
-    """DCVC-RT's K1 launches per call, from the models on the meta device
-    (perf_probe.rt_stage_launches, at each RT_CASES size): {"encode",
-    "decode"} of the intra codec and the P codec's stage counts
+def rt_spec(dtype=torch.bfloat16):
+    """DCVC-RT's K1 launches per call, from the models in `dtype` on the
+    meta device (perf_probe.rt_stage_launches, at each RT_CASES size):
+    {"encode", "decode"} of the intra codec and the P codec's stage counts
     {"p.<stage>"}; and the distinct K1 shapes, which the card's launch log
     must repeat."""
     shapes, counts = set(), set()
     for (h, w, *_) in RT_CASES:
-        stages = rt_stage_launches(DMCIRTConfig(), RT_CONFIG, h, w)
+        stages = rt_stage_launches(DMCIRTConfig(), RT_CONFIG, h, w, dtype)
         n = {k: sum(v.values()) for k, v in stages.items()}
         counts.add(tuple(sorted(n.items())))
         for v in stages.values():
@@ -896,7 +938,7 @@ def rt_spec():
         + n["synthesis"]
     spec = {"encode": n["analysis"] + decode, "decode": decode,
             **{k: v for k, v in n.items() if k.startswith("p.")}}
-    log(f"RT K1 launches from the models: intra per stage "
+    log(f"RT K1 launches from the models in {dtype}: intra per stage "
         f"{ {k: v for k, v in n.items() if not k.startswith('p.')} }; "
         f"encode {spec['encode']}, decode {spec['decode']}; P codec per "
         f"stage { {k: v for k, v in n.items() if k.startswith('p.')} } (its "
@@ -1061,11 +1103,14 @@ def phase_rt(intra, pcodec, spec, dev, launch_log, k2_log):
 
 def phase_rt_family(dev, launch_log, spec):
     """The family entry on the card: family_main.main --model rt (full
-    widths, bf16, seeded random weights) on a seeded 1080p YUV420 file of
+    widths, float32 by default as the reference codes the legacy family,
+    seeded random weights) on a seeded 1080p YUV420 file of
     RT_FAMILY_FRAMES frames, gop 4, 2 rates, run twice with codecs built
     anew: exit code 0 (every frame bit-exact), finite PSNRs, bpp > 0, and
     the second run's .bin bytes and JSON numbers those of the first.
-    Returns the (S = 1, stacked, K2) launches derived for it."""
+    spec: rt_spec(torch.float32), the launches derived from the models in
+    float32 (every DCB plain: none).  Returns the (S = 1, stacked, K2)
+    launches derived for it."""
     t0 = time.perf_counter()
     root = scratch_dir("rt_family")
     per_rate = 0
@@ -1120,6 +1165,151 @@ def phase_rt_family(dev, launch_log, spec):
     return tuple(2 * n for n in want)       # 2 runs
 
 
+# ------------------------------------------------ the legacy intra codecs
+
+def legacy_codecs(dev):
+    """{name: codec} of LEGACY_CODECS on the card, float32."""
+    return {name: cls(lifted_legacy_intra(cls.MODEL_CLS, cfg, seed)
+                      .state_dict(), cfg=cfg, device=dev)
+            for name, cls, cfg, seed, _ in LEGACY_CODECS}
+
+
+def phase_stages_legacy(name, codec):
+    """The full-width legacy intra model's stages on the card against the
+    same model on the CPU, both float32, on a LEGACY_STAGE_SIDE square
+    frame: analysis y, the prior's (q_step, scales, means) and spatial's
+    (scales, means) on the CPU's z and rounded y, and synthesis of that
+    y; z's share of differing symbols is printed.  Fails above
+    LEGACY_STAGE_REL_TOL (relative RMS)."""
+    gpu, dev = codec.model, codec.device
+    cpu = codec.MODEL_CLS(codec.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    side = LEGACY_STAGE_SIDE
+    x = smooth_frame(side, side, 31, torch.device("cpu")) + 0.5
+    qs = torch.tensor(0.8)
+    out = {}
+    with torch.inference_mode():
+        for where, model, d in (("cpu", cpu, torch.device("cpu")),
+                                ("card", gpu, dev)):
+            y, z = model.analysis(x.to(d), qs.to(d))
+            if where == "cpu":
+                z_cpu, y_hat = z, torch.round(y)
+            prior = model.prior(z_cpu.to(d))
+            spatial = model.spatial(y_hat.to(d), *prior)
+            out[where] = {"analysis y": y, "z": z,
+                           **dict(zip(("prior q_step", "prior scales",
+                                       "prior means"), prior)),
+                           "spatial scales": spatial[0],
+                           "spatial means": spatial[1],
+                           "synthesis x_hat": model.synthesis(y_hat.to(d),
+                                                              qs.to(d))}
+    z_diff = (out["card"].pop("z").cpu() != out["cpu"].pop("z")).float()
+    errs = {k: rel_rms(out["card"][k], v) for k, v in out["cpu"].items()}
+    log(f"{name} stages on the card vs the CPU, float32, {side}x{side}, "
+        f"relative RMS (tol {LEGACY_STAGE_REL_TOL}): {json.dumps(errs)}; "
+        f"z symbols differing: {z_diff.mean().item()}")
+    bad = [k for k, e in errs.items() if not e <= LEGACY_STAGE_REL_TOL]
+    if bad:
+        raise AssertionError(f"{name} stage outputs disagree with the CPU: "
+                             f"{bad}")
+
+
+def legacy_launches(cls, cfg, h, w):
+    """(S = 1, stacked, K2) launches of one encode and of one decode of a
+    legacy intra codec, from the model on the meta device
+    (perf_probe.legacy_intra_launches): its blocks are not K1's and its
+    decode has no device path, so none."""
+    n = {k: sum(v.values())
+         for k, v in legacy_intra_launches(cls.MODEL_CLS, cfg, h, w).items()}
+    decode = n["prior"] + n["spatial"] + n["synthesis"]
+    return (n["analysis"] + decode, 0, 0), (decode, 0, 0)
+
+
+def psnr01(x_hat, x):
+    """PSNR in dB of a [0, 1] reconstruction against its [0, 1] source."""
+    mse = torch.mean((x_hat.float() - x.float()) ** 2).item()
+    return 10 * np.log10(1.0 / mse)
+
+
+def phase_legacy_intra(dev, launch_log, codecs):
+    """The legacy intra codecs on the card (LEGACY_CODECS, full published
+    widths, float32): at each size and q_scale, encode a seeded frame,
+    write the bytes, read them back and decode them: the decoder's x_hat
+    equals the encoder's bit for bit, and a second encode gives the same
+    bytes.  At 1080p the warm encode and decode of EVC and IntraNoAR are
+    timed (median of LEGACY_TIMED calls each, host clock, synchronised:
+    an encode ends with the host rANS coder, a decode with its x_hat on
+    the card), with bpp and PSNR.  Returns the (S = 1, stacked, K2)
+    launches derived for it (none)."""
+    t0 = time.perf_counter()
+    root = scratch_dir("legacy")
+    derived = [0, 0, 0]
+    try:
+        for name, cls, cfg, seed, sizes in LEGACY_CODECS:
+            codec = codecs[name]
+            for h, w in sizes:
+                enc_n, dec_n = legacy_launches(cls, cfg, h, w)
+                x = smooth_frame(h, w, seed + h, dev) + 0.5
+                for qs in LEGACY_Q_SCALES:
+                    label = f"legacy {name} {w}x{h} q_scale {qs}"
+                    res, enc_ms, *n = counted(
+                        launch_log, f"{label} encode",
+                        lambda: codec.compress(x, qs))
+                    expect(f"{label} encode", tuple(n), enc_n)
+                    again, _, *n = counted(launch_log, f"{label} encode 2",
+                                           lambda: codec.compress(x, qs))
+                    expect(f"{label} encode 2", tuple(n), enc_n)
+                    path = os.path.join(root, "frame.bin")
+                    with open(path, "wb") as f:
+                        f.write(res["bit_stream"])
+                    with open(path, "rb") as f:
+                        stream = f.read()
+                    out, dec_ms, *n = counted(
+                        launch_log, f"{label} decode",
+                        lambda: codec.decompress(stream, qs, h, w))
+                    expect(f"{label} decode", tuple(n), dec_n)
+                    for i in range(3):
+                        derived[i] += 2 * enc_n[i] + dec_n[i]
+                    if again["bit_stream"] != res["bit_stream"] \
+                            or not torch.equal(out["x_hat"], res["x_hat"]) \
+                            or out["x_hat"].shape != (1, h, w, 3):
+                        raise AssertionError(f"{label}: not bit-exact or "
+                                             f"not repeatable")
+                    bpp = len(res["bit_stream"]) * 8 / (h * w)
+                    log(f"{label}: {len(res['bit_stream'])} bytes, bpp={bpp} "
+                        f"psnr={psnr01(out['x_hat'], x)} bit-exact, two "
+                        f"encodes equal (cold encode {enc_ms} ms, decode "
+                        f"{dec_ms} ms)")
+                if h != 1080 or name not in ("EVC", "IntraNoAR"):
+                    continue
+                qs = LEGACY_Q_SCALES[0]
+                times = {"encode": [], "decode": []}
+                for _ in range(LEGACY_TIMED):
+                    res, ms, *n = counted(launch_log, f"{name} timed encode",
+                                          lambda: codec.compress(x, qs))
+                    times["encode"].append(ms)
+                    expect(f"{name} timed encode", tuple(n), enc_n)
+                    out, ms, *n = counted(
+                        launch_log, f"{name} timed decode",
+                        lambda: codec.decompress(res["bit_stream"], qs, h, w))
+                    times["decode"].append(ms)
+                    expect(f"{name} timed decode", tuple(n), dec_n)
+                    for i in range(3):
+                        derived[i] += enc_n[i] + dec_n[i]
+                log(f"legacy {name} 1920x1080 q_scale {qs} warm: "
+                    f"encode_ms={statistics.median(times['encode'])} "
+                    f"decode_ms={statistics.median(times['decode'])} "
+                    f"(median of {LEGACY_TIMED}: {json.dumps(times)}) "
+                    f"bpp={len(res['bit_stream']) * 8 / (h * w)} "
+                    f"psnr={psnr01(out['x_hat'], x)}")
+    finally:
+        shutil.rmtree(root)
+    log(f"legacy intra: {len(LEGACY_CODECS)} codecs, every round trip "
+        f"bit-exact and repeatable, no kernel launched "
+        f"({time.perf_counter() - t0:.3f} s)")
+    return tuple(derived)
+
+
 def write_cli_inputs(root, dev, frames=CLI_FRAMES, seed=8,
                      intra_period=-1):
     """A seeded YUV420 file of `frames` CLI_W x CLI_H frames (the drifting
@@ -1167,12 +1357,37 @@ def cli_launches(spec, point, device_ec=False):
     return tuple(total)
 
 
-def check_point(tag, res):
+def write_png_inputs(root, dev, frames=PNG_FRAMES, seed=9):
+    """A seeded numbered-PNG sequence of `frames` CLI_W x CLI_H frames (the
+    drifting picture of make_sequence, read as RGB), written by
+    utils/png.py, and a test_config naming it (src_type png, one intra
+    frame), under `root`.  Returns (config path, sequence name, the
+    frames' paths)."""
+    seq = f"smoke_png_{CLI_W}x{CLI_H}"
+    folder = os.path.join(root, "SmokePNG", seq)
+    os.makedirs(folder)
+    paths = []
+    for i, frame in enumerate(make_sequence(CLI_H, CLI_W, frames, seed,
+                                            dev)):
+        paths.append(os.path.join(folder, f"im{i + 1:05d}.png"))
+        write_png(paths[-1], torch.round((frame[0] + 0.5) * 255).to(
+            torch.uint8).cpu().numpy())
+    cfg = {"root_path": root, "test_classes": {"SmokePNG": {
+        "test": 1, "base_path": "SmokePNG", "src_type": "png",
+        "sequences": {seq: {"width": CLI_W, "height": CLI_H,
+                            "frames": frames, "intra_period": -1}}}}}
+    path = os.path.join(root, "test_config_png.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path, seq, paths
+
+
+def check_point(tag, res, frames=CLI_FRAMES):
     """A point's result: every frame coded, finite PSNR, bpp > 0."""
-    frames = res["i_frame_num"] + res["p_frame_num"]
-    if frames != CLI_FRAMES or not np.isfinite(res["ave_all_frame_psnr"]) \
+    coded = res["i_frame_num"] + res["p_frame_num"]
+    if coded != frames or not np.isfinite(res["ave_all_frame_psnr"]) \
             or not res["ave_all_frame_bpp"] > 0:
-        raise AssertionError(f"{tag}: {frames} frames, psnr "
+        raise AssertionError(f"{tag}: {coded} frames, psnr "
                              f"{res['ave_all_frame_psnr']}, bpp "
                              f"{res['ave_all_frame_bpp']}")
 
@@ -1186,8 +1401,12 @@ def phase_cli(dev, launch_log):
     checked.  Then the first point again through
     run_one_point_with_stream, with codecs built anew: the same .bin
     bytes, and with device_ec=True (K2) the same bits and PSNRs per
-    frame.  Its K2 calls are not replayed.  Returns the (S = 1, stacked,
-    K2) launches derived for it, each call's checked."""
+    frame.  Last, a seeded sequence of PNG_FRAMES 1080p PNGs through
+    video_main --model_structure ld --save_decoded_frame 1 (this machine
+    has no PIL): the point checked, and the decoded PNG files read back
+    give the harness's PSNR per frame.  Its K2 calls are not replayed.
+    Returns the (S = 1, stacked, K2) launches derived for it, each call's
+    checked."""
     derived = [0, 0, 0]
     root = tempfile.mkdtemp(prefix="_smoke_cli_",
                             dir=os.path.dirname(os.path.abspath(__file__)))
@@ -1266,6 +1485,42 @@ def phase_cli(dev, launch_log):
             f"checked; the first point again: .bin byte-identical, host and "
             f"device (K2) decodes equal in bits and PSNR per frame "
             f"({len(host['frame_psnr'])} frames)")
+
+        # a PNG source, read and written without PIL (utils/png_frames.py)
+        png_cfg, png_seq, sources = write_png_inputs(root, dev)
+        args = ["--test_config", png_cfg, "--model_structure", "ld",
+                "--output_path", os.path.join(root, "png.json"),
+                "--stream_path", os.path.join(root, "png_out"),
+                "--save_decoded_frame", "1", "--verbose_json", "1",
+                *one_rate]
+        label = "CLI LD png source"
+        result, ms, *n = counted(launch_log, label,
+                                 lambda: video_main.main(args))
+        point = video_main.build_points(video_main.parse_args(args),
+                                        DMCIConfig().qp_num)[0][0]
+        want = cli_launches(VIDEO["LD"], point)
+        expect(label, tuple(n), want)
+        for i in range(3):
+            derived[i] += want[i]
+        res = result["SmokePNG"][png_seq]["000"]
+        check_point(label, res, PNG_FRAMES)
+        decoded = sorted(f for f in os.listdir(point["bin_folder"])
+                         if f.endswith(".png"))
+        if decoded != [os.path.basename(p) for p in sources]:
+            raise AssertionError(f"{label}: decoded frames {decoded}")
+        psnrs = []
+        for name, src in zip(decoded, sources):
+            rec = load_rgb(os.path.join(point["bin_folder"], name))
+            psnrs.append(calc_psnr(load_rgb(src).astype(np.float64),
+                                   rec.astype(np.float64)))
+        if not np.allclose(psnrs, res["frame_psnr"], rtol=0, atol=1e-9):
+            raise AssertionError(f"{label}: the decoded PNGs' PSNRs {psnrs} "
+                                 f"differ from the harness's "
+                                 f"{res['frame_psnr']}")
+        log(f"{label}: {PNG_FRAMES} frames of {CLI_W}x{CLI_H} PNGs, "
+            f"bpp={res['ave_all_frame_bpp']} psnr={res['ave_all_frame_psnr']}"
+            f"; the decoded PNGs (--save_decoded_frame) give the harness's "
+            f"PSNR per frame (run {ms} ms with its codec builds)")
     finally:
         shutil.rmtree(root)
     return tuple(derived)
@@ -1353,7 +1608,10 @@ def phase_image_cli(dev, launch_log):
     """image_main (DMCIConfig(), bf16, seeded random weights, skip 0.15) on
     three seeded PNGs, with and without device_ec: every image bit-exact
     (exit code 0), the .bin files and the bits and PSNRs of the two runs
-    equal.  Returns the (S = 1, stacked, K2) launches derived for it."""
+    equal.  Then image_main --i_frame_model evc and intra_noar on the same
+    PNGs (float32, --model_path: a params.v1 file of the legacy phase's
+    weights, written by save_native): every image bit-exact, exit code 0.
+    Returns the (S = 1, stacked, K2) launches derived for it."""
     t0 = time.perf_counter()
     root = scratch_dir("image")
     derived = [0, 0, 0]
@@ -1401,10 +1659,42 @@ def phase_image_cli(dev, launch_log):
                 (a["bpp"], a["psnr"]) != (b["bpp"], b["psnr"]) for a, b in
                 zip(res0["per_image"].values(), res1["per_image"].values())):
             raise AssertionError("image CLI: the device_ec run differs")
+        for model, cls, cfg, seed in (
+                ("evc", EVCCodec, EVC_CONFIG, 20),
+                ("intra_noar", IntraNoARCodec, INTRA_NOAR_CONFIG, 21)):
+            path = os.path.join(root, f"{model}.bin")
+            save_native(lifted_legacy_intra(cls.MODEL_CLS, cfg, seed), path)
+            argv = ["--i_frame_model", model, "--model_path", path,
+                    "--image_path", os.path.join(root, "png"),
+                    "--stream_path", os.path.join(root, f"bin_{model}"),
+                    "--output_path", os.path.join(root, f"{model}.json"),
+                    "--q_scale", "1.1", "--device", dev.type]
+            label = f"image CLI --i_frame_model {model}"
+            rc, ms, *n = counted(launch_log, label,
+                                 lambda: image_main.main(argv))
+            want = [0, 0, 0]
+            for h, w, _ in IMAGE_CASES:
+                for launches in legacy_launches(cls, cfg, h, w):
+                    want = [a + b for a, b in zip(want, launches)]
+            expect(label, tuple(n), tuple(want))
+            derived = [a + b for a, b in zip(derived, want)]
+            with open(os.path.join(root, f"{model}.json")) as f:
+                result = json.load(f)
+            if rc != 0 or len(result["per_image"]) != len(IMAGE_CASES) \
+                    or not all(r["bitexact"]
+                               for r in result["per_image"].values()):
+                raise AssertionError(f"{label}: exit code {rc}, "
+                                     f"{result['per_image']}")
+            log(f"{label} (params.v1 of the legacy phase's weights): "
+                + "; ".join(f"{name} ms={1e3 * r['time']} bpp={r['bpp']} "
+                            f"psnr={r['psnr']} bitexact={r['bitexact']}"
+                            for name, r in result["per_image"].items())
+                + f" (run {ms} ms with its codec build)")
     finally:
         shutil.rmtree(root)
-    log(f"image CLI: {len(IMAGE_CASES)} images x 2 runs bit-exact, host and "
-        f"device decodes equal ({time.perf_counter() - t0:.3f} s)")
+    log(f"image CLI: {len(IMAGE_CASES)} images x 4 runs bit-exact (DMCI "
+        f"host and device decodes equal; EVC, IntraNoAR) "
+        f"({time.perf_counter() - t0:.3f} s)")
     return tuple(derived)
 
 
@@ -1883,11 +2173,15 @@ def main():
         torch.Generator().manual_seed(1), cfg=RT_CONFIG, init_scale=0.4,
         skip_thres=0.15, dtype=torch.bfloat16, device=dev)
     rt, rt_shapes = rt_spec()
+    rt_f32, _ = rt_spec(torch.float32)
+    legacy = legacy_codecs(dev)
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
     phase_stages(rt_intra, "RT intra")
     phase_stages_video("RT", rt_p)
+    for name in ("EVC", "IntraNoAR"):
+        phase_stages_legacy(name, legacy[name])
     phase_train_parity(dev)
 
     # the main path, one part at a time, each with the counts set to 0
@@ -1900,7 +2194,9 @@ def main():
                                              launch_log, k2_log))
               for name in VIDEO]
     parts += [("DCVC-RT", lambda: phase_rt(rt_intra, rt_p, rt, dev,
-                                           launch_log, k2_log))]
+                                           launch_log, k2_log)),
+              ("legacy intra", lambda: phase_legacy_intra(dev, launch_log,
+                                                          legacy))]
     parts += [("training", lambda: phase_train(dev)),
               ("trainers -> codecs",
                lambda: phase_trained_codecs(dev, launch_log, k2_log))]
@@ -1914,7 +2210,8 @@ def main():
         # parts whose K2 calls are counted, not replayed
         counted_only = [
             ("CLI", lambda: phase_cli(dev, launch_log)),
-            ("RT family", lambda: phase_rt_family(dev, launch_log, rt)),
+            ("RT family", lambda: phase_rt_family(dev, launch_log,
+                                                  rt_f32)),
             ("params.v1", lambda: phase_params_v1(dmci, video["HTS"], dev,
                                                   launch_log)),
             ("image CLI", lambda: phase_image_cli(dev, launch_log)),

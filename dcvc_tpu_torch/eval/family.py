@@ -12,8 +12,13 @@ DC, HEM, TCM, DCVC) are not ported yet (ROADMAP.md §1 item 7) and raise.
 The JAX runner's estimated-bits fast mode (run_sequence_fast) is not
 ported: it never takes RT.
 
-All legacy models work on RGB in [0, 1].  The codecs run in bfloat16 on a
-CUDA device and in float32 on the CPU.
+All legacy models work on RGB in [0, 1].  The codecs run in float32 on
+every device, as dcvc_tpu's runner builds them (its RT codecs in f32 on
+every backend, eval/family.py:157-167; the other legacy codecs default
+to f32); bfloat16 only when the caller asks for it (`dtype`,
+family_main --dtype bf16).  In float32 the RT intra trunk's
+DepthConvBlocks take the plain PyTorch block on the card too
+(layers/blocks.py kernel_path), as the reference's do.
 """
 
 import math
@@ -67,18 +72,30 @@ def _with_params(codec, path, cls, default_cfg):
                        device=codec.device)
 
 
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def family_dtype(device, dtype=None):
+    """The dtype the runner builds its codecs in: float32 on every device
+    (`device` does not change it: the CPU and a card alike), unless
+    `dtype` ("f32" / "bf16", or a torch dtype) asks for another."""
+    del device
+    return torch.float32 if dtype is None else DTYPES.get(dtype, dtype)
+
+
 class FamilyRunner:
     """Per-model adapter: builds the codecs, encodes and decodes a sequence
     through the model's own container format.
 
-    device: the codecs' torch device (bfloat16 on a CUDA device, float32
-    on the CPU).  Seeded random weights unless model_path_i / model_path_p
-    name model files (dcvc_tpu.params.v1, as the JAX runner takes them, or
-    reference .pth.tar)."""
+    device: the codecs' torch device; dtype: family_dtype's (float32
+    unless "bf16" is asked for).  Seeded random weights unless
+    model_path_i / model_path_p name model files (dcvc_tpu.params.v1, as
+    the JAX runner takes them, or reference .pth.tar)."""
 
     def __init__(self, model, stream_dir, rate_num=1, tiny=False,
                  seed=0, verify_bitexact=True,
-                 model_path_i=None, model_path_p=None, device="cuda"):
+                 model_path_i=None, model_path_p=None, device="cuda",
+                 dtype=None):
         if model not in MODELS:
             raise ValueError(
                 f"model {model!r}: the port runs {MODELS}; "
@@ -89,6 +106,7 @@ class FamilyRunner:
         self.rate_num = rate_num
         self.verify = verify_bitexact
         self.device = torch.device(device)
+        self.dtype = family_dtype(self.device, dtype)
         os.makedirs(stream_dir, exist_ok=True)
         self._build(seed, tiny)
         if model_path_i:
@@ -99,8 +117,7 @@ class FamilyRunner:
                                         DMCRTConfig())
 
     def _build(self, seed, tiny):
-        kw = {"dtype": torch.bfloat16 if self.device.type == "cuda"
-              else torch.float32, "device": self.device}
+        kw = {"dtype": self.dtype, "device": self.device}
         self.i_codec = RTIntraCodec.init_random(
             torch.Generator().manual_seed(seed),
             cfg=TINY_RT_INTRA_CONFIG if tiny else None, **kw)

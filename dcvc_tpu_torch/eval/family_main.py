@@ -6,13 +6,13 @@ a model end to end over its own stream container, decoded from disk.
         --stream_path streams --output_path result.json [--device cpu]
 
 The arguments and the result JSON are test_video_family.py's, with
-`--device` (default cuda; the codecs run in bfloat16 there, in float32
-on the CPU).  The port runs `--model rt` (eval/family.py); the other
-models raise, as does `--fast`.  Sources are PNG folders (read with
-utils/png.py: the machine with the card has no PIL) or YUV420 files,
-converted to RGB with the BT.709 transforms of core/color.py as the JAX
-CLI does.  Exits 1 when a sequence's decode is not bit-exact with its
-encode.
+`--device` (default cuda) and `--dtype` (default f32, the reference's
+type on every device; bf16 on request).  The port runs `--model rt`
+(eval/family.py); the other models raise, as does `--fast`.  Sources are
+PNG folders (read with utils/png.py: the machine with the card has no
+PIL) or YUV420 files, converted to RGB with the BT.709 transforms of
+core/color.py as the JAX CLI does.  Exits 1 when a sequence's decode is
+not bit-exact with its encode.
 """
 
 import argparse
@@ -54,6 +54,9 @@ def parse_args(argv=None):
                    help="P-codec model file")
     p.add_argument("--device", default="cuda",
                    help="torch device of the codecs (cuda or cpu)")
+    p.add_argument("--dtype", default="f32", choices=("f32", "bf16"),
+                   help="the codecs' type (f32, as the reference codes "
+                        "the legacy family)")
     return p.parse_args(argv)
 
 
@@ -96,7 +99,7 @@ def main(argv=None):
                           rate_num=args.rate_num, tiny=args.tiny,
                           seed=args.seed, model_path_i=args.model_path_i,
                           model_path_p=args.model_path_p,
-                          device=args.device)
+                          device=args.device, dtype=args.dtype)
 
     results = {}
     for cls_name, cls in cfg["test_classes"].items():

@@ -6,9 +6,11 @@ argument names, same nested {class -> seq -> rate} output, same per-point
 log via generate_log_json), and the JAX harness's .bin layout: the same
 bits, JSON fields and warm-up discard.  Frames are read on the host as
 numpy, handed to the codecs (which move them to their device) and come
-back as numpy for the metrics.  Timing is the host clock around codec
-calls that end on the host: an encode ends with the host rANS coder, a
-decode with the copy of its frames to the host.
+back as numpy for the metrics.  PNG sequences are read and written
+through utils/png_frames.py (no PIL: the machine with the card has
+none).  Timing is the host clock around codec calls that end on the
+host: an encode ends with the host rANS coder, a decode with the copy of
+its frames to the host.
 """
 
 import io
@@ -27,7 +29,8 @@ from ..core.color import rgb2ycbcr_np, ycbcr2rgb, ycbcr420_to_444_np, \
     yuv_444_to_420_np
 from ..utils.logjson import generate_log_json
 from ..utils.metrics import calc_msssim, calc_msssim_rgb, calc_psnr
-from ..utils.video_io import PNGReader, PNGWriter, YUV420Reader, YUV420Writer
+from ..utils.png_frames import PNGReader, PNGWriter
+from ..utils.video_io import YUV420Reader, YUV420Writer
 
 
 def get_src_reader(args):

@@ -16,14 +16,21 @@ test_image.py:108-125.
 
 The arguments are test_image.py's, plus `--device` (default cuda; with
 no card it raises) and `--device_ec` (decode the stream on the device,
-K2).  Only `--i_frame_model dmci` is ported; evc, intra_noar, cheng2020
-and bmshj2018 are the legacy family (ROADMAP.md §1 item 7) and raise.
---model_path takes a dcvc_tpu.params.v1 file (its header's config wins
-over --tiny; float32, skip 0, as test_image.py runs a trained gate) or a
-reference .pth.tar at the published config (TINY under --tiny; the
-random weights' dtype and skip 0.15).  Without it the weights are
-seeded random: bfloat16 on a card at the published config, float32 on
-the CPU or under --tiny.
+K2).  `--i_frame_model dmci` codes at `--qp`; --model_path takes a
+dcvc_tpu.params.v1 file (its header's config wins over --tiny; float32,
+skip 0, as test_image.py runs a trained gate) or a reference .pth.tar at
+the published config (TINY under --tiny; the random weights' dtype and
+skip 0.15).  Without it the weights are seeded random: bfloat16 on a
+card at the published config, float32 on the CPU or under --tiny.
+
+`--i_frame_model evc | intra_noar` (runtime/evc_codec.py) code RGB in
+[0, 1] at `--q_scale`, in float32 on every device, as test_image.py:
+74-85 builds them: EVC_CONFIG / INTRA_NOAR_CONFIG (TINY_* under --tiny),
+seeded random weights damped by init_scale 0.4, or --model_path's (a
+params.v1 file, its header's config winning; for EVC also a reference
+.pth.tar at the published config).  The JAX codecs have no device
+decode, so --device_ec 1 raises with either.  cheng2020 and bmshj2018
+are not ported yet (ROADMAP.md §1 item 7) and raise.
 """
 
 import argparse
@@ -37,20 +44,27 @@ import numpy as np
 import torch
 
 from ..core.color import rgb2ycbcr_np, ycbcr2rgb
+from ..legacy.evc import EVC_CONFIG, TINY_EVC_CONFIG
+from ..legacy.hem_intra import INTRA_NOAR_CONFIG, TINY_INTRA_NOAR_CONFIG
 from ..models.dmci import DMCI, DMCIConfig, TINY_CONFIG
+from ..runtime.evc_codec import EVCCodec, IntraNoARCodec
 from ..runtime.image_codec import DMCICodec
 from ..utils.jax_bridge import is_native, load_into, native_config
 from ..utils.metrics import calc_psnr
 from ..utils.png import load_rgb
 from .video_main import check_device, str2bool
 
-LEGACY = ("evc", "intra_noar", "cheng2020", "bmshj2018")
+# the legacy intra codecs: (codec class, published config, TINY config)
+LEGACY_INTRA = {"evc": (EVCCodec, EVC_CONFIG, TINY_EVC_CONFIG),
+                "intra_noar": (IntraNoARCodec, INTRA_NOAR_CONFIG,
+                               TINY_INTRA_NOAR_CONFIG)}
+NOT_PORTED = ("cheng2020", "bmshj2018")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--i_frame_model", default="dmci",
-                   choices=("dmci",) + LEGACY)
+                   choices=("dmci",) + tuple(LEGACY_INTRA) + NOT_PORTED)
     p.add_argument("--image_path", required=True,
                    help="folder of .png images")
     p.add_argument("--qp", type=int, default=32)
@@ -71,13 +85,37 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def build_legacy_codec(args, device):
+    """The EVCCodec / IntraNoARCodec of the arguments: float32 (as
+    test_image.py builds them), seeded random weights at init_scale 0.4
+    or --model_path's."""
+    if args.device_ec:
+        raise ValueError(f"--device_ec: the {args.i_frame_model} codec has "
+                         f"no device entropy decode (the JAX package's has "
+                         f"none); decode through the host coder")
+    cls, published, tiny = LEGACY_INTRA[args.i_frame_model]
+    default = tiny if args.tiny else published
+    if args.model_path:
+        if not is_native(args.model_path) and cls is not EVCCodec:
+            raise ValueError(f"{args.model_path}: IntraNoAR reads "
+                             f"dcvc_tpu.params.v1 files only (the JAX "
+                             f"package has no reference key map for it)")
+        cfg = native_config(args.model_path, cls.CONFIG_CLS, default)
+        model = load_into(cls.MODEL_CLS(cfg), args.model_path)
+        return cls(model.state_dict(), cfg=cfg, device=device)
+    return cls.init_random(torch.Generator().manual_seed(0), cfg=default,
+                           init_scale=0.4, device=device)
+
+
 def build_codec(args):
-    """The DMCICodec of the arguments on args.device."""
-    if args.i_frame_model != "dmci":
+    """The codec of --i_frame_model on args.device."""
+    if args.i_frame_model in NOT_PORTED:
         raise NotImplementedError(
-            f"--i_frame_model {args.i_frame_model}: the legacy codecs are "
-            f"not ported yet (ROADMAP.md §1 item 7); use dmci")
+            f"--i_frame_model {args.i_frame_model}: the CompressAI codecs "
+            f"are not ported yet (ROADMAP.md §1 item 7)")
     device = check_device(args.device)
+    if args.i_frame_model in LEGACY_INTRA:
+        return build_legacy_codec(args, device)
     kw = {"device": device, "device_ec": args.device_ec}
     default = TINY_CONFIG if args.tiny else DMCIConfig()
     if args.model_path and is_native(args.model_path):
@@ -120,6 +158,20 @@ def code_one(codec, qp, rgb01, bin_path):
     return _to_rgb(out["x_hat"]), len(res["bit_stream"]), bitexact
 
 
+def code_one_legacy(codec, q_scale, rgb01, bin_path):
+    """code_one for the EVC / IntraNoAR codecs: RGB in [0, 1] at
+    q_scale."""
+    h, w = rgb01.shape[:2]
+    res = codec.compress(rgb01[None].astype(np.float32), q_scale, h, w)
+    with open(bin_path, "wb") as f:
+        f.write(res["bit_stream"])
+    with open(bin_path, "rb") as f:
+        stream = f.read()
+    out = codec.decompress(stream, q_scale, h, w)
+    bitexact = bool(torch.equal(out["x_hat"], res["x_hat"]))
+    return out["x_hat"][0].cpu().numpy(), len(res["bit_stream"]), bitexact
+
+
 def main(argv=None):
     """Codes every PNG of --image_path; writes the JSON; returns the exit
     code (1 if an image is not bit-exact, 2 if there is no image)."""
@@ -141,8 +193,12 @@ def main(argv=None):
         bin_path = os.path.join(args.stream_path,
                                 name.replace(".png", ".bin"))
         t0 = time.time()
-        x_dec, n_bytes, bitexact = code_one(codec, args.qp, rgb01,
-                                            bin_path)
+        if args.i_frame_model in LEGACY_INTRA:
+            x_dec, n_bytes, bitexact = code_one_legacy(codec, args.q_scale,
+                                                       rgb01, bin_path)
+        else:
+            x_dec, n_bytes, bitexact = code_one(codec, args.qp, rgb01,
+                                                bin_path)
         dt = time.time() - t0
         bad += not bitexact
         rec = np.clip(np.round(x_dec * 255), 0, 255)

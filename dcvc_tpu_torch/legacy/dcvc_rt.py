@@ -249,18 +249,7 @@ class DMCRT(nn.Module):
         C, 1, 1), Q may be 1) stacked on a last axis into the h / b / a
         banks, as dcvc_tpu's importer does for key_fn_rt's `stack_last`
         entries; every other key as it is."""
-        state = dict(state)
-        for name in ("h", "b", "a"):
-            bank = getattr(self.bit_estimator_z, name)
-            kind, keys = key_fn_rt(("bit_estimator_z", name))
-            assert kind == "stack_last"
-            if not all(k in state for k in keys):
-                continue
-            parts = [state.pop(k).float() for k in keys]
-            parts = [p.reshape(p.shape[0], -1).expand(bank.shape[:-1])
-                     for p in parts]
-            state[f"bit_estimator_z.{name}"] = torch.stack(parts, dim=-1)
-        return state
+        return self.bit_estimator_z.from_reference(state, key_fn_rt)
 
     @property
     def dtype(self):

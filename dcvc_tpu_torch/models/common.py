@@ -51,6 +51,25 @@ class BitEstimatorModule(nn.Module):
                                    select_qp(self.b, qp),
                                    select_qp(self.a, qp))
 
+    def from_reference(self, state, key_fn, prefix="bit_estimator_z"):
+        """`state` (a reference state_dict) with this prior's Bitparm
+        tensors (key_fn's `stack_last` entries `{prefix}.f{i}.{h,b,a}`,
+        each (Q, C, 1, 1), Q may be 1) stacked on a last axis into the h /
+        b / a banks at `{prefix}.{h,b,a}`, as dcvc_tpu's importer does;
+        every other key as it is."""
+        state = dict(state)
+        for name in ("h", "b", "a"):
+            bank = getattr(self, name)
+            kind, keys = key_fn((prefix, name))
+            assert kind == "stack_last"
+            if not all(k in state for k in keys):
+                continue
+            parts = [state.pop(k).float() for k in keys]
+            parts = [p.reshape(p.shape[0], -1).expand(bank.shape[:-1])
+                     for p in parts]
+            state[f"{prefix}.{name}"] = torch.stack(parts, dim=-1)
+        return state
+
     def bank(self):
         """{h, b, a} as float32 numpy arrays."""
         return {k: getattr(self, k).detach().float().cpu().numpy()

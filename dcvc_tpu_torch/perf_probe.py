@@ -7,6 +7,7 @@ shares with them.
                                             [--clocks]
     python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
     python3 -m dcvc_tpu_torch.perf_probe train [--runs 1]
+    python3 -m dcvc_tpu_torch.perf_probe legacy [--runs 2]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
@@ -40,6 +41,11 @@ synchronised, profiler on), the device busy time (the union of the
 intervals of every kernel, copy and memset the profiler saw on the card),
 the device idle share (1 - busy / wall), the host rANS coder's time
 (inside its methods), and the kernels with the most device time.
+
+`legacy` profiles the legacy intra codecs, EVC and IntraNoAR at their
+published widths in float32 (chip_smoke.py's weights), a warm encode and
+decode at 1080p and 720p each, printing `profile`'s line per call
+(run_legacy).
 
 `train` builds each full-width training cell of TRAIN_CELLS (DMCI, LD,
 HTS, HTL at their published widths in float32, TF32 off), takes one warm
@@ -207,7 +213,7 @@ def ld_stage_launches(cfg, h, w):
     return dict(log.calls)
 
 
-def rt_stage_launches(intra_cfg, p_cfg, h, w):
+def rt_stage_launches(intra_cfg, p_cfg, h, w, dtype=torch.bfloat16):
     """The K1 launches of each stage of DCVC-RT's codecs on an (h, w)
     frame, from the models themselves (their stage methods on the meta
     device, in the codecs' order): the intra model's analysis, prior0,
@@ -215,7 +221,8 @@ def rt_stage_launches(intra_cfg, p_cfg, h, w):
     adaptor_i, adaptor_m, analysis, prior0, prior_step, synthesis_feature,
     reset_feature and recon_frames (DMCRTCodec; its two-way DCBs are not
     K1's block, so none launches K1).  Returns {stage: Counter of Launch},
-    the P stages prefixed `p.`."""
+    the P stages prefixed `p.`.  dtype: the codecs' (in float32 every
+    DCB takes the plain block, as layers/blocks.py kernel_path says)."""
     from .core.padding import get_padding_size
     from .legacy.dcvc_rt import DMCRT
     from .legacy.rt_intra import DMCIRT
@@ -223,7 +230,7 @@ def rt_stage_launches(intra_cfg, p_cfg, h, w):
     ph, pw = h + pad_b, w + pad_r
     yh, yw = ph // 16, pw // 16
     log = LaunchLog()
-    bf = torch.bfloat16
+    bf = dtype
 
     def stage(name, fn, *args):
         with log.call(name):
@@ -254,6 +261,69 @@ def rt_stage_launches(intra_cfg, p_cfg, h, w):
 
 
 # ------------------------------------------------------------------ K2
+
+def legacy_intra_launches(model_cls, cfg, h, w):
+    """The K1 launches of each stage of a legacy intra model (EVC or
+    IntraNoAR, float32 as their codecs run) on an (h, w) frame, from the
+    model itself: analysis, prior, spatial and synthesis on the meta
+    device, in runtime/evc_codec.py's order.  Their blocks are not K1's
+    (lrelu / ReLU FFNs), so every Counter is empty.  Returns {stage:
+    Counter of Launch}."""
+    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+    log = LaunchLog()
+
+    def stage(name, fn, *args):
+        with log.call(name):
+            return fn(*args)
+    with torch.device("meta"), meta_launches(), log:
+        m = model_cls(cfg)
+        qs = torch.empty(())
+        y, z = stage("analysis", m.analysis, torch.empty(1, ph, pw, 3), qs)
+        q_step, scales, means = stage("prior", m.prior, z)
+        stage("spatial", m.spatial, y, q_step, scales, means)
+        stage("synthesis", m.synthesis, y, qs)
+    return dict(log.calls)
+
+
+# The legacy intra codecs' seeded random weights on the card: the JAX
+# runner's init_scale 0.4, under which y and z are ~0.05 at full width
+# and every symbol codes as 0; so y is lifted 50x (EVC: q_basic / 50, which
+# synthesis multiplies back; IntraNoAR, whose q_basic is bounded below at
+# 0.5: the encoder's last conv x 50), the hyper encoder's last conv is
+# lifted (EVC 8x, IntraNoAR 400x: its hyper encoder has five damped convs)
+# and the scale parts of the prior outputs' last biases by 2, so that z
+# and y symbols spread over the CDF rows (~2.3 bpp at 256x256).
+LEGACY_INIT_SCALE = 0.4
+LEGACY_Y_GAIN = 50.0
+LEGACY_Z_GAIN = {"EVC": 8.0, "IntraNoAR": 400.0}
+
+
+def lifted_legacy_intra(model_cls, cfg, seed):
+    """The float32 legacy intra model (EVC or IntraNoAR, on the CPU) of the
+    smoke: seeded random weights at LEGACY_INIT_SCALE, lifted as above."""
+    from .legacy.evc import EVC
+    from .legacy.fm_layers import damp_kernels_
+    model = model_cls(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    damp_kernels_(model, LEGACY_INIT_SCALE)
+    n = cfg.n
+    with torch.no_grad():
+        if isinstance(model, EVC):
+            model.q_basic.div_(LEGACY_Y_GAIN)
+            model.hyper_enc[3].weight.mul_(LEGACY_Z_GAIN["EVC"])
+            fusion = model.y_prior_fusion[1].block[1].conv[2].bias
+            spatial = model.y_spatial_prior[2].block[1].conv[2].bias
+        else:
+            model.enc.layers_6.conv.weight.mul_(LEGACY_Y_GAIN)
+            model.hyper_enc.layers_8.conv.weight.mul_(
+                LEGACY_Z_GAIN["IntraNoAR"])
+            fusion = model.y_prior_fusion.layers_4.conv.bias
+            spatial = model.y_spatial_prior.layers_4.conv.bias
+        fusion[n:2 * n] += 2.0
+        spatial[:n // 2] += 2.0
+        spatial[n:n + n // 2] += 2.0
+    return model
+
 
 class K2Call(NamedTuple):
     """One call of K2 on the main path, its inputs kept for a replay:
@@ -798,7 +868,8 @@ def host_coder_timer(codec):
     patched = []
     for coder in (codec.encoder, codec.decoder):
         for name in ("encode_y", "encode_z", "flush", "get_encoded_stream",
-                     "set_stream", "decode_y", "decode_z", "get_decoded"):
+                     "set_stream", "decode_y", "decode_z", "get_decoded",
+                     "encode_with_indexes", "decode_stream"):
             fn = getattr(coder, name, None)
             if fn is None:
                 continue
@@ -864,6 +935,33 @@ def run_profile(dev, runs):
     for label, codec, fn in warm_calls(dev):
         for r in range(runs):
             profile_call(label, codec, fn, r)
+
+
+LEGACY_SIZES = ((1080, 1920), (720, 1280))
+
+
+def run_legacy(dev, runs):
+    """`profile`'s lines for the legacy intra codecs: EVC at EVC_CONFIG
+    and IntraNoAR at INTRA_NOAR_CONFIG (float32, the weights of
+    lifted_legacy_intra, chip_smoke.py's), a warm encode and decode at
+    q_scale 0.8 at each of LEGACY_SIZES, `runs` profiled calls each."""
+    from .legacy.evc import EVC_CONFIG
+    from .legacy.hem_intra import INTRA_NOAR_CONFIG
+    from .runtime.evc_codec import EVCCodec, IntraNoARCodec
+    for name, cls, cfg, seed in (("EVC", EVCCodec, EVC_CONFIG, 20),
+                                 ("IntraNoAR", IntraNoARCodec,
+                                  INTRA_NOAR_CONFIG, 21)):
+        codec = cls(lifted_legacy_intra(cls.MODEL_CLS, cfg, seed)
+                    .state_dict(), cfg=cfg, device=dev)
+        for h, w in LEGACY_SIZES:
+            x = smooth_frame(h, w, seed + h, dev) + 0.5
+            bits = codec.compress(x, 0.8)["bit_stream"]
+            calls = (("encode", lambda: codec.compress(x, 0.8)),
+                     ("decode", lambda: codec.decompress(bits, 0.8, h, w)))
+            for kind, fn in calls:
+                fn()
+                for r in range(runs):
+                    profile_call(f"{name} {w}x{h} {kind}", codec, fn, r)
 
 
 # ------------------------------------------------------------ training
@@ -1187,7 +1285,7 @@ def run_k2(dev, symbols, lanes, clocks=False):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles",
-                                     "train"))
+                                     "train", "legacy"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
@@ -1214,6 +1312,8 @@ def main():
         run_tiles(dev, args.iters)
     elif args.mode == "train":
         run_train(dev, args.runs)
+    elif args.mode == "legacy":
+        run_legacy(dev, args.runs)
     else:
         run_profile(dev, args.runs)
 

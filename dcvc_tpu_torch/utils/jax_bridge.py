@@ -25,6 +25,13 @@ back from that path, or it raises; the HT recon head's per-frame keys
 are stacked back into their StackedDCB leaves.  load_native_into /
 save_native move a port model to and from a dcvc_tpu.params.v1 file
 (utils/checkpoint.py), its config in the header.
+
+The legacy intra models: EVC's modules are named after key_fn_evc's keys
+(evc_params_from_jax; evc_params_to_jax parses them back,
+`_evc_flax_path`), IntraNoAR's mirror the flax tree
+(intra_noar_params_from_jax / _to_jax: the scopes joined by '.').  Their
+leaves convert by name: a conv `kernel` as above, a Dense `kernel` (I, O)
+to nn.Linear's (O, I), and q_basic (1, 1, 1, N) keeps its shape.
 """
 
 import numpy as np
@@ -33,7 +40,7 @@ import torch
 from .checkpoint import PARAMS_V1, checkpoint_format, config_from_header, \
     load_header, load_params, load_reference_into, save_params
 from .keys import _LD_SEQ_TOPS, _STACKED_SUB, _stacked_leaf, \
-    key_fn_dmc_ht, key_fn_dmc_ld, key_fn_dmci, key_fn_rt
+    key_fn_dmc_ht, key_fn_dmc_ld, key_fn_dmci, key_fn_evc, key_fn_rt
 
 
 def _leaves(tree, path=()):
@@ -332,10 +339,124 @@ def dmc_ht_params_to_jax(state, hts=True):
     return _nest(items)
 
 
+# ------------------------------------------------- EVC and IntraNoAR
+
+def _legacy_tensor(path, leaf):
+    """A flax leaf of a legacy intra model -> the port's tensor: a conv
+    `kernel` (kh, kw, I, O) -> (O, I, kh, kw), a Dense `kernel` (I, O) ->
+    nn.Linear's (O, I); every other leaf (biases, q_basic (1, 1, 1, N),
+    q_scale, the z prior's banks) as it is."""
+    arr = _f32(leaf)
+    if path[-1] == "kernel":
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    return torch.from_numpy(arr.copy())
+
+
+def _legacy_leaf(key, t):
+    """The inverse of _legacy_tensor, in the tensor's own dtype."""
+    t = t.detach().cpu()
+    if key.endswith(".weight"):
+        t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
+    return t.contiguous()
+
+
+def _mirror_key(path):
+    """A flax path -> the key of a port module that mirrors the flax tree
+    (legacy/fm_layers.py): the scopes joined by '.', `kernel` as
+    `weight`."""
+    return ".".join(path[:-1] + ({"kernel": "weight"}.get(path[-1],
+                                                        path[-1]),))
+
+
+def intra_noar_params_from_jax(flax_params):
+    """flax IntraNoAR params -> the state_dict of
+    dcvc_tpu_torch.legacy.hem_intra.IntraNoAR, whose modules mirror the
+    flax tree (the JAX package has no reference key map for it)."""
+    return {_mirror_key(path): _legacy_tensor(path, leaf)
+            for path, leaf in _leaves(flax_params)}
+
+
+def intra_noar_params_to_jax(state):
+    """The state_dict of a port IntraNoAR -> the flax IntraNoAR params,
+    the inverse of intra_noar_params_from_jax."""
+    items = {}
+    for key, t in state.items():
+        segs = key.split(".")
+        path = tuple(segs[:-1]) + ({"weight": "kernel"}.get(segs[-1],
+                                                            segs[-1]),)
+        items[path] = _legacy_leaf(key, t)
+    return _nest(items)
+
+
+def evc_key(path):
+    """key_fn_evc's reference key of a flax EVC path, but the port's own
+    `bit_estimator_z.{h,b,a}` for the z prior's banks (key_fn_evc names
+    the reference's per-layer Bitparm tensors they are stacked from)."""
+    key = key_fn_evc(path)
+    return ".".join(path) if isinstance(key, tuple) else key
+
+
+def evc_params_from_jax(flax_params):
+    """flax EVC params -> the state_dict of dcvc_tpu_torch.legacy.evc.EVC,
+    whose modules are named after key_fn_evc's keys."""
+    return {evc_key(path): _legacy_tensor(path, leaf)
+            for path, leaf in _leaves(flax_params)}
+
+
+# the dc parts of EVCDepthConv (enc / dec / encs_i blocks) that are a
+# bare nn.Conv scope in flax; every other conv there is a ConvK (`/conv`)
+_EVC_BARE_DC = ("conv1", "depth_conv")
+
+
+def _evc_flax_path(key):
+    """A key of the port's EVC -> its flax path, the inverse of
+    key_fn_evc (checked against it by the caller)."""
+    segs = key.split(".")
+    if len(segs) == 1 or segs[0] == "bit_estimator_z":
+        return tuple(segs)
+    leaf = {"weight": "kernel"}.get(segs[-1], segs[-1])
+    top, rest = segs[0], segs[1:-1]
+    if top == "dec" and rest[:2] == ["7", "0"]:
+        return ("dec_out", "conv", leaf)
+    out = [top, f"layers_{rest[0]}"]
+    r = rest[1:]
+    if not r:                                   # a bare strided conv
+        out.append("conv")
+    elif r[0] == "block" and r[1] == "2":       # hyper upsample's 1x1
+        out += ["up_conv", "conv"]
+    elif r[0] == "block" and r[1] == "1":       # ffn conv.0 / conv.2
+        out += ["ffn", {"0": "conv1", "2": "conv2"}[r[3]], "conv"]
+    elif r[0] == "block":                       # the DepthConv
+        evc_block = top in ("enc", "dec") or top.startswith("encs_")
+        out += ["dc", r[2]]
+        if r[2] != "depth_conv" and not (evc_block and r[2] in _EVC_BARE_DC):
+            out.append("conv")
+    elif r[0] == "downsample":                  # RBS' bare strided 1x1
+        out.append("downsample")
+    else:                                       # conv1 / conv2 / subpel
+        out += [r[0], "conv"]
+    return tuple(out) + (leaf,)
+
+
+def evc_params_to_jax(state):
+    """The state_dict of a port EVC -> the flax EVC params, the inverse of
+    evc_params_from_jax."""
+    items = {}
+    for key, t in state.items():
+        path = _evc_flax_path(key)
+        if evc_key(path) != key:
+            raise KeyError(f"{key}: no flax path maps to it (tried "
+                           f"{'/'.join(path)})")
+        items[path] = _legacy_leaf(key, t)
+    return _nest(items)
+
+
 def _converters(model):
     """(flax tree -> state_dict, state_dict -> flax tree) of a port
     model."""
     from ..legacy.dcvc_rt import DMCRT
+    from ..legacy.evc import EVC
+    from ..legacy.hem_intra import IntraNoAR
     from ..legacy.rt_intra import DMCIRT
     from ..models.dmc_ht import DMCHT
     from ..models.dmc_ld import DMCLD
@@ -344,6 +465,10 @@ def _converters(model):
         return dmci_params_from_jax, dmci_params_to_jax
     if isinstance(model, DMCRT):
         return dmc_rt_params_from_jax, dmc_rt_params_to_jax
+    if isinstance(model, EVC):
+        return evc_params_from_jax, evc_params_to_jax
+    if isinstance(model, IntraNoAR):
+        return intra_noar_params_from_jax, intra_noar_params_to_jax
     if isinstance(model, DMCLD):
         return dmc_ld_params_from_jax, dmc_ld_params_to_jax
     if isinstance(model, DMCHT):
@@ -354,11 +479,11 @@ def _converters(model):
 
 
 def load_native_into(model, path):
-    """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT or DMCRT at the
-    file's config: config_from_header of its header) from the
-    dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter the file lacks or one the
-    model does not use; load_state_dict raises on a shape that differs.
-    Returns the model."""
+    """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT, DMCRT, EVC or
+    IntraNoAR at the file's config: config_from_header of its header) from
+    the dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter
+    the file lacks or one the model does not use; load_state_dict raises on
+    a shape that differs.  Returns the model."""
     tree, _ = load_params(path)
     state = _converters(model)[0](tree)
     want = set(model.state_dict())

@@ -3,7 +3,8 @@ dcvc_tpu/utils/torch_import.py.
 
 The port names its parameters after the reference torch module tree; the
 JAX package's checkpoint importer maps each flax leaf path to that name.
-utils/jax_bridge.py inverts the importer with these maps.  They are
+utils/jax_bridge.py inverts the importer with these maps (key_fn_evc: the
+port's EVC module names, legacy/evc.py).  They are
 verbatim copies (pinned by tests/test_torch_core.py), because the port
 imports nothing of the JAX package.
 """
@@ -163,3 +164,70 @@ def key_fn_rt(path):
         return ("stack_last", [f"bit_estimator_z.f{i + 1}.{segs[-1]}"
                                for i in range(n)])
     return _translate(path, _map_rt)
+
+
+def _evc_dcb_sub(rest, wrapped):
+    """EVC DepthConvBlock internals (EVC/src/models/layers.py): enc/dec
+    blocks wrap conv2/depth_conv in Sequential('.0'); the hyper/prior
+    blocks don't."""
+    head, sub = rest[0], rest[1] if len(rest) > 1 else None
+    z = ".0" if wrapped else ""
+    if head == "dc":
+        return {"conv1": "block.0.conv1.0", "conv2": f"block.0.conv2{z}",
+                "depth_conv": f"block.0.depth_conv{z}",
+                "adaptor": "block.0.adaptor"}[sub]
+    if head == "ffn":
+        return {"conv1": "block.1.conv.0", "conv2": "block.1.conv.2"}[sub]
+    if head == "up_conv":
+        return "block.2"
+    raise KeyError(rest)
+
+
+def key_fn_evc(path):
+    """EVC checkpoint map (EVC/src/models/image_model.py EVC_LL tree)."""
+    segs = list(path)
+    if len(segs) == 1:                   # q_basic / q_scale
+        return segs[0]
+    leaf = {"kernel": "weight"}.get(segs[-1], segs[-1])
+    top = segs[0]
+    if top == "bit_estimator_z":
+        n = 3 if segs[-1] == "a" else 4
+        return ("stack_last", [f"bit_estimator_z.f{i + 1}.{segs[-1]}"
+                               for i in range(n)])
+    wrapped = top in ("enc", "dec")
+    if top == "dec_out":
+        return f"dec.7.0.{leaf}"
+    out = [top]
+    rest = segs[1:-1]
+    i = 0
+    while i < len(rest):
+        s = rest[i]
+        nxt = rest[i + 1] if i + 1 < len(rest) else None
+        m = re.fullmatch(r"layers_(\d+)", s)
+        if m:
+            out.append(m.group(1))
+            i += 1
+            continue
+        if s in ("dc", "ffn", "up_conv"):
+            out.append(_evc_dcb_sub(rest[i:], wrapped))
+            i += 3 if nxt and i + 2 < len(rest) and rest[i + 2] == "conv" \
+                else 2
+            continue
+        if s in ("subpel_conv", "upsample") and nxt == "conv":
+            out.append(f"{s}.0")
+            i += 2
+            continue
+        if s in ("conv1", "conv2") and nxt == "conv":   # RBS internals
+            out.append(s)
+            i += 2
+            continue
+        if s == "conv" and nxt == "conv":               # RBU plain conv
+            out.append("conv")
+            i += 2
+            continue
+        if s == "conv" and nxt is None:                 # bare wrapper
+            i += 1
+            continue
+        out.append(s)
+        i += 1
+    return ".".join(out + [leaf])

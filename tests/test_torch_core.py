@@ -256,7 +256,11 @@ def test_port_sources_import_no_jax():
                 "train/video_main.py", "data/datasets.py", "utils/png.py",
                 "legacy/dcvc_rt.py", "legacy/rt_intra.py",
                 "runtime/rt_image_codec.py", "bitstream/legacy_container.py",
-                "eval/family.py", "eval/family_main.py"):
+                "eval/family.py", "eval/family_main.py",
+                "entropy/legacy.py", "legacy/fm_layers.py",
+                "legacy/dcvc_hem.py", "legacy/hem_intra.py", "legacy/evc.py",
+                "runtime/fm_codec.py", "runtime/evc_codec.py",
+                "utils/png_frames.py"):
         assert f"dcvc_tpu_torch/{sub}" in scanned, sub
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
@@ -288,6 +292,8 @@ def test_port_imports_no_jax():
             "dcvc_tpu_torch.runtime.rt_image_codec, "
             "dcvc_tpu_torch.bitstream.legacy_container, "
             "dcvc_tpu_torch.eval.family, dcvc_tpu_torch.eval.family_main, "
+            "dcvc_tpu_torch.runtime.evc_codec, "
+            "dcvc_tpu_torch.eval.image_main, dcvc_tpu_torch.utils.png_frames, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dcvc_tpu'))\n"

@@ -421,3 +421,48 @@ def test_cuda_rans_decode_short_counts(cuda_device, n_lanes):
         _k2_check(init_state(lanes), torch.from_numpy(idx_pad).to(
             cuda_device), torch.tensor(n, dtype=torch.int32,
                                        device=cuda_device), bank, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["evc", "scalable_evc", "intra_noar"])
+def test_cuda_legacy_intra_codec(cuda_device, kind):
+    """EVCCodec / IntraNoARCodec on the card, float32, TINY configs with
+    the smoke's lifted weights (perf_probe.lifted_legacy_intra): a 64x96
+    frame's stream decodes to the encoder's x_hat bit for bit, two
+    encodes give the same bytes, no kernel launches (their blocks are not
+    K1's), and the card's stages agree with the CPU's (relative RMS
+    within 1e-4, float32 on both, TF32 off)."""
+    from dcvc_tpu_torch.legacy.evc import TINY_EVC_CONFIG, \
+        TINY_SCALABLE_EVC_CONFIG
+    from dcvc_tpu_torch.legacy.hem_intra import TINY_INTRA_NOAR_CONFIG
+    from dcvc_tpu_torch.perf_probe import lifted_legacy_intra
+    from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
+    cls, cfg = {"evc": (EVCCodec, TINY_EVC_CONFIG),
+                "scalable_evc": (EVCCodec, TINY_SCALABLE_EVC_CONFIG),
+                "intra_noar": (IntraNoARCodec, TINY_INTRA_NOAR_CONFIG)}[kind]
+    model = lifted_legacy_intra(cls.MODEL_CLS, cfg, 5)
+    state = model.state_dict()
+    card = cls(state, cfg=cfg, device=cuda_device)
+    cpu = cls(state, cfg=cfg, device="cpu")
+    x = torch.rand(1, 64, 96, 3, generator=torch.Generator().manual_seed(1))
+    n = K1.fused_dcb.launches, K2.rans_decode.launches
+    for qs in (0.8, 1.4):
+        res = card.compress(x, qs)
+        again = card.compress(x, qs)
+        out = card.decompress(res["bit_stream"], qs, 64, 96)
+        assert again["bit_stream"] == res["bit_stream"]
+        assert torch.equal(out["x_hat"], res["x_hat"])
+        assert out["x_hat"].device.type == "cuda"
+    assert (K1.fused_dcb.launches, K2.rans_decode.launches) == n
+    qs = torch.tensor(0.8)
+    with torch.inference_mode():
+        y_c, z_c = cpu.model.analysis(x, qs)
+        y_g, _ = card.model.analysis(x.to(cuda_device), qs.to(cuda_device))
+        prior_c = cpu.model.prior(z_c)
+        prior_g = card.model.prior(z_c.to(cuda_device))
+        x_c = cpu.model.synthesis(torch.round(y_c), qs)
+        x_g = card.model.synthesis(torch.round(y_c).to(cuda_device),
+                                   qs.to(cuda_device))
+    for got, want in [(y_g, y_c), (x_g, x_c)] + list(zip(prior_g, prior_c)):
+        err = (got.cpu() - want).norm() / want.norm().clamp_min(1e-12)
+        assert float(err) <= 1e-4

@@ -13,8 +13,9 @@ at the TINY configs:
   the same params.v1 file (float32, skip 0) and two seeded PNGs (64x96
   and the odd 69x91) write byte-identical .bin files with equal bpp,
   PSNRs within 1e-6 and every image bit-exact; --device_ec (K2's plain
-  version here) gives the same JSON numbers.  A legacy --i_frame_model
-  and --device cuda without a card raise.
+  version here) gives the same JSON numbers.  A CompressAI
+  --i_frame_model (not ported yet) and --device cuda without a card
+  raise.
 - Symbols: DMCICodec.collect_symbols of the port's encode, host decode
   and device_ec decode equal the JAX codec's, array for array (values
   and dtypes), skip 0.15; with collect_symbols None nothing is kept.
@@ -177,7 +178,8 @@ def test_image_cli_refuses_legacy_models_and_a_missing_card(image_inputs,
             str(tmp_path / "bin"), "--output_path", str(tmp_path / "o.json"),
             "--tiny"]
     with pytest.raises(NotImplementedError, match="item 7"):
-        image_main.main(base + ["--i_frame_model", "evc", "--device", "cpu"])
+        image_main.main(base + ["--i_frame_model", "cheng2020", "--device",
+                                "cpu"])
     if not torch.cuda.is_available():
         assert image_main.parse_args(base).device == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
