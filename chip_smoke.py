@@ -16,8 +16,8 @@ tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
 lanes, escapes, a count below the lane count and of 0, z -> y -> y
 threading).  Checks the stages of the six full-width models (DMCI, HTS,
 HTL, LD, DCVC-RT's intra and P models) in bf16 on the card against
-float32 on the CPU, those of EVC and IntraNoAR (float32) on the card
-against the CPU at 256x256, and one TINY
+float32 on the CPU, those of EVC, IntraNoAR and DCVC-FM (float32) on
+the card against the CPU at 256x256, and one TINY
 DMCI and one TINY HTS 2-chunk training step on the card against the same
 steps on the CPU (float32, TF32 off).  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
@@ -53,6 +53,14 @@ every K2 launch's inputs:
     bit-exact, two encodes equal, the warm 1080p encode and decode timed;
     their blocks are not K1's, so this part launches no kernel (derived
     from the models on the meta device, perf_probe.legacy_intra_launches);
+  - DCVC-FM (float32, RGB in [0, 1]): DMCFMCodec at FM_CONFIG with
+    seeded weights at init_scale 0.4, lifted so that y, mv and z symbols
+    are coded (perf_probe.lifted_fm), its DPB seeded by the IntraNoAR
+    codec of the part before: 3 P frames at 1080p and 2 at 720p, fa_idx
+    from INDEX_MAP_FM, at q_index 12 and 51, each sequence encoded twice
+    (the same bytes) and decoded bit-exact with equal final DPBs, the warm
+    1080p P frame timed; its blocks are LeakyReLU FFNs and it decodes on
+    the host, so it launches no kernel (perf_probe.fm_stage_launches);
   - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
     float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
     stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
@@ -77,7 +85,10 @@ every K2 launch's inputs:
     give the harness's PSNRs); and dcvc_tpu_torch.eval.family_main --model
     rt in float32 (the reference's type; every DCB plain, so no K1) on a
     seeded 1080p YUV420 file of 6 frames (gop 4, 2 rates), twice with
-    fresh codecs: every frame bit-exact, the same .bin bytes.
+    fresh codecs: every frame bit-exact, the same .bin bytes; and
+    family_main --model fm (float32, init_scale 0.4) on a seeded 720p
+    YUV420 file of 6 frames the same way, then once with --fast (the
+    estimated-bits mode: finite bpp and PSNRs, frame types I P P P I P).
   - the evaluation surface, each part timed: params.v1 (the float32
     DMCI and HTS models written by save_native, read by load_native_into,
     their codecs coding a 1080p frame and a chunk to the in-memory
@@ -150,6 +161,8 @@ from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig, TINY_CONFIG
 from dcvc_tpu_torch.kernels._build import library_path
 from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, INDEX_MAP, RT_CONFIG, \
     shift_qp
+from dcvc_tpu_torch.eval.family import INDEX_MAP_FM
+from dcvc_tpu_torch.legacy.dcvc_fm import DMCFM, FM_CONFIG
 from dcvc_tpu_torch.legacy.evc import EVC_CONFIG, SCALABLE_EVC_CONFIG
 from dcvc_tpu_torch.legacy.hem_intra import INTRA_NOAR_CONFIG, \
     INTRA_NOAR_FM_CONFIG
@@ -158,7 +171,7 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
     k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
     k2_latency_bound_ms, ld_stage_launches, legacy_intra_launches, \
-    lifted_legacy_intra, make_sequence, \
+    fm_p_codec, fm_stage_launches, lifted_legacy_intra, make_sequence, \
     max_sm_clock_mhz, nvidia_smi, profile_launches, run_k2_case, \
     rt_stage_launches, sass_counts, smooth_frame, TRAIN_CELLS, \
     TRAIN_INIT_SCALE, damped_model, train_setup
@@ -278,6 +291,22 @@ LEGACY_Q_SCALES = (0.8, 1.4)
 LEGACY_TIMED = 3
 LEGACY_STAGE_SIDE = 256
 LEGACY_STAGE_REL_TOL = 1e-4
+# DCVC-FM (RGB in [0, 1], float32): the legacy part's IntraNoAR codec
+# (INTRA_NOAR_CONFIG, lifted) codes the intra frame that seeds the DPB at
+# FM_I_Q_SCALE; DMCFMCodec at FM_CONFIG (perf_probe.fm_p_codec:
+# lifted_fm's weights) codes the P frames, fa_idx from INDEX_MAP_FM.
+# Cases: (height, width, seed, P frames), each at the q_indexes of the
+# family runner's 2 rates; the warm 1080p P frame's encode and decode
+# timed (median of FM_TIMED); the card-vs-CPU stage check at
+# LEGACY_STAGE_SIDE within LEGACY_STAGE_REL_TOL.  The family entry:
+# family_main --model fm on a seeded FM_FAMILY_W x FM_FAMILY_H YUV420
+# file of FM_FAMILY_FRAMES frames, gop 4, 2 rates, twice, then --fast.
+FM_CASES = [(1080, 1920, 32, 3), (720, 1280, 33, 2)]
+FM_Q_INDEXES = (12, 51)
+FM_I_Q_SCALE = 0.8
+FM_TIMED = 3
+FM_FAMILY_FRAMES = 6
+FM_FAMILY_H, FM_FAMILY_W = 720, 1280
 # the evaluation entry's PNG source: PNG_FRAMES seeded 1080p frames
 PNG_FRAMES = 3
 # the evaluation entry's phase: a seeded 1080p YUV420 file of CLI_FRAMES
@@ -1310,24 +1339,284 @@ def phase_legacy_intra(dev, launch_log, codecs):
     return tuple(derived)
 
 
+# ---------------------------------------------------------------- DCVC-FM
+
+def phase_stages_fm(codec):
+    """DCVC-FM's stages at full width on the card against the same model
+    on the CPU, both float32, on a LEGACY_STAGE_SIDE square pair of
+    frames at q_index FM_Q_INDEXES[1]: mv_analysis's mv_y (the first P
+    frame's), mc's contexts (from the frame, and from a feature at
+    fa_idx 1) on the CPU's mv_hat, ctx_analysis's y on the CPU's
+    contexts, and synthesis (x_hat, feature) of the CPU's rounded y; the
+    shares of differing mv_z and z symbols are printed.  Fails above
+    LEGACY_STAGE_REL_TOL (relative RMS)."""
+    gpu, dev = codec.model, codec.device
+    cpu = type(gpu)(codec.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    side, q = LEGACY_STAGE_SIDE, FM_Q_INDEXES[1]
+    on_cpu = torch.device("cpu")
+    ref, x = [f + 0.5 for f in make_sequence(side, side, 2, 34, on_cpu)]
+    feature = torch.rand(1, side, side, codec.cfg.ch_1x,
+                         generator=torch.Generator().manual_seed(35))
+    out = {}
+    with torch.inference_mode():
+        for where, model, d in (("cpu", cpu, on_cpu), ("card", gpu, dev)):
+            mv_y, mv_z = model.mv_analysis(x.to(d), ref.to(d), None, q)
+            if where == "cpu":
+                mv_hat = model.mv_synthesis(torch.round(mv_y), q)[0]
+            first = model.mc(ref.to(d), None, 0, mv_hat.to(d))
+            later = model.mc(ref.to(d), feature.to(d), 1, mv_hat.to(d))
+            if where == "cpu":
+                ctx = later
+            ctx_d = [c.to(d) for c in ctx]
+            y, z = model.ctx_analysis(x.to(d), *ctx_d, q)
+            if where == "cpu":
+                y_hat = torch.round(y)
+            x_hat, feat = model.synthesis(y_hat.to(d), *ctx_d, q)
+            out[where] = {"mv_z": mv_z, "z": z, "mv_analysis mv_y": mv_y,
+                          **{f"mc first c{i + 1}": c
+                             for i, c in enumerate(first)},
+                          **{f"mc later c{i + 1}": c
+                             for i, c in enumerate(later)},
+                          "ctx_analysis y": y, "synthesis x_hat": x_hat,
+                          "synthesis feature": feat}
+    diff = {k: (out["card"].pop(k).cpu() != out["cpu"].pop(k)).float()
+            .mean().item() for k in ("mv_z", "z")}
+    errs = {k: rel_rms(out["card"][k], v) for k, v in out["cpu"].items()}
+    log(f"FM stages on the card vs the CPU, float32, {side}x{side}, q_index "
+        f"{q}, relative RMS (tol {LEGACY_STAGE_REL_TOL}): {json.dumps(errs)};"
+        f" symbols differing: mv_z {diff['mv_z']} z {diff['z']}")
+    bad = [k for k, e in errs.items() if not e <= LEGACY_STAGE_REL_TOL]
+    if bad:
+        raise AssertionError(f"FM stage outputs disagree with the CPU: {bad}")
+
+
+def fm_launches(h, w):
+    """{"first" / "later": ((S = 1, stacked, K2) launches of one P-frame
+    encode, of one decode), "forward": those of the eval forward} of
+    DCVC-FM on an (h, w) frame, from the model on the meta device
+    (perf_probe.fm_stage_launches): its blocks are not K1's and it decodes
+    on the host, so none."""
+    n = {k: sum(v.values())
+         for k, v in fm_stage_launches(FM_CONFIG, h, w).items()}
+    out = {}
+    for which in ("first", "later"):
+        stages = {k.split(" ", 1)[1]: v for k, v in n.items()
+                  if k.startswith(which)}
+        forward = stages.pop("forward")
+        decode = sum(v for k, v in stages.items() if "analysis" not in k)
+        out[which] = ((decode + stages["mv_analysis"]
+                       + stages["ctx_analysis"], 0, 0), (decode, 0, 0))
+        out[f"{which} forward"] = (forward, 0, 0)
+    return out
+
+
+def phase_fm(intra, pcodec, dev, launch_log):
+    """DCVC-FM on the card (FM_CASES, full published widths, float32): at
+    each size an intra frame (IntraNoAR) seeds the DPB, then at each of
+    FM_Q_INDEXES the P frames are encoded twice from that DPB (the same
+    bytes) and decoded from it: every decoder x_hat equals the encoder's
+    bit for bit and the final DPBs are equal.  At the first size (1080p)
+    the warm encode and decode of the third P frame are timed (median of FM_TIMED calls
+    each, host clock, synchronised: an encode ends with the host rANS
+    coder, a decode with its x_hat on the card).  Returns the (S = 1,
+    stacked, K2) launches derived for it (none)."""
+    t0 = time.perf_counter()
+    derived = [0, 0, 0]
+
+    def run(label, want, fn):
+        out, ms, *n = counted(launch_log, label, fn)
+        expect(label, tuple(n), want)
+        for i in range(3):
+            derived[i] += want[i]
+        return out, ms
+
+    for h, w, seed, n_p in FM_CASES:
+        launches = fm_launches(h, w)
+        i_enc = legacy_launches(IntraNoARCodec, INTRA_NOAR_CONFIG, h, w)[0]
+        frames = [f + 0.5 for f in make_sequence(h, w, n_p + 1, seed, dev)]
+        seed_frame = run(f"FM {w}x{h} intra frame", i_enc,
+                         lambda: intra.compress(frames[0], FM_I_Q_SCALE)
+                         )[0]["x_hat"]
+
+        def encode(label, q, i):
+            which = "first" if i == 1 else "later"
+            return run(f"{label} frame {i} encode", launches[which][0],
+                       lambda: pcodec.compress(frames[i], q,
+                                               fa_idx=INDEX_MAP_FM[i]))
+
+        def decode(label, q, i, stream):
+            which = "first" if i == 1 else "later"
+            return run(f"{label} frame {i} decode", launches[which][1],
+                       lambda: pcodec.decompress(stream, q, h, w,
+                                                 fa_idx=INDEX_MAP_FM[i]))
+
+        for q in FM_Q_INDEXES:
+            label = f"FM {w}x{h} q_index {q}"
+            passes = []
+            for _ in range(2):
+                pcodec.set_ref_frame(seed_frame)
+                passes.append([encode(label, q, i)[0]
+                               for i in range(1, n_p + 1)])
+            enc_dpb = dict(pcodec.dpb)
+            streams = [r["bit_stream"] for r in passes[0]]
+            if [r["bit_stream"] for r in passes[1]] != streams:
+                raise AssertionError(f"{label}: two encodes differ")
+            pcodec.set_ref_frame(seed_frame)
+            for i, res in enumerate(passes[0], 1):
+                out = decode(label, q, i, res["bit_stream"])[0]
+                if out["x_hat"].shape != (1, h, w, 3) or not torch.equal(
+                        out["x_hat"], res["x_hat"]):
+                    raise AssertionError(f"{label} frame {i}: the decode "
+                                         f"is not bit-exact")
+            for k, v in enc_dpb.items():
+                if not torch.equal(pcodec.dpb[k], v):
+                    raise AssertionError(f"{label}: final DPB {k} differs "
+                                         f"between encoder and decoder")
+            psnrs = [float(psnr01(r["x_hat"], frames[i]))
+                     for i, r in enumerate(passes[0], 1)]
+            log(f"{label} (fa_idx {INDEX_MAP_FM[1:n_p + 1]}): bytes "
+                f"{[len(b) for b in streams]}, bpp "
+                f"{[len(b) * 8 / (h * w) for b in streams]}, psnr {psnrs}; "
+                f"decode bit-exact, final DPB equal, two encodes equal")
+        if (h, w) != FM_CASES[0][:2]:
+            continue
+        q = FM_Q_INDEXES[1]
+        label = f"FM {w}x{h} q_index {q} timed"
+        pcodec.set_ref_frame(seed_frame)
+        for i in (1, 2):
+            encode(label, q, i)
+        dpb = dict(pcodec.dpb)
+        times = {"encode": [], "decode": []}
+        for _ in range(FM_TIMED):
+            pcodec.dpb = dict(dpb)
+            res, ms = encode(label, q, 3)
+            times["encode"].append(ms)
+            pcodec.dpb = dict(dpb)
+            out, ms = decode(label, q, 3, res["bit_stream"])
+            times["decode"].append(ms)
+            if not torch.equal(out["x_hat"], res["x_hat"]):
+                raise AssertionError(f"{label}: the decode is not bit-exact")
+        log(f"FM {w}x{h} P frame (fa_idx {INDEX_MAP_FM[3]}, DPB full) "
+            f"q_index {q} warm: "
+            f"encode_ms={statistics.median(times['encode'])} "
+            f"decode_ms={statistics.median(times['decode'])} "
+            f"(median of {FM_TIMED}: {json.dumps(times)}) "
+            f"bpp={len(res['bit_stream']) * 8 / (h * w)} "
+            f"psnr={psnr01(out['x_hat'], frames[3])}")
+    log(f"DCVC-FM: every P frame bit-exact, final DPBs equal, encodes "
+        f"repeatable, no kernel launched "
+        f"({time.perf_counter() - t0:.3f} s)")
+    return tuple(derived)
+
+
+def fm_family_launches(fast):
+    """(S = 1, stacked, K2) launches of one family_main --model fm run
+    (FM_FAMILY_FRAMES frames, gop 4: I P P P I P, 2 rates), from the
+    models on the meta device (none); --fast: the intra encodes and the
+    eval forwards, at the size padded to 64."""
+    h, w = FM_FAMILY_H, FM_FAMILY_W
+    if fast:
+        h, w = -(-h // 64) * 64, -(-w // 64) * 64
+    launches = fm_launches(h, w)
+    i_enc, i_dec = legacy_launches(IntraNoARCodec, INTRA_NOAR_CONFIG, h, w)
+    per_rate = [0, 0, 0]
+    for i in range(FM_FAMILY_FRAMES):
+        which = "first" if i % 4 == 1 else "later"
+        if fast:
+            parts = [i_enc] if i % 4 == 0 else [launches[f"{which} forward"]]
+        else:
+            parts = [i_enc, i_dec] if i % 4 == 0 else launches[which]
+        for n in parts:
+            per_rate = [a + b for a, b in zip(per_rate, n)]
+    return tuple(2 * n for n in per_rate)   # 2 rates
+
+
+def phase_fm_family(dev, launch_log):
+    """The family entry for DCVC-FM on the card: family_main.main --model
+    fm (full widths, float32, seeded random weights at init_scale 0.4 as
+    the JAX runner draws them) on a seeded FM_FAMILY_W x FM_FAMILY_H
+    YUV420 file of FM_FAMILY_FRAMES frames, gop 4, 2 rates, run twice with
+    codecs built anew: exit code 0 (every frame bit-exact), finite PSNRs,
+    bpp > 0, the frame types I P P P I P, and the second run's .bin bytes
+    and JSON numbers those of the first.  Then once with --fast (the
+    estimated-bits mode): exit 0, finite bpp and PSNRs, the same frame
+    types.  Returns the (S = 1, stacked, K2) launches derived for it."""
+    t0 = time.perf_counter()
+    root = scratch_dir("fm_family")
+    types = [0, 1, 1, 1, 0, 1]
+    want, want_fast = fm_family_launches(False), fm_family_launches(True)
+    try:
+        cfg_path, seq = write_cli_inputs(root, dev, FM_FAMILY_FRAMES, 16, 4,
+                                         FM_FAMILY_H, FM_FAMILY_W)
+        out = {}
+        for run in ("first", "again", "fast"):
+            argv = ["--model", "fm", "--test_config", cfg_path, "--gop", "4",
+                    "--rate_num", "2",
+                    "--stream_path", os.path.join(root, run),
+                    "--output_path", os.path.join(root, f"{run}.json")]
+            if run == "fast":
+                argv.append("--fast")
+            code, ms, *got = counted(launch_log, f"FM family_main {run}",
+                                     lambda: family_main.main(argv))
+            expect(f"FM family_main {run}", tuple(got),
+                   want_fast if run == "fast" else want)
+            with open(os.path.join(root, f"{run}.json")) as f:
+                result = json.load(f)["results"]
+            bins = {}
+            for name in sorted(os.listdir(os.path.join(root, run))):
+                with open(os.path.join(root, run, name), "rb") as f:
+                    bins[name] = f.read()
+            for rate, r in result["Smoke"][seq].items():
+                if code != 0 or not r["bitexact"] or r["frame_type"] != \
+                        types or not np.isfinite(r["avg_psnr"]) or not \
+                        np.all(np.isfinite(r["frame_bpp"])) or not \
+                        r["avg_bpp"] > 0:
+                    raise AssertionError(f"FM family_main {run} {rate}: "
+                                         f"exit {code}, {r}")
+                if run != "again":
+                    log(f"FM family_main {run} {rate}: q_index="
+                        f"{r['q_index']} bpp={r['avg_bpp']} frame_bpp="
+                        f"{r['frame_bpp']} psnr={r['avg_psnr']} (i "
+                        f"{r['avg_psnr_i']} p {r['avg_psnr_p']}) "
+                        f"avg_frame_encoding_ms="
+                        f"{1e3 * r['avg_frame_encoding_time']} "
+                        f"avg_frame_decoding_ms="
+                        f"{1e3 * r['avg_frame_decoding_time']}")
+            out[run] = (untimed(result), bins, ms)
+        if out["first"][:2] != out["again"][:2] or len(out["first"][1]) != 2:
+            raise AssertionError("FM family_main: the second run's .bin "
+                                 "files or numbers differ from the first's")
+        if out["fast"][1]:
+            raise AssertionError("FM family_main --fast wrote streams")
+        log(f"FM family_main: 2 runs ({out['first'][2]} and "
+            f"{out['again'][2]} ms with their codec builds), "
+            f"{len(out['first'][1])} .bin files byte-identical, numbers "
+            f"equal; --fast {out['fast'][2]} ms "
+            f"({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(root)
+    return tuple(2 * a + b for a, b in zip(want, want_fast))
+
+
 def write_cli_inputs(root, dev, frames=CLI_FRAMES, seed=8,
-                     intra_period=-1):
-    """A seeded YUV420 file of `frames` CLI_W x CLI_H frames (the drifting
+                     intra_period=-1, h=CLI_H, w=CLI_W):
+    """A seeded YUV420 file of `frames` w x h frames (the drifting
     picture of make_sequence, read as YCbCr, chroma 2x2-averaged) and a
     test_config naming it, under `root`.  Returns (config path, sequence
     name)."""
-    seq = f"smoke_{CLI_W}x{CLI_H}_30.yuv"
+    seq = f"smoke_{w}x{h}_30.yuv"
     os.makedirs(os.path.join(root, "Smoke"))
     with open(os.path.join(root, "Smoke", seq), "wb") as f:
-        for frame in make_sequence(CLI_H, CLI_W, frames, seed, dev):
+        for frame in make_sequence(h, w, frames, seed, dev):
             yuv = torch.round((frame[0] + 0.5) * 255)
-            uv = yuv[..., 1:].reshape(CLI_H // 2, 2, CLI_W // 2, 2, 2).mean(
+            uv = yuv[..., 1:].reshape(h // 2, 2, w // 2, 2, 2).mean(
                 (1, 3)).round().permute(2, 0, 1)
             f.write(yuv[..., 0].to(torch.uint8).cpu().numpy().tobytes())
             f.write(uv.to(torch.uint8).cpu().numpy().tobytes())
     cfg = {"root_path": root, "test_classes": {"Smoke": {
         "test": 1, "base_path": "Smoke", "src_type": "yuv420",
-        "sequences": {seq: {"width": CLI_W, "height": CLI_H,
+        "sequences": {seq: {"width": w, "height": h,
                             "frames": frames,
                             "intra_period": intra_period}}}}}
     path = os.path.join(root, "test_config.json")
@@ -1871,15 +2160,17 @@ def phase_symbols(dev, launch_log):
 
 def phase_complexity():
     """kMACs per pixel of each full-width model's training forward at
-    1080p (1088x1920, the training forward's multiple of 64), counted by
-    FlopCounterMode on the meta device (shapes only, no compute):
-    products and convolutions, not elementwise work."""
+    1080p (1088x1920, the training forward's multiple of 64; DCVC-FM: its
+    eval forward of a later P frame), counted by FlopCounterMode on the
+    meta device (shapes only, no compute): products and convolutions, not
+    elementwise work."""
     t0 = time.perf_counter()
     parts = []
     for name, cls, cfg in (("DMCI", DMCI, DMCIConfig()),
                            ("HTS", DMCHT, HTS_CONFIG),
                            ("HTL", DMCHT, HTL_CONFIG),
-                           ("LD", DMCLD, LD_CONFIG)):
+                           ("LD", DMCLD, LD_CONFIG),
+                           ("FM", DMCFM, FM_CONFIG)):
         with torch.device("meta"):
             model = cls(cfg)
         parts.append(f"{name} {model_macs_per_pixel(model, 1080, 1920)}")
@@ -2175,6 +2466,7 @@ def main():
     rt, rt_shapes = rt_spec()
     rt_f32, _ = rt_spec(torch.float32)
     legacy = legacy_codecs(dev)
+    fm_p = fm_p_codec(dev)
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
@@ -2182,6 +2474,7 @@ def main():
     phase_stages_video("RT", rt_p)
     for name in ("EVC", "IntraNoAR"):
         phase_stages_legacy(name, legacy[name])
+    phase_stages_fm(fm_p)
     phase_train_parity(dev)
 
     # the main path, one part at a time, each with the counts set to 0
@@ -2196,7 +2489,9 @@ def main():
     parts += [("DCVC-RT", lambda: phase_rt(rt_intra, rt_p, rt, dev,
                                            launch_log, k2_log)),
               ("legacy intra", lambda: phase_legacy_intra(dev, launch_log,
-                                                          legacy))]
+                                                          legacy)),
+              ("DCVC-FM", lambda: phase_fm(legacy["IntraNoAR"], fm_p, dev,
+                                           launch_log))]
     parts += [("training", lambda: phase_train(dev)),
               ("trainers -> codecs",
                lambda: phase_trained_codecs(dev, launch_log, k2_log))]
@@ -2212,6 +2507,7 @@ def main():
             ("CLI", lambda: phase_cli(dev, launch_log)),
             ("RT family", lambda: phase_rt_family(dev, launch_log,
                                                   rt_f32)),
+            ("FM family", lambda: phase_fm_family(dev, launch_log)),
             ("params.v1", lambda: phase_params_v1(dmci, video["HTS"], dev,
                                                   launch_log)),
             ("image CLI", lambda: phase_image_cli(dev, launch_log)),

@@ -2,15 +2,27 @@
 dcvc_tpu/eval/family.py): encode -> one NAL stream file -> decode from
 disk -> metrics, for the pre-UF models.
 
-The port runs DCVC-RT (`model="rt"`): its intra codec and P-frame codec,
-its NAL container (bitstream/legacy_container.py: the SPS carries the
-size and a 1-bit lane flag, each frame's IP NAL its qp), the qp_shift
-schedule over INDEX_MAP (DCVC-RT/test_video.py:164-203), the
-sequence-level lane pin (2 lanes at 1280x720 and above), and the DPB
-reseeded from each intra frame.  The other models of the JAX runner (FM,
-DC, HEM, TCM, DCVC) are not ported yet (ROADMAP.md §1 item 7) and raise.
-The JAX runner's estimated-bits fast mode (run_sequence_fast) is not
-ported: it never takes RT.
+The port runs two of the JAX runner's models:
+  - DCVC-RT (`model="rt"`): its intra codec and P-frame codec, its NAL
+    container (bitstream/legacy_container.py: the SPS carries the size
+    and a 1-bit lane flag, each frame's IP NAL its qp), the qp_shift
+    schedule over INDEX_MAP (DCVC-RT/test_video.py:164-203), the
+    sequence-level lane pin (2 lanes at 1280x720 and above), and the DPB
+    reseeded from each intra frame;
+  - DCVC-FM (`model="fm"`, DCVC-FM/src/utils/test_helper.py:205-280):
+    IntraNoAR at INTRA_NOAR_CONFIG (N 192, as the JAX runner builds it)
+    for the intra frames, DMCFMCodec for the P frames (both at
+    init_scale 0.4), one FM NAL file per sequence (the SPS carries
+    height, width, qp and fa_idx; FMSPSHelper), each P frame's fa_idx
+    from INDEX_MAP_FM, the intra q_scale from the i_q_scales ladder at
+    the q index, and per-frame bits the file's total / n, as the
+    reference's single-file format has no per-frame split.  Its
+    estimated-bits fast mode (run_sequence_fast, the reference's
+    test_helper.py:134) codes the intra frames for real and takes the P
+    frames' rates from DMCFM.forward on rounded latents, frames
+    edge-padded to a multiple of 64, bpp over the original pixels.
+The other models (HEM, DC, TCM, DCVC) are not ported yet (ROADMAP.md §1
+items 6-7) and raise; so does the fast mode for rt, as in the JAX runner.
 
 All legacy models work on RGB in [0, 1].  The codecs run in float32 on
 every device, as dcvc_tpu's runner builds them (its RT codecs in f32 on
@@ -18,7 +30,8 @@ every backend, eval/family.py:157-167; the other legacy codecs default
 to f32); bfloat16 only when the caller asks for it (`dtype`,
 family_main --dtype bf16).  In float32 the RT intra trunk's
 DepthConvBlocks take the plain PyTorch block on the card too
-(layers/blocks.py kernel_path), as the reference's do.
+(layers/blocks.py kernel_path), as the reference's do; FM's blocks are
+not K1's, so the FM path launches no kernel.
 """
 
 import math
@@ -29,15 +42,29 @@ import numpy as np
 import torch
 
 from ..bitstream import legacy_container as lc
+from ..legacy.dcvc_fm import DMCFM, DMCFMConfig, FM_CONFIG, \
+    TINY_FM_CONFIG, empty_dpb
 from ..legacy.dcvc_rt import DMCRT, DMCRTCodec, DMCRTConfig, \
     INDEX_MAP as RT_INDEX_MAP, TINY_RT_CONFIG, shift_qp
+from ..legacy.hem_intra import INTRA_NOAR_CONFIG, IntraNoAR, \
+    IntraNoARConfig, TINY_INTRA_NOAR_CONFIG
 from ..legacy.rt_intra import DMCIRT, DMCIRTConfig, TINY_RT_INTRA_CONFIG
+from ..runtime.evc_codec import IntraNoARCodec
+from ..runtime.fm_codec import DMCFMCodec
 from ..runtime.rt_image_codec import RTIntraCodec
 from ..utils.jax_bridge import load_into, native_config
 from ..utils.metrics import calc_psnr
 
-MODELS = ("rt",)
-NOT_PORTED = ("dcvc", "tcm", "hem", "dc", "fm")
+MODELS = ("rt", "fm")
+NOT_PORTED = ("dcvc", "tcm", "hem", "dc")
+# the JAX runner's fast mode covers fm, dcvc, tcm and hem; of these the
+# port runs fm
+FAST_MODELS = ("fm",)
+INDEX_MAP_FM = [0, 1, 0, 2, 0, 2, 0, 2]     # FM test_helper.py:146
+# (model file class, its default config) of each codec, by model
+MODEL_FILES = {"rt": ((DMCIRT, DMCIRTConfig()), (DMCRT, DMCRTConfig())),
+               "fm": ((IntraNoAR, IntraNoARConfig()),
+                      (DMCFM, DMCFMConfig()))}
 
 
 def interpolate_log(min_val, max_val, num=64, decreasing=True):
@@ -67,9 +94,10 @@ def _with_params(codec, path, cls, default_cfg):
     weights."""
     cfg = native_config(path, type(default_cfg), codec.cfg)
     model = load_into(cls(cfg), path)
-    return type(codec)(model.state_dict(), cfg=cfg,
-                       skip_thres=codec.skip_thres, dtype=codec.dtype,
-                       device=codec.device)
+    extra = {"skip_thres": codec.skip_thres} \
+        if hasattr(codec, "skip_thres") else {}
+    return type(codec)(model.state_dict(), cfg=cfg, dtype=codec.dtype,
+                       device=codec.device, **extra)
 
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -99,7 +127,7 @@ class FamilyRunner:
         if model not in MODELS:
             raise ValueError(
                 f"model {model!r}: the port runs {MODELS}; "
-                + (f"{model} is not ported yet (ROADMAP.md §1 item 7)"
+                + (f"{model} is not ported yet (ROADMAP.md §1 items 6-7)"
                    if model in NOT_PORTED else "unknown model"))
         self.model = model
         self.stream_dir = stream_dir
@@ -109,21 +137,33 @@ class FamilyRunner:
         self.dtype = family_dtype(self.device, dtype)
         os.makedirs(stream_dir, exist_ok=True)
         self._build(seed, tiny)
+        files_i, files_p = MODEL_FILES[model]
         if model_path_i:
-            self.i_codec = _with_params(self.i_codec, model_path_i, DMCIRT,
-                                        DMCIRTConfig())
+            self.i_codec = _with_params(self.i_codec, model_path_i, *files_i)
         if model_path_p:
-            self.p_codec = _with_params(self.p_codec, model_path_p, DMCRT,
-                                        DMCRTConfig())
+            self.p_codec = _with_params(self.p_codec, model_path_p, *files_p)
+        # 64-level q ladders of the models that code a q index (anchor
+        # values stand in for the per-checkpoint anchors the reference
+        # reads from trained checkpoints)
+        self.i_q_scales = interpolate_log(0.3, 3.0)
 
     def _build(self, seed, tiny):
         kw = {"dtype": self.dtype, "device": self.device}
-        self.i_codec = RTIntraCodec.init_random(
-            torch.Generator().manual_seed(seed),
-            cfg=TINY_RT_INTRA_CONFIG if tiny else None, **kw)
-        self.p_codec = DMCRTCodec.init_random(
-            torch.Generator().manual_seed(seed + 1),
-            cfg=TINY_RT_CONFIG if tiny else None, init_scale=0.4, **kw)
+        gen_i = torch.Generator().manual_seed(seed)
+        gen_p = torch.Generator().manual_seed(seed + 1)
+        if self.model == "rt":
+            self.i_codec = RTIntraCodec.init_random(
+                gen_i, cfg=TINY_RT_INTRA_CONFIG if tiny else None, **kw)
+            self.p_codec = DMCRTCodec.init_random(
+                gen_p, cfg=TINY_RT_CONFIG if tiny else None, init_scale=0.4,
+                **kw)
+        else:
+            self.i_codec = IntraNoARCodec.init_random(
+                gen_i, cfg=TINY_INTRA_NOAR_CONFIG if tiny
+                else INTRA_NOAR_CONFIG, init_scale=0.4, **kw)
+            self.p_codec = DMCFMCodec.init_random(
+                gen_p, cfg=TINY_FM_CONFIG if tiny else FM_CONFIG,
+                init_scale=0.4, **kw)
 
     def run(self, frames_rgb, rate_indices, gop, seq_name="seq"):
         return {f"rate_{r}": self.run_sequence(frames_rgb, r, gop,
@@ -133,7 +173,167 @@ class FamilyRunner:
     def run_sequence(self, frames_rgb, rate_idx, gop, seq_name="seq"):
         """frames_rgb: list of (3, h, w) uint8-valued arrays.  Returns a
         per-sequence result dict (bits / psnr per frame + averages)."""
-        return self.run_sequence_rt(frames_rgb, rate_idx, gop, seq_name)
+        if self.model == "rt":
+            return self.run_sequence_rt(frames_rgb, rate_idx, gop, seq_name)
+        return self.run_sequence_fm(frames_rgb, rate_idx, gop, seq_name)
+
+    def _q_index(self, rate_idx):
+        """The rate point's q index: round(linspace(12, 51)) over the
+        rates, as the JAX runner picks it."""
+        return int(np.round(np.linspace(12, 51, max(self.rate_num, 2))
+                            [min(rate_idx, self.rate_num - 1)]))
+
+    def _summary(self, result, frames_rgb, recons, enc_time, dec_time):
+        """result (frame_bpp, frame_type, bitexact) completed with the
+        PSNRs of `recons` against frames_rgb and the averages."""
+        n = len(frames_rgb)
+        result["frame_psnr"] = [_psnr_rgb(recons[i], frames_rgb[i])
+                                for i in range(n)]
+        result["avg_bpp"] = float(np.mean(result["frame_bpp"]))
+        result["avg_psnr"] = float(np.mean(result["frame_psnr"]))
+        i_mask = [t == 0 for t in result["frame_type"]]
+        result["avg_psnr_i"] = float(np.mean(
+            [p for p, m in zip(result["frame_psnr"], i_mask) if m]))
+        p_ps = [p for p, m in zip(result["frame_psnr"], i_mask) if not m]
+        result["avg_psnr_p"] = float(np.mean(p_ps)) if p_ps else 0.0
+        result["avg_frame_encoding_time"] = enc_time / n
+        result["avg_frame_decoding_time"] = dec_time / n
+        return result
+
+    @staticmethod
+    def _frames01(frames_rgb):
+        return [np.ascontiguousarray(
+            f.transpose(1, 2, 0).astype(np.float32) / 255.0)[None]
+            for f in frames_rgb]
+
+    # -------------------------------------------------------------- DCVC-FM
+
+    def run_sequence_fm(self, frames_rgb, rate_idx, gop, seq_name="seq"):
+        """DCVC-FM end-to-end (dcvc_tpu's run_sequence for fm): every frame
+        into one FM NAL file, decoded back from disk, the decode held
+        bit-exact against the encode."""
+        h, w = frames_rgb[0].shape[1:]
+        q = self._q_index(rate_idx)
+        frames = self._frames01(frames_rgb)
+        n = len(frames)
+        path = os.path.join(self.stream_dir, f"{seq_name}_q{q}.bin")
+        t0 = time.time()
+        enc_recons, types = self._encode_fm(frames, q, gop, h, w, path)
+        enc_time = time.time() - t0
+        t0 = time.time()
+        dec_recons = self._decode_fm(n, gop, path)
+        dec_time = time.time() - t0
+        total_bits = os.path.getsize(path) * 8
+        bits = [total_bits / n] * n   # no per-frame split in the format
+        result = {"frame_bpp": [b / (h * w) for b in bits],
+                  "frame_type": types,
+                  "bitexact": not self.verify or all(
+                      np.array_equal(a, b)
+                      for a, b in zip(enc_recons, dec_recons))}
+        result = self._summary(result, frames_rgb, dec_recons, enc_time,
+                               dec_time)
+        result["q_index"] = q
+        return result
+
+    def _encode_fm(self, frames, q, gop, h, w, path):
+        recons, types = [], []
+        sps_helper = lc.FMSPSHelper()
+        with open(path, "wb") as f:
+            for i, x in enumerate(frames):
+                is_i = i % gop == 0 if gop > 0 else i == 0
+                types.append(0 if is_i else 1)
+                # the intra frame's SPS carries fa_idx 0
+                fa = 0 if is_i else INDEX_MAP_FM[i % len(INDEX_MAP_FM)]
+                if is_i:
+                    res = self.i_codec.compress(
+                        x, float(self.i_q_scales[q]), h, w)
+                    self.p_codec.set_ref_frame(res["x_hat"], h, w)
+                else:
+                    res = self.p_codec.compress(x, q, fa_idx=fa, h=h, w=w)
+                sps = {"height": h, "width": w, "qp": q, "fa_idx": fa}
+                sps_id, is_new = sps_helper.get_sps_id(sps)
+                if is_new:
+                    lc.fm_write_sps(f, {**sps, "sps_id": sps_id})
+                lc.fm_write_ip(f, is_i, sps_id, res["bit_stream"])
+                recons.append(_numpy(res["x_hat"]))
+        return recons, types
+
+    def _decode_fm(self, n, gop, path):
+        recons = []
+        sps_helper = lc.FMSPSHelper()
+        with open(path, "rb") as f:
+            while len(recons) < n:
+                header = lc.fm_read_header(f)
+                if header["nal_type"] == lc.FM_NAL_SPS:
+                    sps_helper.add_sps_by_id(
+                        lc.fm_read_sps_remaining(f, header["sps_id"]))
+                    continue
+                sps = sps_helper.get_sps_by_id(header["sps_id"])
+                stream = lc.fm_read_ip_remaining(f)
+                i = len(recons)
+                is_i = header["nal_type"] == lc.FM_NAL_I
+                if is_i != (i % gop == 0 if gop > 0 else i == 0):
+                    raise ValueError(f"{path}: frame {i}'s NAL type does "
+                                     f"not follow the gop")
+                hh, ww = sps["height"], sps["width"]
+                if is_i:
+                    x_hat = self.i_codec.decompress(
+                        stream, float(self.i_q_scales[sps["qp"]]), hh,
+                        ww)["x_hat"]
+                    self.p_codec.set_ref_frame(x_hat, hh, ww)
+                else:
+                    x_hat = self.p_codec.decompress(
+                        stream, sps["qp"], hh, ww,
+                        fa_idx=sps["fa_idx"])["x_hat"]
+                recons.append(_numpy(x_hat))
+        return recons
+
+    @torch.inference_mode()
+    def run_sequence_fast(self, frames_rgb, rate_idx, gop, seq_name="seq"):
+        """The estimated-bits mode without entropy coding (dcvc_tpu's
+        run_sequence_fast; the reference's test_helper.py:134): intra
+        frames through the real intra codec, P frames' rates from
+        DMCFM.forward on rounded latents.  Frames are edge-padded to a
+        multiple of 64 (the reference's replicate pad), bpp is over the
+        original pixels and the PSNR over the cropped reconstruction."""
+        if self.model not in FAST_MODELS:
+            raise ValueError(f"--fast: no estimated-bits mode for "
+                             f"{self.model} (the JAX runner's covers fm, "
+                             f"dcvc, tcm, hem; the port runs {FAST_MODELS})")
+        del seq_name
+        h, w = frames_rgb[0].shape[1:]
+        ph, pw = (64 - h % 64) % 64, (64 - w % 64) % 64
+        hp, wp = h + ph, w + pw
+        q = self._q_index(rate_idx)
+        frames = [np.pad(x[0], ((0, ph), (0, pw), (0, 0)), mode="edge")[None]
+                  for x in self._frames01(frames_rgb)]
+        model = self.p_codec.model
+        result = {"frame_bpp": [], "frame_type": [], "bitexact": True}
+        recons = []
+        t0 = time.time()
+        dpb = None
+        for i, x in enumerate(frames):
+            is_i = i % gop == 0 if gop > 0 else i == 0
+            result["frame_type"].append(0 if is_i else 1)
+            if is_i:
+                res = self.i_codec.compress(x, float(self.i_q_scales[q]),
+                                            hp, wp)
+                x_hat = res["x_hat"]
+                dpb = empty_dpb(x_hat)
+                bpp = len(res["bit_stream"]) * 8 / (h * w)
+            else:
+                fa = INDEX_MAP_FM[i % len(INDEX_MAP_FM)]
+                res, dpb = model(torch.from_numpy(x).to(self.device), dpb,
+                                 q, fa)
+                x_hat = dpb["ref_frame"]
+                bpp = float(res["bpp"][0])
+            result["frame_bpp"].append(bpp)
+            recons.append(_numpy(x_hat[:, :h, :w]))
+        elapsed = time.time() - t0
+        result = self._summary(result, frames_rgb, recons, elapsed, 0.0)
+        result["q_index"] = q
+        result["fast"] = True
+        return result
 
     # -------------------------------------------------------------- DCVC-RT
 
@@ -144,12 +344,8 @@ class FamilyRunner:
         entropy-coder parallelism."""
         h, w = frames_rgb[0].shape[1:]
         qp_num = self.p_codec.cfg.qp_num
-        q64 = int(np.round(np.linspace(12, 51, max(self.rate_num, 2))
-                           [min(rate_idx, self.rate_num - 1)]))
-        q = int(round(q64 * (qp_num - 1) / 63))
-        frames = [np.ascontiguousarray(
-            f.transpose(1, 2, 0).astype(np.float32) / 255.0)[None]
-            for f in frames_rgb]
+        q = int(round(self._q_index(rate_idx) * (qp_num - 1) / 63))
+        frames = self._frames01(frames_rgb)
         n = len(frames)
         path = os.path.join(self.stream_dir, f"{seq_name}_rt_q{q}.bin")
 
@@ -210,21 +406,11 @@ class FamilyRunner:
 
         total_bits = os.path.getsize(path) * 8
         result = {"frame_bpp": [total_bits / n / (h * w)] * n,
-                  "frame_psnr": [], "frame_type": types, "bitexact": True}
-        for i in range(n):
-            if self.verify and not np.array_equal(enc_recons[i],
-                                                  dec_recons[i]):
-                result["bitexact"] = False
-            result["frame_psnr"].append(
-                _psnr_rgb(dec_recons[i], frames_rgb[i]))
-        result["avg_bpp"] = float(np.mean(result["frame_bpp"]))
-        result["avg_psnr"] = float(np.mean(result["frame_psnr"]))
-        i_mask = [t == 0 for t in types]
-        result["avg_psnr_i"] = float(np.mean(
-            [p for p, m in zip(result["frame_psnr"], i_mask) if m]))
-        p_ps = [p for p, m in zip(result["frame_psnr"], i_mask) if not m]
-        result["avg_psnr_p"] = float(np.mean(p_ps)) if p_ps else 0.0
-        result["avg_frame_encoding_time"] = enc_time / n
-        result["avg_frame_decoding_time"] = dec_time / n
+                  "frame_type": types,
+                  "bitexact": not self.verify or all(
+                      np.array_equal(a, b)
+                      for a, b in zip(enc_recons, dec_recons))}
+        result = self._summary(result, frames_rgb, dec_recons, enc_time,
+                               dec_time)
         result["q_index"] = q
         return result

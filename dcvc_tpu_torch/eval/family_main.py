@@ -1,18 +1,22 @@
 """Legacy-family evaluation CLI (counterpart of test_video_family.py):
 a model end to end over its own stream container, decoded from disk.
 
-    python3 -m dcvc_tpu_torch.eval.family_main --model rt \\
+    python3 -m dcvc_tpu_torch.eval.family_main --model fm \\
         --test_config cfg.json --rate_num 1 --gop 32 \\
-        --stream_path streams --output_path result.json [--device cpu]
+        --stream_path streams --output_path result.json [--fast] \\
+        [--model_path_i i.bin --model_path_p p.bin] [--device cpu]
 
 The arguments and the result JSON are test_video_family.py's, with
 `--device` (default cuda) and `--dtype` (default f32, the reference's
-type on every device; bf16 on request).  The port runs `--model rt`
-(eval/family.py); the other models raise, as does `--fast`.  Sources are
-PNG folders (read with utils/png.py: the machine with the card has no
-PIL) or YUV420 files, converted to RGB with the BT.709 transforms of
-core/color.py as the JAX CLI does.  Exits 1 when a sequence's decode is
-not bit-exact with its encode.
+type on every device; bf16 on request).  The port runs `--model rt` and
+`--model fm` (eval/family.py); the other models raise.  `--fast` is the
+estimated-bits mode (FamilyRunner.run_sequence_fast), for fm; it raises
+for rt, as the JAX runner does.  The model files are dcvc_tpu.params.v1
+files or reference .pth.tar checkpoints.  Sources are PNG folders (read
+with utils/png.py: the machine with the card has no PIL) or YUV420 files,
+converted to RGB with the BT.709 transforms of core/color.py as the JAX
+CLI does.  Exits 1 when a sequence's decode is not bit-exact with its
+encode.
 """
 
 import argparse
@@ -26,7 +30,7 @@ import torch
 from ..core.color import ycbcr2rgb, ycbcr420_to_444_np
 from ..utils.png import load_rgb
 from ..utils.video_io import YUV420Reader, _png_name
-from .family import FamilyRunner
+from .family import FAST_MODELS, FamilyRunner
 
 
 def parse_args(argv=None):
@@ -44,8 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true",
                    help="tiny model configs (smoke/CI)")
     p.add_argument("--fast", action="store_true",
-                   help="estimated-bits mode without entropy coding (not "
-                        "for rt)")
+                   help="estimated-bits mode without entropy coding (fm; "
+                        "reference test_helper.py:134)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model_path_i", default=None,
                    help="I-codec model file (dcvc_tpu.params.v1 or "
@@ -88,10 +92,10 @@ def read_sequence_rgb(seq_dir_or_file, src_type, width, height, n):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fast:
+    if args.fast and args.model not in FAST_MODELS:
         raise ValueError(f"--fast: no estimated-bits mode for "
                          f"{args.model} (the JAX runner's covers fm, dcvc, "
-                         f"tcm, hem)")
+                         f"tcm, hem; the port runs {FAST_MODELS})")
     with open(args.test_config) as f:
         cfg = json.load(f)
     root = cfg.get("root_path", "")
@@ -119,8 +123,13 @@ def main(argv=None):
             ip = seq.get("intra_period", gop)
             if ip == -1:
                 gop = len(frames) + 1   # single intra
-            res = runner.run(frames, list(range(args.rate_num)), gop,
-                             seq_name=f"{cls_name}_{seq_name}")
+            if args.fast:
+                res = {f"rate_{r}": runner.run_sequence_fast(
+                    frames, r, gop, seq_name=f"{cls_name}_{seq_name}_r{r}")
+                    for r in range(args.rate_num)}
+            else:
+                res = runner.run(frames, list(range(args.rate_num)), gop,
+                                 seq_name=f"{cls_name}_{seq_name}")
             results[cls_name][seq_name] = res
             for rk, rv in res.items():
                 flag = "" if rv["bitexact"] else "  !! MISMATCH"

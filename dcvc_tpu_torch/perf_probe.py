@@ -8,6 +8,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
     python3 -m dcvc_tpu_torch.perf_probe train [--runs 1]
     python3 -m dcvc_tpu_torch.perf_probe legacy [--runs 2]
+    python3 -m dcvc_tpu_torch.perf_probe fm [--runs 2]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
@@ -46,6 +47,13 @@ the device idle share (1 - busy / wall), the host rANS coder's time
 published widths in float32 (chip_smoke.py's weights), a warm encode and
 decode at 1080p and 720p each, printing `profile`'s line per call
 (run_legacy).
+
+`fm` profiles DCVC-FM's P-frame codec at its published width in float32
+(chip_smoke.py's weights, perf_probe.lifted_fm): a warm 1080p P frame's
+encode and decode, the DPB full, printing `profile`'s line per call
+(run_fm).  Its blocks are not K1's and it decodes on the host, so it
+launches no kernel of the port (fm_stage_launches derives that from the
+model on the meta device).
 
 `train` builds each full-width training cell of TRAIN_CELLS (DMCI, LD,
 HTS, HTL at their published widths in float32, TF32 off), takes one warm
@@ -323,6 +331,112 @@ def lifted_legacy_intra(model_cls, cfg, seed):
         spatial[:n // 2] += 2.0
         spatial[n:n + n // 2] += 2.0
     return model
+
+
+# DCVC-FM's seeded random weights on the card: at the codec's init_scale
+# 0.4 and q anchors at one every y and mv symbol codes as 0 and every
+# q_index gives q = 1.  So the kernels are damped by `init_scale`, the
+# last convs of the contextual and mv encoders are lifted (y_gain,
+# mv_gain), and those of the two hyper encoders (z_gain, mv_z_gain), the
+# scale parts of the prior fusions' and spatial priors' last biases by
+# scale_bias, and the q anchors spread (q_enc: min, max of the encoders'
+# scalars; q_dec: the decoders'), so that y, mv and z symbols are coded
+# and each q_index has its own quant scalars; the reconstruction's last
+# conv is lifted (recon_gain, recon_bias), whose output is ~1e-5 at 0.4,
+# so that x_hat spreads over [0, 1] instead of clamping to 0.
+FM_LIFT = {"init_scale": LEGACY_INIT_SCALE, "y_gain": 300.0,
+           "mv_gain": 1000.0, "z_gain": 5.0, "mv_z_gain": 10.0,
+           "scale_bias": 2.0, "q_enc": (0.5, 2.0), "q_dec": (2.0, 0.5),
+           "recon_gain": 1e4, "recon_bias": 0.5}
+
+
+def lifted_fm(cfg, seed, lift=None):
+    """A float32 DMCFM (on the CPU) with seeded random weights
+    (reset_parameters, as DMCFMCodec.init_random draws them), lifted as
+    `lift` (FM_LIFT when None) says."""
+    from .legacy.dcvc_fm import DMCFM
+    lift = FM_LIFT if lift is None else lift
+    m = DMCFM(cfg)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        m.damp_(lift["init_scale"])
+        for side in ("mv_y", "y"):
+            getattr(m, f"{side}_q_enc").copy_(
+                torch.tensor(lift["q_enc"]).view(2, 1, 1, 1))
+            getattr(m, f"{side}_q_dec").copy_(
+                torch.tensor(lift["q_dec"]).view(2, 1, 1, 1))
+        m.contextual_encoder.conv4.conv.weight.mul_(lift["y_gain"])
+        m.mv_encoder.enc_3_2.conv.weight.mul_(lift["mv_gain"])
+        m.contextual_hyper_prior_encoder.layers_3.conv.weight.mul_(
+            lift["z_gain"])
+        m.mv_hyper_prior_encoder.layers_3.conv.weight.mul_(
+            lift["mv_z_gain"])
+        for fusion, spatial, ch in ((m.y_prior_fusion, m.y_spatial_prior,
+                                     cfg.ch_16x),
+                                    (m.mv_y_prior_fusion,
+                                     m.mv_y_spatial_prior, cfg.ch_mv)):
+            fusion.layers_1.ffn.conv2.conv.bias[ch:2 * ch] += \
+                lift["scale_bias"]
+            spatial.layers_2.ffn.conv2.conv.bias[:ch] += lift["scale_bias"]
+        recon = m.recon_generation_net.recon_conv.conv
+        recon.weight.mul_(lift["recon_gain"])
+        recon.bias.add_(lift["recon_bias"])
+    return m
+
+
+def fm_stage_launches(cfg, h, w):
+    """The K1 launches of each stage of a DCVC-FM P frame (DMCFMCodec,
+    float32) on an (h, w) frame, from the model itself: its stage methods
+    on the meta device in the codec's order, and the eval forward of the
+    family runner's estimated-bits mode (`forward`, on the frame padded
+    to 64), for the first P frame
+    after an intra frame (`first ...`, the DPB holding only the frame) and
+    a later one (`later ...`, the DPB full).  FM's blocks are LeakyReLU
+    FFNs, not K1's, and its codec decodes on the host, so every Counter
+    is empty.  Returns {stage: Counter of Launch}."""
+    from .core.padding import get_padding_size
+    from .legacy.dcvc_fm import DMCFM
+    pad_r, pad_b = get_padding_size(h, w, 32)
+    ph, pw = h + pad_b, w + pad_r
+    yh, yw = ph // 16, pw // 16
+    log = LaunchLog()
+    with torch.device("meta"), meta_launches(), log:
+        m = DMCFM(cfg)
+        e = torch.empty
+        x = e(1, ph, pw, 3)
+        full = {"ref_feature": e(1, ph, pw, cfg.ch_1x),
+                "ref_mv_feature": e(1, ph // 4, pw // 4, cfg.ch_mv),
+                "ref_y": e(1, yh, yw, cfg.ch_16x),
+                "ref_mv_y": e(1, yh, yw, cfg.ch_mv)}
+        for which, dpb in (("first", dict.fromkeys(full)), ("later", full)):
+            def stage(name, fn, *args):
+                with log.call(f"{which} {name}"):
+                    return fn(*args)
+            mv_y, mv_z = stage("mv_analysis", m.mv_analysis, x, x,
+                               dpb["ref_mv_feature"], 0)
+            spctx = stage("mv_prior0", m.mv_prior0, mv_z, dpb["ref_mv_y"],
+                          yh, yw)[4]
+            for k in (1, 2, 3):
+                stage(f"mv_prior_step {k}", m.mv_prior_step, spctx, mv_y, k)
+            mv_hat = stage("mv_synthesis", m.mv_synthesis, mv_y, 0)[0]
+            c1, c2, c3 = stage("mc", m.mc, x, dpb["ref_feature"], 1, mv_hat)
+            y, z = stage("ctx_analysis", m.ctx_analysis, x, c1, c2, c3, 0)
+            spctx = stage("ctx_prior0", m.ctx_prior0, z, dpb["ref_y"], c3,
+                          yh, yw)[4]
+            for k in (1, 2, 3):
+                stage(f"ctx_prior_step {k}", m.ctx_prior_step, spctx, y, k)
+            stage("synthesis", m.synthesis, y, c1, c2, c3, 0)
+        # the eval forward takes the frame padded to 64
+        fh, fw = -(-h // 64) * 64, -(-w // 64) * 64
+        xf = e(1, fh, fw, 3)
+        for which, dpb in (("first", {}), ("later", {
+                "ref_feature": e(1, fh, fw, cfg.ch_1x),
+                "ref_mv_feature": e(1, fh // 4, fw // 4, cfg.ch_mv),
+                "ref_y": e(1, fh // 16, fw // 16, cfg.ch_16x),
+                "ref_mv_y": e(1, fh // 16, fw // 16, cfg.ch_mv)})):
+            with log.call(f"{which} forward"):
+                m(xf, {**dict.fromkeys(full), **dpb, "ref_frame": xf}, 0, 1)
+    return dict(log.calls)
 
 
 class K2Call(NamedTuple):
@@ -964,6 +1078,46 @@ def run_legacy(dev, runs):
                     profile_call(f"{name} {w}x{h} {kind}", codec, fn, r)
 
 
+FM_SEED = 30
+FM_Q_INDEX = 51
+
+
+def fm_p_codec(dev):
+    """DMCFMCodec at FM_CONFIG on the card, float32, with lifted_fm's
+    weights (chip_smoke.py's)."""
+    from .legacy.dcvc_fm import FM_CONFIG
+    from .runtime.fm_codec import DMCFMCodec
+    return DMCFMCodec(lifted_fm(FM_CONFIG, FM_SEED).state_dict(),
+                      cfg=FM_CONFIG, device=dev)
+
+
+def run_fm(dev, runs):
+    """`profile`'s lines for a warm DCVC-FM P frame at 1080p (DMCFMCodec at
+    FM_CONFIG, float32, lifted_fm's weights, q_index FM_Q_INDEX): the DPB
+    seeded with a frame and filled by one P frame, then the third frame's
+    encode and decode (fa_idx 0), the DPB put back before each call,
+    `runs` profiled calls each."""
+    codec = fm_p_codec(dev)
+    h, w, q = 1080, 1920, FM_Q_INDEX
+    frames = [f + 0.5 for f in make_sequence(h, w, 3, FM_SEED, dev)]
+    codec.set_ref_frame(frames[0])
+    codec.compress(frames[1], q, fa_idx=1)
+    dpb = dict(codec.dpb)
+    bits = codec.compress(frames[2], q, fa_idx=0)["bit_stream"]
+
+    def encode():
+        codec.dpb = dict(dpb)
+        return codec.compress(frames[2], q, fa_idx=0)
+
+    def decode():
+        codec.dpb = dict(dpb)
+        return codec.decompress(bits, q, h, w, fa_idx=0)
+    for kind, fn in (("encode", encode), ("decode", decode)):
+        fn()
+        for r in range(runs):
+            profile_call(f"FM {w}x{h} {kind}", codec, fn, r)
+
+
 # ------------------------------------------------------------ training
 
 class TrainCell(NamedTuple):
@@ -1285,7 +1439,7 @@ def run_k2(dev, symbols, lanes, clocks=False):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles",
-                                     "train", "legacy"))
+                                     "train", "legacy", "fm"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
@@ -1314,6 +1468,8 @@ def main():
         run_train(dev, args.runs)
     elif args.mode == "legacy":
         run_legacy(dev, args.runs)
+    elif args.mode == "fm":
+        run_fm(dev, args.runs)
     else:
         run_profile(dev, args.runs)
 

@@ -26,12 +26,14 @@ are stacked back into their StackedDCB leaves.  load_native_into /
 save_native move a port model to and from a dcvc_tpu.params.v1 file
 (utils/checkpoint.py), its config in the header.
 
-The legacy intra models: EVC's modules are named after key_fn_evc's keys
+The legacy models: EVC's modules are named after key_fn_evc's keys
 (evc_params_from_jax; evc_params_to_jax parses them back,
-`_evc_flax_path`), IntraNoAR's mirror the flax tree
-(intra_noar_params_from_jax / _to_jax: the scopes joined by '.').  Their
-leaves convert by name: a conv `kernel` as above, a Dense `kernel` (I, O)
-to nn.Linear's (O, I), and q_basic (1, 1, 1, N) keeps its shape.
+`_evc_flax_path`), IntraNoAR's and DCVC-FM's mirror the flax tree
+(intra_noar_params_from_jax / _to_jax, fm_params_from_jax / _to_jax:
+the scopes joined by '.').  Their leaves convert by name: a conv
+`kernel` as above, a Dense `kernel` (I, O) to nn.Linear's (O, I), and
+q_basic (1, 1, 1, N), FM's q anchors (2, 1, 1, 1) and its grouped fusion
+kernel (g, I, O) keep their shapes.
 """
 
 import numpy as np
@@ -388,6 +390,13 @@ def intra_noar_params_to_jax(state):
     return _nest(items)
 
 
+# DCVC-FM's modules mirror the flax tree as IntraNoAR's do (legacy/
+# dcvc_fm.py): the same conversion, OffsetDiversity's grouped fusion
+# kernel (g, I, O) and the q anchors (2, 1, 1, 1) kept as they are
+fm_params_from_jax = intra_noar_params_from_jax
+fm_params_to_jax = intra_noar_params_to_jax
+
+
 def evc_key(path):
     """key_fn_evc's reference key of a flax EVC path, but the port's own
     `bit_estimator_z.{h,b,a}` for the z prior's banks (key_fn_evc names
@@ -454,6 +463,7 @@ def evc_params_to_jax(state):
 def _converters(model):
     """(flax tree -> state_dict, state_dict -> flax tree) of a port
     model."""
+    from ..legacy.dcvc_fm import DMCFM
     from ..legacy.dcvc_rt import DMCRT
     from ..legacy.evc import EVC
     from ..legacy.hem_intra import IntraNoAR
@@ -469,6 +479,8 @@ def _converters(model):
         return evc_params_from_jax, evc_params_to_jax
     if isinstance(model, IntraNoAR):
         return intra_noar_params_from_jax, intra_noar_params_to_jax
+    if isinstance(model, DMCFM):
+        return fm_params_from_jax, fm_params_to_jax
     if isinstance(model, DMCLD):
         return dmc_ld_params_from_jax, dmc_ld_params_to_jax
     if isinstance(model, DMCHT):
@@ -479,9 +491,9 @@ def _converters(model):
 
 
 def load_native_into(model, path):
-    """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT, DMCRT, EVC or
-    IntraNoAR at the file's config: config_from_header of its header) from
-    the dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter
+    """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT, DMCRT, EVC,
+    IntraNoAR or DMCFM at the file's config: config_from_header of its
+    header) from the dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter
     the file lacks or one the model does not use; load_state_dict raises on
     a shape that differs.  Returns the model."""
     tree, _ = load_params(path)

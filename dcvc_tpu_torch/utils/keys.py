@@ -4,9 +4,11 @@ dcvc_tpu/utils/torch_import.py.
 The port names its parameters after the reference torch module tree; the
 JAX package's checkpoint importer maps each flax leaf path to that name.
 utils/jax_bridge.py inverts the importer with these maps (key_fn_evc: the
-port's EVC module names, legacy/evc.py).  They are
-verbatim copies (pinned by tests/test_torch_core.py), because the port
-imports nothing of the JAX package.
+port's EVC module names, legacy/evc.py; key_fn_fm: the reference names
+of DCVC-FM's keys, which legacy/dcvc_fm.py DMCFM.from_reference reads).
+They are verbatim copies (pinned by tests/test_torch_core.py and, for
+DCVC-FM's, tests/test_torch_dcvc_fm.py), because the port imports
+nothing of the JAX package.
 """
 
 import re
@@ -230,4 +232,110 @@ def key_fn_evc(path):
             continue
         out.append(s)
         i += 1
+    return ".".join(out + [leaf])
+
+
+def _fm_dcb_sub(rest):
+    """FM DepthConvBlock internals: our scope suffix -> torch
+    '.block.*' suffix (DCVC-FM/src/models/layers.py DepthConvBlock*)."""
+    head, sub = rest[0], rest[1]
+    if head == "dc":
+        return {"depth_conv": "block.0.depth_conv",
+                "adaptor": "block.0.adaptor",
+                "conv1": "block.0.conv1.0",
+                "conv2": "block.0.conv2"}[sub]
+    if head == "ffn":
+        return {"conv": "block.1.conv", "conv_out": "block.1.conv_out",
+                "conv1": "block.1.conv.0", "conv2": "block.1.conv.2"}[sub]
+    raise KeyError(rest)
+
+
+_FM_RBU_SUB = {"conv": "conv", "subpel_conv": "subpel_conv.0",
+               "upsample": "upsample.0"}
+# parents whose inner ConvK is a torch subpel Sequential (conv, shuffle)
+_FM_SUBPEL_PARENTS = {"up1", "up2", "up3", "up4", "conv2_up", "conv3_up",
+                      "dec_3_1"}
+
+
+def key_fn_fm(path):
+    """DCVC-FM checkpoint map: our flax paths -> reference state_dict
+    keys (DCVC-FM/src/models/video_model.py module tree).
+
+    Returns a key string, a list of keys (leaf stacked on axis 0), or a
+    (transform, payload) pair for the structured leaves."""
+    segs = list(path)
+    leaf = segs.pop()
+
+    # bitparm banks: our (Q, C, L) packs torch f1..fL.{h,b,a} (Q,C,1,1)
+    if segs and segs[0] in ("bit_estimator_z", "bit_estimator_z_mv"):
+        n_layers = 4 if leaf in ("h", "b") else 3
+        return ("stack_last",
+                [f"{segs[0]}.f{i + 1}.{leaf}" for i in range(n_layers)])
+    # OffsetDiversity grouped fusion conv
+    if segs == ["align"] and leaf in ("fusion_kernel", "fusion_bias"):
+        which = "weight" if leaf == "fusion_kernel" else "bias"
+        return ("group_conv", f"align.fusion.{which}")
+
+    out = []
+    i = 0
+    while i < len(segs):
+        s = segs[i]
+        rest = segs[i + 1:]
+
+        m = re.fullmatch(r"moduleBasic_(\d+)", s)
+        if m:  # SpyNet level order: 0 = coarsest = me_8x
+            out.append(f"me_{8 >> int(m.group(1))}x")
+            i += 1
+            continue
+        m = re.fullmatch(r"conv_offset_(\d+)", s)
+        if m:  # align.conv_offset Sequential(conv, lrelu)*: 0, 2, 4
+            out.append(f"conv_offset.{2 * int(m.group(1))}")
+            i += 2 if rest and rest[0] == "conv" else 1
+            continue
+        if s in ("dc", "ffn") and rest:
+            out.append(_fm_dcb_sub([s] + rest))
+            # consume dc/<sub>[/conv] or ffn/<sub>[/conv]
+            i += 3 if len(rest) >= 2 and rest[1] == "conv" else 2
+            continue
+        if s in ("subpel_conv", "upsample") and rest and rest[0] == "conv":
+            # ResidualBlockUpsampleFM subpel branches wrap Sequential(.0)
+            out.append(_FM_RBU_SUB[s])
+            i += 2
+            continue
+        if s == "conv":
+            prev = segs[i - 1] if i else ""
+            if rest and rest[0] == "conv":
+                # X/conv/conv: SubpelConv (torch Sequential .0) when the
+                # parent is a subpel module, else an RBU's plain conv
+                if prev in _FM_SUBPEL_PARENTS:
+                    out.append("0")
+                else:
+                    out.append("conv")
+                i += 2
+                continue
+            # bare ConvK wrapper scope: dropped, except standalone
+            # SubpelConv modules (dec_3_1) which are torch Sequential(.0)
+            if prev in _FM_SUBPEL_PARENTS:
+                out.append("0")
+            i += 1
+            continue
+        m = re.fullmatch(r"layers_(\d+)", s)
+        if m:  # Sequential index (activations count on both sides)
+            out.append(m.group(1))
+            i += 1
+            continue
+        m = re.fullmatch(r"feature_adaptor_(\d+)", s)
+        if m:
+            out.append(f"feature_adaptor.{m.group(1)}")
+            i += 1
+            continue
+        m = re.fullmatch(r"(enc_\d+|dec_\d+|context_refine)_(\d+)", s)
+        if m:  # indexed module lists: enc_1_0 -> enc_1.0
+            out.append(f"{m.group(1)}.{m.group(2)}")
+            i += 1
+            continue
+        out.append(s)
+        i += 1
+
+    leaf = {"kernel": "weight"}.get(leaf, leaf)
     return ".".join(out + [leaf])

@@ -260,7 +260,8 @@ def test_port_sources_import_no_jax():
                 "entropy/legacy.py", "legacy/fm_layers.py",
                 "legacy/dcvc_hem.py", "legacy/hem_intra.py", "legacy/evc.py",
                 "runtime/fm_codec.py", "runtime/evc_codec.py",
-                "utils/png_frames.py"):
+                "utils/png_frames.py", "legacy/ops.py", "legacy/spynet.py",
+                "legacy/dcvc_fm.py"):
         assert f"dcvc_tpu_torch/{sub}" in scanned, sub
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
@@ -294,6 +295,8 @@ def test_port_imports_no_jax():
             "dcvc_tpu_torch.eval.family, dcvc_tpu_torch.eval.family_main, "
             "dcvc_tpu_torch.runtime.evc_codec, "
             "dcvc_tpu_torch.eval.image_main, dcvc_tpu_torch.utils.png_frames, "
+            "dcvc_tpu_torch.legacy.ops, dcvc_tpu_torch.legacy.spynet, "
+            "dcvc_tpu_torch.legacy.dcvc_fm, dcvc_tpu_torch.runtime.fm_codec, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dcvc_tpu'))\n"

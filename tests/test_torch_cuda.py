@@ -466,3 +466,40 @@ def test_cuda_legacy_intra_codec(cuda_device, kind):
     for got, want in [(y_g, y_c), (x_g, x_c)] + list(zip(prior_g, prior_c)):
         err = (got.cpu() - want).norm() / want.norm().clamp_min(1e-12)
         assert float(err) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_fm_codec(cuda_device):
+    """DMCFMCodec on the card, float32, TINY_FM_CONFIG with the smoke's
+    lifted weights (perf_probe.lifted_fm): a DPB seeded with a 256x256
+    frame, then 3 P frames on INDEX_MAP_FM's fa_idx schedule, whose
+    streams decode to the encoder's x_hat bit for bit, the final DPBs
+    equal, two encodes giving the same bytes, and no kernel launched (FM's
+    blocks are not K1's and it decodes on the host)."""
+    from dcvc_tpu_torch.eval.family import INDEX_MAP_FM
+    from dcvc_tpu_torch.legacy.dcvc_fm import TINY_FM_CONFIG
+    from dcvc_tpu_torch.perf_probe import lifted_fm, make_sequence
+    from dcvc_tpu_torch.runtime.fm_codec import DMCFMCodec
+    codec = DMCFMCodec(lifted_fm(TINY_FM_CONFIG, 3).state_dict(),
+                       cfg=TINY_FM_CONFIG, device=cuda_device)
+    frames = [f + 0.5 for f in make_sequence(256, 256, 4, 6, cuda_device)]
+    n = K1.fused_dcb.launches, K2.rans_decode.launches
+    for q in (0, TINY_FM_CONFIG.qp_num - 1):
+        passes = []
+        for _ in range(2):
+            codec.set_ref_frame(frames[0])
+            passes.append([codec.compress(frames[i], q,
+                                          fa_idx=INDEX_MAP_FM[i])
+                           for i in (1, 2, 3)])
+        enc_dpb = dict(codec.dpb)
+        assert [r["bit_stream"] for r in passes[0]] == \
+            [r["bit_stream"] for r in passes[1]]
+        codec.set_ref_frame(frames[0])
+        for i, res in zip((1, 2, 3), passes[0]):
+            out = codec.decompress(res["bit_stream"], q, 256, 256,
+                                   fa_idx=INDEX_MAP_FM[i])
+            assert out["x_hat"].device.type == "cuda"
+            assert torch.equal(out["x_hat"], res["x_hat"])
+        for k, v in enc_dpb.items():
+            assert torch.equal(codec.dpb[k], v), k
+    assert (K1.fused_dcb.launches, K2.rans_decode.launches) == n

@@ -15,7 +15,8 @@ bit-exact flag) equal them, the PSNRs per frame and their averages within
 the two agree within the 1e-4 frame tolerance, so a few pixels may round
 apart); the times are not compared.  The CLI gives the same stream file and numbers, and
 its YUV420 reader the JAX CLI's RGB frames.  Models the port does not run
-yet, and --fast, raise.
+yet raise, and so does --fast for rt, as the JAX runner does (DCVC-FM's
+runner and its --fast mode: tests/test_torch_family_fm.py).
 """
 
 import json
@@ -171,7 +172,7 @@ def test_yuv_reader_matches_jax_cli(tmp_path):
         np.testing.assert_array_equal(g, wt)
 
 
-@pytest.mark.parametrize("model", ["fm", "dc", "hem", "tcm", "dcvc"])
+@pytest.mark.parametrize("model", ["dc", "hem", "tcm", "dcvc"])
 def test_models_not_ported_raise(model, tmp_path):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         family.FamilyRunner(model, str(tmp_path), tiny=True, device="cpu")
