@@ -16,8 +16,8 @@ tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
 lanes, escapes, a count below the lane count and of 0, z -> y -> y
 threading).  Checks the stages of the six full-width models (DMCI, HTS,
 HTL, LD, DCVC-RT's intra and P models) in bf16 on the card against
-float32 on the CPU, those of EVC, IntraNoAR and DCVC-FM (float32) on
-the card against the CPU at 256x256, and one TINY
+float32 on the CPU, those of EVC, IntraNoAR, DCVC-FM, DCVC-HEM and
+DCVC-DC (float32) on the card against the CPU at 256x256, and one TINY
 DMCI and one TINY HTS 2-chunk training step on the card against the same
 steps on the CPU (float32, TF32 off).  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
@@ -61,6 +61,12 @@ every K2 launch's inputs:
     (the same bytes) and decoded bit-exact with equal final DPBs, the warm
     1080p P frame timed; its blocks are LeakyReLU FFNs and it decodes on
     the host, so it launches no kernel (perf_probe.fm_stage_launches);
+  - DCVC-HEM and DCVC-DC (float32, RGB in [0, 1]): DMCHEMCodec at
+    HEM_CONFIG and DMCDCCodec at DC_CONFIG, lifted as FM's
+    (perf_probe.lifted_hem, lifted_dc), the same cases, q indexes and
+    checks as DCVC-FM's part (HEM at the q scales of the family runner's
+    ladders, DC's fa_idx from INDEX_MAP_DC); neither launches a kernel
+    (perf_probe.hem_stage_launches, dc_stage_launches);
   - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
     float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
     stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
@@ -88,7 +94,10 @@ every K2 launch's inputs:
     fresh codecs: every frame bit-exact, the same .bin bytes; and
     family_main --model fm (float32, init_scale 0.4) on a seeded 720p
     YUV420 file of 6 frames the same way, then once with --fast (the
-    estimated-bits mode: finite bpp and PSNRs, frame types I P P P I P).
+    estimated-bits mode: finite bpp and PSNRs, frame types I P P P I P);
+    family_main --model hem and --model dc on a seeded 720p file of 4
+    frames (gop 4, 2 rates: one container file per frame, every frame
+    bit-exact), then --model hem --fast.
   - the evaluation surface, each part timed: params.v1 (the float32
     DMCI and HTS models written by save_native, read by load_native_into,
     their codecs coding a 1080p frame and a chunk to the in-memory
@@ -161,18 +170,21 @@ from dcvc_tpu_torch.models.dmci import DMCI, DMCIConfig, TINY_CONFIG
 from dcvc_tpu_torch.kernels._build import library_path
 from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, INDEX_MAP, RT_CONFIG, \
     shift_qp
-from dcvc_tpu_torch.eval.family import INDEX_MAP_FM
+from dcvc_tpu_torch.legacy.dcvc_dc import DC_CONFIG, DMCDC
 from dcvc_tpu_torch.legacy.dcvc_fm import DMCFM, FM_CONFIG
+from dcvc_tpu_torch.legacy.dcvc_hem import DMCHEM, HEM_CONFIG
 from dcvc_tpu_torch.legacy.evc import EVC_CONFIG, SCALABLE_EVC_CONFIG
 from dcvc_tpu_torch.legacy.hem_intra import INTRA_NOAR_CONFIG, \
     INTRA_NOAR_FM_CONFIG
-from dcvc_tpu_torch.legacy.rt_intra import DMCIRT, DMCIRTConfig
+from dcvc_tpu_torch.legacy.rt_intra import DMCIRTConfig
 from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
     k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
     k2_latency_bound_ms, ld_stage_launches, legacy_intra_launches, \
-    fm_p_codec, fm_stage_launches, lifted_legacy_intra, make_sequence, \
-    max_sm_clock_mhz, nvidia_smi, profile_launches, run_k2_case, \
+    dc_p_codec, dc_stage_launches, fm_p_codec, fm_stage_launches, \
+    hem_p_codec, hem_q_scales, hem_stage_launches, lifted_legacy_intra, \
+    make_sequence, max_sm_clock_mhz, nvidia_smi, p_frame_calls, \
+    profile_launches, run_k2_case, \
     rt_stage_launches, sass_counts, smooth_frame, TRAIN_CELLS, \
     TRAIN_INIT_SCALE, damped_model, train_setup
 from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
@@ -307,6 +319,12 @@ FM_I_Q_SCALE = 0.8
 FM_TIMED = 3
 FM_FAMILY_FRAMES = 6
 FM_FAMILY_H, FM_FAMILY_W = 720, 1280
+# DCVC-HEM and DCVC-DC: the cases, q indexes, intra frame and timing of
+# DCVC-FM's part (phase_p_frames: HEM's q scales from the family runner's
+# ladders at each q index, DC's fa_idx from INDEX_MAP_DC); their family
+# entry: family_main --model hem and dc on a seeded 720p YUV420 file of
+# HEM_DC_FAMILY_FRAMES frames, gop 4, 2 rates, then --model hem --fast
+HEM_DC_FAMILY_FRAMES = 4
 # the evaluation entry's PNG source: PNG_FRAMES seeded 1080p frames
 PNG_FRAMES = 3
 # the evaluation entry's phase: a seeded 1080p YUV420 file of CLI_FRAMES
@@ -455,6 +473,8 @@ def phase_kernels(dev, launch_log, launches):
         rows[kind]["bound_by"] = ("operations" if flop_ms >= byte_ms
                                   else "bytes")
     for label, counts in launch_log.calls:
+        if not counts:       # a call of a part that launches no kernel
+            continue
         sums = {kind: [0, 0.0, 0.0, 0.0] for kind in REPLACES}
         for key, n in counts.items():
             s = sums[key.kind]
@@ -1341,9 +1361,10 @@ def phase_legacy_intra(dev, launch_log, codecs):
 
 # ---------------------------------------------------------------- DCVC-FM
 
-def phase_stages_fm(codec):
-    """DCVC-FM's stages at full width on the card against the same model
-    on the CPU, both float32, on a LEGACY_STAGE_SIDE square pair of
+def phase_stages_fm(codec, name="FM"):
+    """DCVC-FM's stages (DCVC-DC's: the same stage methods) at full width
+    on the card against the same model on the CPU, both float32, on a
+    LEGACY_STAGE_SIDE square pair of
     frames at q_index FM_Q_INDEXES[1]: mv_analysis's mv_y (the first P
     frame's), mc's contexts (from the frame, and from a feature at
     fa_idx 1) on the CPU's mv_hat, ctx_analysis's y on the CPU's
@@ -1380,25 +1401,96 @@ def phase_stages_fm(codec):
                              for i, c in enumerate(later)},
                           "ctx_analysis y": y, "synthesis x_hat": x_hat,
                           "synthesis feature": feat}
+    report_stages(name, f"q_index {q}", out)
+
+
+def report_stages(name, what, out):
+    """Logs the card-vs-CPU relative RMS of each stage output in
+    out[where] and the shares of differing mv_z / z symbols; fails above
+    LEGACY_STAGE_REL_TOL."""
     diff = {k: (out["card"].pop(k).cpu() != out["cpu"].pop(k)).float()
             .mean().item() for k in ("mv_z", "z")}
     errs = {k: rel_rms(out["card"][k], v) for k, v in out["cpu"].items()}
-    log(f"FM stages on the card vs the CPU, float32, {side}x{side}, q_index "
-        f"{q}, relative RMS (tol {LEGACY_STAGE_REL_TOL}): {json.dumps(errs)};"
-        f" symbols differing: mv_z {diff['mv_z']} z {diff['z']}")
+    side = LEGACY_STAGE_SIDE
+    log(f"{name} stages on the card vs the CPU, float32, {side}x{side}, "
+        f"{what}, relative RMS (tol {LEGACY_STAGE_REL_TOL}): "
+        f"{json.dumps(errs)}; symbols differing: mv_z {diff['mv_z']} z "
+        f"{diff['z']}")
     bad = [k for k, e in errs.items() if not e <= LEGACY_STAGE_REL_TOL]
     if bad:
-        raise AssertionError(f"FM stage outputs disagree with the CPU: {bad}")
+        raise AssertionError(f"{name} stage outputs disagree with the CPU: "
+                             f"{bad}")
 
 
-def fm_launches(h, w):
+def phase_stages_hem(codec):
+    """DCVC-HEM's stages at full width on the card against the same model
+    on the CPU, both float32, on a LEGACY_STAGE_SIDE square pair of
+    frames at the q scales of q index FM_Q_INDEXES[1]: mv_analysis's mv_y,
+    mv_prior (zero ref_mv_y) and mv_spatial on the CPU's mv_z and rounded
+    mv_y, mc's contexts (from the frame, and from a feature) on the CPU's
+    mv_hat, ctx_analysis's y, ctx_prior (a random ref_y) and ctx_spatial,
+    and synthesis (y_hat, x_hat, feature) of the CPU's rounded y; the
+    shares of differing mv_z and z symbols are printed.  Fails above
+    LEGACY_STAGE_REL_TOL (relative RMS)."""
+    gpu, dev, cfg = codec.model, codec.device, codec.cfg
+    cpu = type(gpu)(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    side, q = LEGACY_STAGE_SIDE, FM_Q_INDEXES[1]
+    on_cpu = torch.device("cpu")
+    ref, x = [f + 0.5 for f in make_sequence(side, side, 2, 36, on_cpu)]
+    gen = torch.Generator().manual_seed(37)
+    feature = torch.rand(1, side, side, cfg.ch_n, generator=gen)
+    ref_y = torch.randn(1, side // 16, side // 16, cfg.ch_m, generator=gen)
+    zeros_mv = torch.zeros(1, side // 16, side // 16, cfg.ch_mv)
+    qs_mv, qs_y = (torch.tensor(v) for v in hem_q_scales(q))
+    out = {}
+    with torch.inference_mode():
+        for where, model, d in (("cpu", cpu, on_cpu), ("card", gpu, dev)):
+            mv_y, mv_z = model.mv_analysis(x.to(d), ref.to(d), qs_mv.to(d))
+            if where == "cpu":
+                mv_z_c, mv_y_hat = mv_z, torch.round(mv_y)
+            mv_prior = model.mv_prior(mv_z_c.to(d), zeros_mv.to(d))
+            mv_sp = model.mv_spatial(mv_y_hat.to(d), *mv_prior)
+            if where == "cpu":
+                mv_hat = model.mv_synthesis(mv_y_hat, qs_mv)[1]
+            first = model.mc(ref.to(d), None, mv_hat.to(d))
+            later = model.mc(ref.to(d), feature.to(d), mv_hat.to(d))
+            if where == "cpu":
+                ctx = later
+            ctx_d = [c.to(d) for c in ctx]
+            y, z = model.ctx_analysis(x.to(d), *ctx_d, qs_y.to(d))
+            if where == "cpu":
+                z_c, y_hat = z, torch.round(y)
+            prior = model.ctx_prior(z_c.to(d), ctx_d[2], ref_y.to(d))
+            sp = model.ctx_spatial(y_hat.to(d), *prior)
+            syn = model.synthesis(y_hat.to(d), *ctx_d, qs_y.to(d))
+            out[where] = {
+                "mv_z": mv_z, "z": z, "mv_analysis mv_y": mv_y,
+                **{f"mv_prior {k}": v for k, v in zip(
+                    ("q_step", "scales", "means"), mv_prior)},
+                "mv_spatial scales": mv_sp[0], "mv_spatial means": mv_sp[1],
+                **{f"mc first c{i + 1}": c for i, c in enumerate(first)},
+                **{f"mc later c{i + 1}": c for i, c in enumerate(later)},
+                "ctx_analysis y": y,
+                **{f"ctx_prior {k}": v for k, v in zip(
+                    ("q_step", "scales", "means"), prior)},
+                "ctx_spatial scales": sp[0], "ctx_spatial means": sp[1],
+                **{f"synthesis {k}": v for k, v in zip(
+                    ("y_hat", "x_hat", "feature"), syn)}}
+    report_stages("HEM", f"q index {q}", out)
+
+
+def p_frame_launches(name, h, w):
     """{"first" / "later": ((S = 1, stacked, K2) launches of one P-frame
-    encode, of one decode), "forward": those of the eval forward} of
-    DCVC-FM on an (h, w) frame, from the model on the meta device
-    (perf_probe.fm_stage_launches): its blocks are not K1's and it decodes
-    on the host, so none."""
-    n = {k: sum(v.values())
-         for k, v in fm_stage_launches(FM_CONFIG, h, w).items()}
+    encode, of one decode), "... forward": those of the eval forward} of
+    a legacy P codec (`name`: FM, HEM or DC) on an (h, w) frame, from the
+    model on the meta device (perf_probe.fm_stage_launches,
+    hem_stage_launches, dc_stage_launches): their blocks are not K1's and
+    they decode on the host, so none."""
+    derive, cfg = {"FM": (fm_stage_launches, FM_CONFIG),
+                   "HEM": (hem_stage_launches, HEM_CONFIG),
+                   "DC": (dc_stage_launches, DC_CONFIG)}[name]
+    n = {k: sum(v.values()) for k, v in derive(cfg, h, w).items()}
     out = {}
     for which in ("first", "later"):
         stages = {k.split(" ", 1)[1]: v for k, v in n.items()
@@ -1411,18 +1503,21 @@ def fm_launches(h, w):
     return out
 
 
-def phase_fm(intra, pcodec, dev, launch_log):
-    """DCVC-FM on the card (FM_CASES, full published widths, float32): at
-    each size an intra frame (IntraNoAR) seeds the DPB, then at each of
-    FM_Q_INDEXES the P frames are encoded twice from that DPB (the same
-    bytes) and decoded from it: every decoder x_hat equals the encoder's
-    bit for bit and the final DPBs are equal.  At the first size (1080p)
-    the warm encode and decode of the third P frame are timed (median of FM_TIMED calls
-    each, host clock, synchronised: an encode ends with the host rANS
-    coder, a decode with its x_hat on the card).  Returns the (S = 1,
-    stacked, K2) launches derived for it (none)."""
+def phase_p_frames(name, intra, pcodec, dev, launch_log):
+    """A legacy P codec on the card (`name`: FM, HEM or DC; full published
+    widths, float32; perf_probe.p_frame_calls: FM's and DC's fa_idx from
+    their INDEX_MAPs, HEM's q scales from the family runner's ladders):
+    at each size of FM_CASES an intra frame (IntraNoAR) seeds the DPB,
+    then at each of FM_Q_INDEXES the P frames are encoded twice from that
+    DPB (the same bytes) and decoded from it: every decoder x_hat equals
+    the encoder's bit for bit and the final DPBs are equal.  At the first
+    size (1080p) the warm encode and decode of the third P frame are timed
+    (median of FM_TIMED calls each, host clock, synchronised: an encode
+    ends with the host rANS coder, a decode with its x_hat on the card).
+    Returns the (S = 1, stacked, K2) launches derived for it (none)."""
     t0 = time.perf_counter()
     derived = [0, 0, 0]
+    _, encode_fn, decode_fn, _ = p_frame_calls(name)
 
     def run(label, want, fn):
         out, ms, *n = counted(launch_log, label, fn)
@@ -1432,27 +1527,25 @@ def phase_fm(intra, pcodec, dev, launch_log):
         return out, ms
 
     for h, w, seed, n_p in FM_CASES:
-        launches = fm_launches(h, w)
+        launches = p_frame_launches(name, h, w)
         i_enc = legacy_launches(IntraNoARCodec, INTRA_NOAR_CONFIG, h, w)[0]
         frames = [f + 0.5 for f in make_sequence(h, w, n_p + 1, seed, dev)]
-        seed_frame = run(f"FM {w}x{h} intra frame", i_enc,
+        seed_frame = run(f"{name} {w}x{h} intra frame", i_enc,
                          lambda: intra.compress(frames[0], FM_I_Q_SCALE)
                          )[0]["x_hat"]
 
         def encode(label, q, i):
             which = "first" if i == 1 else "later"
             return run(f"{label} frame {i} encode", launches[which][0],
-                       lambda: pcodec.compress(frames[i], q,
-                                               fa_idx=INDEX_MAP_FM[i]))
+                       lambda: encode_fn(pcodec, frames[i], i, q))
 
         def decode(label, q, i, stream):
             which = "first" if i == 1 else "later"
             return run(f"{label} frame {i} decode", launches[which][1],
-                       lambda: pcodec.decompress(stream, q, h, w,
-                                                 fa_idx=INDEX_MAP_FM[i]))
+                       lambda: decode_fn(pcodec, stream, i, q, h, w))
 
         for q in FM_Q_INDEXES:
-            label = f"FM {w}x{h} q_index {q}"
+            label = f"{name} {w}x{h} q_index {q}"
             passes = []
             for _ in range(2):
                 pcodec.set_ref_frame(seed_frame)
@@ -1475,14 +1568,14 @@ def phase_fm(intra, pcodec, dev, launch_log):
                                          f"between encoder and decoder")
             psnrs = [float(psnr01(r["x_hat"], frames[i]))
                      for i, r in enumerate(passes[0], 1)]
-            log(f"{label} (fa_idx {INDEX_MAP_FM[1:n_p + 1]}): bytes "
+            log(f"{label} ({n_p} P frames): bytes "
                 f"{[len(b) for b in streams]}, bpp "
                 f"{[len(b) * 8 / (h * w) for b in streams]}, psnr {psnrs}; "
                 f"decode bit-exact, final DPB equal, two encodes equal")
         if (h, w) != FM_CASES[0][:2]:
             continue
         q = FM_Q_INDEXES[1]
-        label = f"FM {w}x{h} q_index {q} timed"
+        label = f"{name} {w}x{h} q_index {q} timed"
         pcodec.set_ref_frame(seed_frame)
         for i in (1, 2):
             encode(label, q, i)
@@ -1497,31 +1590,29 @@ def phase_fm(intra, pcodec, dev, launch_log):
             times["decode"].append(ms)
             if not torch.equal(out["x_hat"], res["x_hat"]):
                 raise AssertionError(f"{label}: the decode is not bit-exact")
-        log(f"FM {w}x{h} P frame (fa_idx {INDEX_MAP_FM[3]}, DPB full) "
-            f"q_index {q} warm: "
+        log(f"{name} {w}x{h} P frame 3 (DPB full) q_index {q} warm: "
             f"encode_ms={statistics.median(times['encode'])} "
             f"decode_ms={statistics.median(times['decode'])} "
             f"(median of {FM_TIMED}: {json.dumps(times)}) "
             f"bpp={len(res['bit_stream']) * 8 / (h * w)} "
-            f"psnr={psnr01(out['x_hat'], frames[3])}")
-    log(f"DCVC-FM: every P frame bit-exact, final DPBs equal, encodes "
+            f"psnr={psnr01(out['x_hat'], frames[3])} | {nvidia_smi()}")
+    log(f"DCVC-{name}: every P frame bit-exact, final DPBs equal, encodes "
         f"repeatable, no kernel launched "
         f"({time.perf_counter() - t0:.3f} s)")
     return tuple(derived)
 
 
-def fm_family_launches(fast):
-    """(S = 1, stacked, K2) launches of one family_main --model fm run
-    (FM_FAMILY_FRAMES frames, gop 4: I P P P I P, 2 rates), from the
-    models on the meta device (none); --fast: the intra encodes and the
-    eval forwards, at the size padded to 64."""
-    h, w = FM_FAMILY_H, FM_FAMILY_W
+def family_launches(name, frames, fast, h=FM_FAMILY_H, w=FM_FAMILY_W):
+    """(S = 1, stacked, K2) launches of one family_main run of a legacy P
+    codec (`name`: FM, HEM or DC; `frames` frames, gop 4: I P P P I P,
+    2 rates), from the models on the meta device (none); --fast: the
+    intra encodes and the eval forwards, at the size padded to 64."""
     if fast:
         h, w = -(-h // 64) * 64, -(-w // 64) * 64
-    launches = fm_launches(h, w)
+    launches = p_frame_launches(name, h, w)
     i_enc, i_dec = legacy_launches(IntraNoARCodec, INTRA_NOAR_CONFIG, h, w)
     per_rate = [0, 0, 0]
-    for i in range(FM_FAMILY_FRAMES):
+    for i in range(frames):
         which = "first" if i % 4 == 1 else "later"
         if fast:
             parts = [i_enc] if i % 4 == 0 else [launches[f"{which} forward"]]
@@ -1545,7 +1636,8 @@ def phase_fm_family(dev, launch_log):
     t0 = time.perf_counter()
     root = scratch_dir("fm_family")
     types = [0, 1, 1, 1, 0, 1]
-    want, want_fast = fm_family_launches(False), fm_family_launches(True)
+    want, want_fast = (family_launches("FM", FM_FAMILY_FRAMES, fast)
+                       for fast in (False, True))
     try:
         cfg_path, seq = write_cli_inputs(root, dev, FM_FAMILY_FRAMES, 16, 4,
                                          FM_FAMILY_H, FM_FAMILY_W)
@@ -1597,6 +1689,64 @@ def phase_fm_family(dev, launch_log):
     finally:
         shutil.rmtree(root)
     return tuple(2 * a + b for a, b in zip(want, want_fast))
+
+
+def phase_family_hem_dc(dev, launch_log):
+    """The family entry for DCVC-HEM and DCVC-DC on the card:
+    family_main.main --model hem and --model dc (full widths, float32,
+    seeded random weights at init_scale 0.4 as the JAX runner draws them)
+    on a seeded FM_FAMILY_W x FM_FAMILY_H YUV420 file of HEM_DC_FAMILY_FRAMES
+    frames, gop 4, 2 rates: exit code 0 (every frame bit-exact), one
+    container file per frame, finite PSNRs, bpp > 0, the frame types I P P
+    P.  Then --model hem --fast (the estimated-bits mode): exit 0, finite
+    bpp and PSNRs, the same frame types, no stream written.  Returns the
+    (S = 1, stacked, K2) launches derived for it."""
+    t0 = time.perf_counter()
+    root = scratch_dir("hem_dc_family")
+    n = HEM_DC_FAMILY_FRAMES
+    types = [0 if i % 4 == 0 else 1 for i in range(n)]
+    total = [0, 0, 0]
+    try:
+        cfg_path, seq = write_cli_inputs(root, dev, n, 17, 4, FM_FAMILY_H,
+                                         FM_FAMILY_W)
+        for model, fast in (("hem", False), ("dc", False), ("hem", True)):
+            run = f"{model}{' fast' if fast else ''}"
+            out_dir = os.path.join(root, run.replace(" ", "_"))
+            out_json = out_dir + ".json"
+            argv = ["--model", model, "--test_config", cfg_path, "--gop",
+                    "4", "--rate_num", "2", "--stream_path", out_dir,
+                    "--output_path", out_json] + (["--fast"] if fast else [])
+            want = family_launches(model.upper(), n, fast)
+            label = f"{model.upper()} family_main{' --fast' if fast else ''}"
+            code, ms, *got = counted(launch_log, label,
+                                     lambda: family_main.main(argv))
+            expect(label, tuple(got), want)
+            total = [a + b for a, b in zip(total, want)]
+            with open(out_json) as f:
+                result = json.load(f)["results"]["Smoke"][seq]
+            files = sorted(os.listdir(out_dir))
+            if len(files) != (0 if fast else 2 * n):
+                raise AssertionError(f"{label}: wrote {files}")
+            for rate, r in result.items():
+                if code != 0 or not r["bitexact"] or r["frame_type"] != \
+                        types or not np.isfinite(r["avg_psnr"]) or not \
+                        np.all(np.isfinite(r["frame_bpp"])) or not \
+                        r["avg_bpp"] > 0:
+                    raise AssertionError(f"{label} {rate}: exit {code}, "
+                                         f"{r}")
+                log(f"{label} {rate}: q_index={r['q_index']} "
+                    f"bpp={r['avg_bpp']} frame_bpp={r['frame_bpp']} "
+                    f"psnr={r['avg_psnr']} (i {r['avg_psnr_i']} p "
+                    f"{r['avg_psnr_p']}) avg_frame_encoding_ms="
+                    f"{1e3 * r['avg_frame_encoding_time']} "
+                    f"avg_frame_decoding_ms="
+                    f"{1e3 * r['avg_frame_decoding_time']} ({ms} ms with "
+                    f"the codec builds)")
+        log(f"HEM / DC family_main: every frame bit-exact, one file per "
+            f"frame; HEM --fast finite ({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(root)
+    return tuple(total)
 
 
 def write_cli_inputs(root, dev, frames=CLI_FRAMES, seed=8,
@@ -2160,8 +2310,9 @@ def phase_symbols(dev, launch_log):
 
 def phase_complexity():
     """kMACs per pixel of each full-width model's training forward at
-    1080p (1088x1920, the training forward's multiple of 64; DCVC-FM: its
-    eval forward of a later P frame), counted by FlopCounterMode on the
+    1080p (1088x1920, the training forward's multiple of 64; DCVC-FM,
+    HEM and DC: the eval forward of a later P frame), counted by
+    FlopCounterMode on the
     meta device (shapes only, no compute): products and convolutions, not
     elementwise work."""
     t0 = time.perf_counter()
@@ -2170,7 +2321,9 @@ def phase_complexity():
                            ("HTS", DMCHT, HTS_CONFIG),
                            ("HTL", DMCHT, HTL_CONFIG),
                            ("LD", DMCLD, LD_CONFIG),
-                           ("FM", DMCFM, FM_CONFIG)):
+                           ("FM", DMCFM, FM_CONFIG),
+                           ("HEM", DMCHEM, HEM_CONFIG),
+                           ("DC", DMCDC, DC_CONFIG)):
         with torch.device("meta"):
             model = cls(cfg)
         parts.append(f"{name} {model_macs_per_pixel(model, 1080, 1920)}")
@@ -2467,6 +2620,7 @@ def main():
     rt_f32, _ = rt_spec(torch.float32)
     legacy = legacy_codecs(dev)
     fm_p = fm_p_codec(dev)
+    hem_p, dc_p = hem_p_codec(dev), dc_p_codec(dev)
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
@@ -2475,6 +2629,8 @@ def main():
     for name in ("EVC", "IntraNoAR"):
         phase_stages_legacy(name, legacy[name])
     phase_stages_fm(fm_p)
+    phase_stages_hem(hem_p)
+    phase_stages_fm(dc_p, "DC")
     phase_train_parity(dev)
 
     # the main path, one part at a time, each with the counts set to 0
@@ -2490,8 +2646,12 @@ def main():
                                            launch_log, k2_log)),
               ("legacy intra", lambda: phase_legacy_intra(dev, launch_log,
                                                           legacy)),
-              ("DCVC-FM", lambda: phase_fm(legacy["IntraNoAR"], fm_p, dev,
-                                           launch_log))]
+              ("DCVC-FM", lambda: phase_p_frames(
+                  "FM", legacy["IntraNoAR"], fm_p, dev, launch_log)),
+              ("DCVC-HEM", lambda: phase_p_frames(
+                  "HEM", legacy["IntraNoAR"], hem_p, dev, launch_log)),
+              ("DCVC-DC", lambda: phase_p_frames(
+                  "DC", legacy["IntraNoAR"], dc_p, dev, launch_log))]
     parts += [("training", lambda: phase_train(dev)),
               ("trainers -> codecs",
                lambda: phase_trained_codecs(dev, launch_log, k2_log))]
@@ -2508,6 +2668,8 @@ def main():
             ("RT family", lambda: phase_rt_family(dev, launch_log,
                                                   rt_f32)),
             ("FM family", lambda: phase_fm_family(dev, launch_log)),
+            ("HEM / DC family", lambda: phase_family_hem_dc(dev,
+                                                            launch_log)),
             ("params.v1", lambda: phase_params_v1(dmci, video["HTS"], dev,
                                                   launch_log)),
             ("image CLI", lambda: phase_image_cli(dev, launch_log)),

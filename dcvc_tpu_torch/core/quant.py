@@ -60,3 +60,9 @@ def add_noise(x, noise):
     if isinstance(noise, torch.Generator):
         noise = uniform_noise(x.shape, noise, x.device, x.dtype)
     return x + noise.detach()
+
+
+def z_to_int16(z):
+    """round(z) clipped to +-30000, as int16 (the legacy z symbols)."""
+    return torch.clamp(torch.round(z.float()), -30000, 30000).to(
+        torch.int16)

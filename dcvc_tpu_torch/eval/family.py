@@ -2,7 +2,7 @@
 dcvc_tpu/eval/family.py): encode -> one NAL stream file -> decode from
 disk -> metrics, for the pre-UF models.
 
-The port runs two of the JAX runner's models:
+The port runs four of the JAX runner's models:
   - DCVC-RT (`model="rt"`): its intra codec and P-frame codec, its NAL
     container (bitstream/legacy_container.py: the SPS carries the size
     and a 1-bit lane flag, each frame's IP NAL its qp), the qp_shift
@@ -16,13 +16,23 @@ The port runs two of the JAX runner's models:
     height, width, qp and fa_idx; FMSPSHelper), each P frame's fa_idx
     from INDEX_MAP_FM, the intra q_scale from the i_q_scales ladder at
     the q index, and per-frame bits the file's total / n, as the
-    reference's single-file format has no per-frame split.  Its
-    estimated-bits fast mode (run_sequence_fast, the reference's
-    test_helper.py:134) codes the intra frames for real and takes the P
-    frames' rates from DMCFM.forward on rounded latents, frames
-    edge-padded to a multiple of 64, bpp over the original pixels.
-The other models (HEM, DC, TCM, DCVC) are not ported yet (ROADMAP.md §1
-items 6-7) and raise; so does the fast mode for rt, as in the JAX runner.
+    reference's single-file format has no per-frame split;
+  - DCVC-HEM and DCVC-DC (`model="hem"`, `"dc"`; DCVC-HEM / DCVC-DC
+    test_video.py and stream_helper.py): the same intra codec, and one
+    container file per frame (`{seq}_q{q}_{i}.bin`: hem_encode_i / _p,
+    dc_encode_i / _p with q_in_ckpt False), so that each frame has its
+    own bits.  HEM's P frames take the continuous q scales
+    mv_q_scales[q] / y_q_scales[q] and their file carries q twice; DC's
+    take the q index and the feature adaptor INDEX_MAP_DC[i % 4], their
+    file the frame's i % 4.
+The estimated-bits fast mode (run_sequence_fast, the reference's
+test_helper.py:134) codes the intra frames for real and takes the P
+frames' rates from the P model's forward on rounded latents (FM: on
+INDEX_MAP_FM's adaptors; HEM: at the q scales, its x_hat the clipped DPB
+frame), frames edge-padded to a multiple of 64, bpp over the original
+pixels.  The other models (TCM, DCVC) are not ported yet (ROADMAP.md §1
+item 7) and raise; so does the fast mode for rt and dc, as in the JAX
+runner.
 
 All legacy models work on RGB in [0, 1].  The codecs run in float32 on
 every device, as dcvc_tpu's runner builds them (its RT codecs in f32 on
@@ -30,8 +40,9 @@ every backend, eval/family.py:157-167; the other legacy codecs default
 to f32); bfloat16 only when the caller asks for it (`dtype`,
 family_main --dtype bf16).  In float32 the RT intra trunk's
 DepthConvBlocks take the plain PyTorch block on the card too
-(layers/blocks.py kernel_path), as the reference's do; FM's blocks are
-not K1's, so the FM path launches no kernel.
+(layers/blocks.py kernel_path), as the reference's do; FM's, HEM's and
+DC's blocks are not K1's and they decode on the host, so their paths
+launch no kernel.
 """
 
 import math
@@ -42,29 +53,44 @@ import numpy as np
 import torch
 
 from ..bitstream import legacy_container as lc
+from ..legacy import dcvc_hem
+from ..legacy.dcvc_dc import DC_CONFIG, DMCDC, DMCDCConfig, TINY_DC_CONFIG
 from ..legacy.dcvc_fm import DMCFM, DMCFMConfig, FM_CONFIG, \
     TINY_FM_CONFIG, empty_dpb
+from ..legacy.dcvc_hem import DMCHEM, DMCHEMConfig, HEM_CONFIG, \
+    TINY_HEM_CONFIG
 from ..legacy.dcvc_rt import DMCRT, DMCRTCodec, DMCRTConfig, \
     INDEX_MAP as RT_INDEX_MAP, TINY_RT_CONFIG, shift_qp
 from ..legacy.hem_intra import INTRA_NOAR_CONFIG, IntraNoAR, \
     IntraNoARConfig, TINY_INTRA_NOAR_CONFIG
 from ..legacy.rt_intra import DMCIRT, DMCIRTConfig, TINY_RT_INTRA_CONFIG
+from ..runtime.dc_codec import DMCDCCodec
 from ..runtime.evc_codec import IntraNoARCodec
 from ..runtime.fm_codec import DMCFMCodec
+from ..runtime.hem_codec import DMCHEMCodec
 from ..runtime.rt_image_codec import RTIntraCodec
 from ..utils.jax_bridge import load_into, native_config
 from ..utils.metrics import calc_psnr
 
-MODELS = ("rt", "fm")
-NOT_PORTED = ("dcvc", "tcm", "hem", "dc")
+MODELS = ("rt", "fm", "hem", "dc")
+NOT_PORTED = ("dcvc", "tcm")
 # the JAX runner's fast mode covers fm, dcvc, tcm and hem; of these the
-# port runs fm
-FAST_MODELS = ("fm",)
+# port runs fm and hem
+FAST_MODELS = ("fm", "hem")
+INDEX_MAP_DC = [0, 1, 0, 2]                  # DC's feature adaptors
 INDEX_MAP_FM = [0, 1, 0, 2, 0, 2, 0, 2]     # FM test_helper.py:146
 # (model file class, its default config) of each codec, by model
 MODEL_FILES = {"rt": ((DMCIRT, DMCIRTConfig()), (DMCRT, DMCRTConfig())),
                "fm": ((IntraNoAR, IntraNoARConfig()),
-                      (DMCFM, DMCFMConfig()))}
+                      (DMCFM, DMCFMConfig())),
+               "hem": ((IntraNoAR, IntraNoARConfig()),
+                       (DMCHEM, DMCHEMConfig())),
+               "dc": ((IntraNoAR, IntraNoARConfig()),
+                      (DMCDC, DMCDCConfig()))}
+# each legacy P codec: (its class, its config, its TINY config)
+P_CODECS = {"fm": (DMCFMCodec, FM_CONFIG, TINY_FM_CONFIG),
+            "hem": (DMCHEMCodec, HEM_CONFIG, TINY_HEM_CONFIG),
+            "dc": (DMCDCCodec, DC_CONFIG, TINY_DC_CONFIG)}
 
 
 def interpolate_log(min_val, max_val, num=64, decreasing=True):
@@ -127,7 +153,7 @@ class FamilyRunner:
         if model not in MODELS:
             raise ValueError(
                 f"model {model!r}: the port runs {MODELS}; "
-                + (f"{model} is not ported yet (ROADMAP.md §1 items 6-7)"
+                + (f"{model} is not ported yet (ROADMAP.md §1 item 7)"
                    if model in NOT_PORTED else "unknown model"))
         self.model = model
         self.stream_dir = stream_dir
@@ -144,8 +170,11 @@ class FamilyRunner:
             self.p_codec = _with_params(self.p_codec, model_path_p, *files_p)
         # 64-level q ladders of the models that code a q index (anchor
         # values stand in for the per-checkpoint anchors the reference
-        # reads from trained checkpoints)
+        # reads from trained checkpoints); HEM's P frames take the mv and
+        # y ones
         self.i_q_scales = interpolate_log(0.3, 3.0)
+        self.mv_q_scales = interpolate_log(0.5, 2.0)
+        self.y_q_scales = interpolate_log(0.3, 3.0)
 
     def _build(self, seed, tiny):
         kw = {"dtype": self.dtype, "device": self.device}
@@ -161,9 +190,9 @@ class FamilyRunner:
             self.i_codec = IntraNoARCodec.init_random(
                 gen_i, cfg=TINY_INTRA_NOAR_CONFIG if tiny
                 else INTRA_NOAR_CONFIG, init_scale=0.4, **kw)
-            self.p_codec = DMCFMCodec.init_random(
-                gen_p, cfg=TINY_FM_CONFIG if tiny else FM_CONFIG,
-                init_scale=0.4, **kw)
+            codec, cfg, tiny_cfg = P_CODECS[self.model]
+            self.p_codec = codec.init_random(
+                gen_p, cfg=tiny_cfg if tiny else cfg, init_scale=0.4, **kw)
 
     def run(self, frames_rgb, rate_indices, gop, seq_name="seq"):
         return {f"rate_{r}": self.run_sequence(frames_rgb, r, gop,
@@ -175,7 +204,9 @@ class FamilyRunner:
         per-sequence result dict (bits / psnr per frame + averages)."""
         if self.model == "rt":
             return self.run_sequence_rt(frames_rgb, rate_idx, gop, seq_name)
-        return self.run_sequence_fm(frames_rgb, rate_idx, gop, seq_name)
+        if self.model == "fm":
+            return self.run_sequence_fm(frames_rgb, rate_idx, gop, seq_name)
+        return self.run_sequence_files(frames_rgb, rate_idx, gop, seq_name)
 
     def _q_index(self, rate_idx):
         """The rate point's q index: round(linspace(12, 51)) over the
@@ -205,6 +236,85 @@ class FamilyRunner:
         return [np.ascontiguousarray(
             f.transpose(1, 2, 0).astype(np.float32) / 255.0)[None]
             for f in frames_rgb]
+
+    @staticmethod
+    def _is_intra(i, gop):
+        return i % gop == 0 if gop > 0 else i == 0
+
+    # ------------------------------------------------------ DCVC-HEM, DC
+
+    def run_sequence_files(self, frames_rgb, rate_idx, gop, seq_name="seq"):
+        """DCVC-HEM / DCVC-DC end-to-end (dcvc_tpu's run_sequence for hem
+        and dc): each frame into its own container file, decoded back from
+        disk, the decode held bit-exact against the encode."""
+        h, w = frames_rgb[0].shape[1:]
+        q = self._q_index(rate_idx)
+        frames = self._frames01(frames_rgb)
+        paths = [os.path.join(self.stream_dir, f"{seq_name}_q{q}_{i}.bin")
+                 for i in range(len(frames))]
+        t0 = time.time()
+        enc_recons, types = [], []
+        for i, x in enumerate(frames):
+            types.append(0 if self._is_intra(i, gop) else 1)
+            enc_recons.append(self._encode_file(i, x, q, h, w, paths[i],
+                                                types[-1] == 0))
+        enc_time = time.time() - t0
+        t0 = time.time()
+        dec_recons = [self._decode_file(i, h, w, path, types[i] == 0)
+                      for i, path in enumerate(paths)]
+        dec_time = time.time() - t0
+        result = {"frame_bpp": [os.path.getsize(path) * 8 / (h * w)
+                                for path in paths],
+                  "frame_type": types,
+                  "bitexact": not self.verify or all(
+                      np.array_equal(a, b)
+                      for a, b in zip(enc_recons, dec_recons))}
+        result = self._summary(result, frames_rgb, dec_recons, enc_time,
+                               dec_time)
+        result["q_index"] = q
+        return result
+
+    def _encode_file(self, i, x, q, h, w, path, is_i):
+        if is_i:
+            res = self.i_codec.compress(x, float(self.i_q_scales[q]), h, w)
+            if self.model == "hem":
+                lc.hem_encode_i(h, w, q, res["bit_stream"], path)
+            else:
+                lc.dc_encode_i(h, w, False, q, res["bit_stream"], path)
+            self.p_codec.set_ref_frame(res["x_hat"], h, w)
+        elif self.model == "hem":
+            res = self.p_codec.compress(x, float(self.mv_q_scales[q]),
+                                        float(self.y_q_scales[q]), h=h, w=w)
+            lc.hem_encode_p(res["bit_stream"], q, q, path)
+        else:
+            res = self.p_codec.compress(x, q, fa_idx=INDEX_MAP_DC[i % 4],
+                                        h=h, w=w)
+            lc.dc_encode_p(res["bit_stream"], False, q, i % 4, path)
+        return _numpy(res["x_hat"])
+
+    def _decode_file(self, i, h, w, path, is_i):
+        """One frame from its file; an intra frame reseeds the DPB."""
+        if is_i:
+            if self.model == "hem":
+                hh, ww, q, stream = lc.hem_decode_i(path)
+            else:
+                hh, ww, _, q, stream = lc.dc_decode_i(path)
+            x_hat = self.i_codec.decompress(
+                stream, float(self.i_q_scales[q]), hh, ww)["x_hat"]
+            self.p_codec.set_ref_frame(x_hat, h, w)
+        elif self.model == "hem":
+            mv_q, y_q, stream = lc.hem_decode_p(path)
+            x_hat = self.p_codec.decompress(
+                stream, float(self.mv_q_scales[mv_q]),
+                float(self.y_q_scales[y_q]), h, w)["x_hat"]
+        else:
+            _, q, fi, stream = lc.dc_decode_p(path)
+            if fi != i % 4:
+                raise ValueError(f"{path}: frame {i} carries frame index "
+                                 f"{fi}")
+            x_hat = self.p_codec.decompress(stream, q, h, w,
+                                            fa_idx=INDEX_MAP_DC[fi])["x_hat"]
+        return _numpy(x_hat)
 
     # -------------------------------------------------------------- DCVC-FM
 
@@ -240,7 +350,7 @@ class FamilyRunner:
         sps_helper = lc.FMSPSHelper()
         with open(path, "wb") as f:
             for i, x in enumerate(frames):
-                is_i = i % gop == 0 if gop > 0 else i == 0
+                is_i = self._is_intra(i, gop)
                 types.append(0 if is_i else 1)
                 # the intra frame's SPS carries fa_idx 0
                 fa = 0 if is_i else INDEX_MAP_FM[i % len(INDEX_MAP_FM)]
@@ -272,7 +382,7 @@ class FamilyRunner:
                 stream = lc.fm_read_ip_remaining(f)
                 i = len(recons)
                 is_i = header["nal_type"] == lc.FM_NAL_I
-                if is_i != (i % gop == 0 if gop > 0 else i == 0):
+                if is_i != self._is_intra(i, gop):
                     raise ValueError(f"{path}: frame {i}'s NAL type does "
                                      f"not follow the gop")
                 hh, ww = sps["height"], sps["width"]
@@ -292,8 +402,10 @@ class FamilyRunner:
     def run_sequence_fast(self, frames_rgb, rate_idx, gop, seq_name="seq"):
         """The estimated-bits mode without entropy coding (dcvc_tpu's
         run_sequence_fast; the reference's test_helper.py:134): intra
-        frames through the real intra codec, P frames' rates from
-        DMCFM.forward on rounded latents.  Frames are edge-padded to a
+        frames through the real intra codec, P frames' rates from the P
+        model's forward on rounded latents (FM: DMCFM.forward on
+        INDEX_MAP_FM's adaptors; HEM: DMCHEM.forward at the q scales, its
+        x_hat the clipped DPB frame).  Frames are edge-padded to a
         multiple of 64 (the reference's replicate pad), bpp is over the
         original pixels and the PSNR over the cropped reconstruction."""
         if self.model not in FAST_MODELS:
@@ -313,19 +425,26 @@ class FamilyRunner:
         t0 = time.time()
         dpb = None
         for i, x in enumerate(frames):
-            is_i = i % gop == 0 if gop > 0 else i == 0
+            is_i = self._is_intra(i, gop)
             result["frame_type"].append(0 if is_i else 1)
             if is_i:
                 res = self.i_codec.compress(x, float(self.i_q_scales[q]),
                                             hp, wp)
                 x_hat = res["x_hat"]
-                dpb = empty_dpb(x_hat)
+                dpb = (dcvc_hem.empty_dpb if self.model == "hem"
+                       else empty_dpb)(x_hat)
                 bpp = len(res["bit_stream"]) * 8 / (h * w)
             else:
-                fa = INDEX_MAP_FM[i % len(INDEX_MAP_FM)]
-                res, dpb = model(torch.from_numpy(x).to(self.device), dpb,
-                                 q, fa)
-                x_hat = dpb["ref_frame"]
+                x_t = torch.from_numpy(x).to(self.device)
+                if self.model == "hem":
+                    scales = [torch.tensor(float(v[q]), device=self.device)
+                              for v in (self.mv_q_scales, self.y_q_scales)]
+                    res, dpb = model(x_t, dpb, *scales)
+                    x_hat = torch.clamp(dpb["ref_frame"], 0.0, 1.0)
+                else:
+                    res, dpb = model(x_t, dpb, q,
+                                     INDEX_MAP_FM[i % len(INDEX_MAP_FM)])
+                    x_hat = dpb["ref_frame"]
                 bpp = float(res["bpp"][0])
             result["frame_bpp"].append(bpp)
             recons.append(_numpy(x_hat[:, :h, :w]))
@@ -361,7 +480,7 @@ class FamilyRunner:
         t0 = time.time()
         with open(path, "wb") as f:
             for i, x in enumerate(frames):
-                is_i = i % gop == 0 if gop > 0 else i == 0
+                is_i = self._is_intra(i, gop)
                 types.append(0 if is_i else 1)
                 sps_id, is_new = sps_helper.get_sps_id(sps)
                 if is_new:

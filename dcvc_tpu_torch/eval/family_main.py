@@ -8,10 +8,10 @@ a model end to end over its own stream container, decoded from disk.
 
 The arguments and the result JSON are test_video_family.py's, with
 `--device` (default cuda) and `--dtype` (default f32, the reference's
-type on every device; bf16 on request).  The port runs `--model rt` and
-`--model fm` (eval/family.py); the other models raise.  `--fast` is the
-estimated-bits mode (FamilyRunner.run_sequence_fast), for fm; it raises
-for rt, as the JAX runner does.  The model files are dcvc_tpu.params.v1
+type on every device; bf16 on request).  The port runs `--model rt`,
+`fm`, `hem` and `dc` (eval/family.py); the other models raise.  `--fast`
+is the estimated-bits mode (FamilyRunner.run_sequence_fast), for fm and
+hem; it raises for rt and dc, as the JAX runner does.  The model files are dcvc_tpu.params.v1
 files or reference .pth.tar checkpoints.  Sources are PNG folders (read
 with utils/png.py: the machine with the card has no PIL) or YUV420 files,
 converted to RGB with the BT.709 transforms of core/color.py as the JAX
@@ -48,8 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true",
                    help="tiny model configs (smoke/CI)")
     p.add_argument("--fast", action="store_true",
-                   help="estimated-bits mode without entropy coding (fm; "
-                        "reference test_helper.py:134)")
+                   help="estimated-bits mode without entropy coding (fm, "
+                        "hem; reference test_helper.py:134)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model_path_i", default=None,
                    help="I-codec model file (dcvc_tpu.params.v1 or "

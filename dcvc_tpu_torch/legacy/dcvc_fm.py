@@ -32,14 +32,13 @@ import torch
 import torch.nn as nn
 
 from ..core.padding import pad_replicate_nhwc
-from ..core.quant import add_noise, ste_round
+from ..core.quant import add_noise, ste_round, z_to_int16
 from ..entropy.gaussian import probs_to_bits
 from ..models import common
 from ..utils.keys import key_fn_fm
 from .fm_layers import ConvK, DepthConvBlock4FM, DepthConvBlockFM, LReLU, \
     ResBlockFM, ResidualBlockUpsampleFM, ResidualBlockWithStrideFM, \
     SubpelConv, UNet2, damp_kernels_, lecun_init_legacy_, lrelu, seq
-from .hem_intra import z_to_int16
 from .ops import bilinear_downsample_2x, bilinear_upsample_2x, block_mc, \
     flow_warp
 from .spynet import MESpynet
@@ -165,6 +164,45 @@ def get_curr_q(q_anchors, q_index, qp_num):
     return q
 
 
+def state_from_reference(model, state, key_fn):
+    """A reference state_dict -> the state_dict of a port model whose
+    modules mirror the flax tree (DMCFM, DMCDC, DMCHEM), by key_fn of
+    each parameter's flax path: the z priors' Bitparm tensors stacked into
+    their h / b / a banks (BitEstimatorModule.from_reference), a grouped
+    fusion conv (`group_conv`: (ch, o*ch/g, 1, 1)) turned into
+    OffsetDiversity's (g, o*ch/g, ch/g) kernel, a Linear's weight
+    (`linear`) kept as it is (its layout is nn.Linear's), every other
+    tensor renamed.  Keys that no parameter maps from are left for the
+    caller to report."""
+    state = dict(state)
+    for prefix in ("bit_estimator_z", "bit_estimator_z_mv"):
+        state = getattr(model, prefix).from_reference(state, key_fn, prefix)
+    out = {}
+    for key, param in model.state_dict().items():
+        if key in state and key.split(".")[0].startswith("bit_estimator_z"):
+            out[key] = state.pop(key)
+            continue
+        segs = key.split(".")
+        path = tuple(segs[:-1]) + ({"weight": "kernel"}.get(segs[-1],
+                                                            segs[-1]),)
+        ref = key_fn(path)
+        kind = None
+        if isinstance(ref, tuple):           # (tag, key)
+            kind, ref = ref
+        if ref not in state:
+            continue
+        t = state.pop(ref)
+        if kind == "group_conv":
+            t = t.float()
+            if t.dim() > 1:                  # (ch, I, 1, 1) -> (g, I, ch/g)
+                g, icpg, ocpg = param.shape
+                t = t.reshape(g, ocpg, icpg).transpose(1, 2)
+            t = t.reshape(param.shape)
+        out[key] = t
+    out.update(state)
+    return out
+
+
 # ------------------------------------------------------------- modules
 
 class OffsetDiversity(nn.Module):
@@ -258,16 +296,19 @@ class MultiScaleContextFusion(nn.Module):
 
 
 class MvEnc(nn.Module):
-    def __init__(self, cfg):
+    """The mv encoder; `block` its depth-conv block (DCVC-DC's
+    DepthConvBlockFM, dcvc_dc.DCMvEnc)."""
+
+    def __init__(self, cfg, block=DepthConvBlock4FM):
         super().__init__()
         ch = cfg.ch_mv
         self.enc_1_0 = ResidualBlockWithStrideFM(2, ch)
-        self.enc_1_1 = DepthConvBlock4FM(ch, ch)
+        self.enc_1_1 = block(ch, ch)
         self.enc_2 = ResidualBlockWithStrideFM(ch, ch)
-        self.adaptor_0 = DepthConvBlock4FM(ch, ch)
-        self.adaptor_1 = DepthConvBlock4FM(2 * ch, ch)
+        self.adaptor_0 = block(ch, ch)
+        self.adaptor_1 = block(2 * ch, ch)
         self.enc_3_0 = ResidualBlockWithStrideFM(ch, ch)
-        self.enc_3_1 = DepthConvBlock4FM(ch, ch)
+        self.enc_3_1 = block(ch, ch)
         self.enc_3_2 = ConvK(ch, ch, stride=2)
 
     def forward(self, x, context, quant_step):
@@ -282,16 +323,18 @@ class MvEnc(nn.Module):
 
 
 class MvDec(nn.Module):
-    def __init__(self, cfg):
+    """The mv decoder -> (mv, feature); `block` as MvEnc's."""
+
+    def __init__(self, cfg, block=DepthConvBlock4FM):
         super().__init__()
         ch = cfg.ch_mv
-        self.dec_1_0 = DepthConvBlock4FM(ch, ch)
+        self.dec_1_0 = block(ch, ch)
         self.dec_1_1 = ResidualBlockUpsampleFM(ch, ch)
-        self.dec_1_2 = DepthConvBlock4FM(ch, ch)
+        self.dec_1_2 = block(ch, ch)
         self.dec_1_3 = ResidualBlockUpsampleFM(ch, ch)
-        self.dec_1_4 = DepthConvBlock4FM(ch, ch)
+        self.dec_1_4 = block(ch, ch)
         self.dec_2 = ResidualBlockUpsampleFM(ch, ch)
-        self.dec_3_0 = DepthConvBlock4FM(ch, ch)
+        self.dec_3_0 = block(ch, ch)
         self.dec_3_1 = SubpelConv(ch, 2, r=2, kernel=1)
 
     def forward(self, x, quant_step):
@@ -366,7 +409,9 @@ def _hyper_decoder(ch, cout):
                ResidualBlockUpsampleFM(ch, ch), DepthConvBlock4FM(ch, cout))
 
 
-def _spatial_prior(ch):
+def spatial_prior_stack(ch):
+    """The spatial prior of FM and DC: three depth-conv blocks, 3 ch -> 2
+    ch (scales and means)."""
     return seq(DepthConvBlockFM(3 * ch, 3 * ch),
                DepthConvBlockFM(3 * ch, 3 * ch),
                DepthConvBlockFM(3 * ch, 2 * ch))
@@ -377,6 +422,9 @@ class DMCFM(nn.Module):
     ref_y, ref_mv_y} (reference video_model.py:219-270); all but ref_frame
     are None before the first P frame."""
 
+    # the quant parameters, set to one by reset_parameters
+    Q_PARAMS = ("mv_y_q_enc", "mv_y_q_dec", "y_q_enc", "y_q_dec")
+
     def __init__(self, cfg=FM_CONFIG):
         super().__init__()
         c = self.cfg = cfg
@@ -385,6 +433,31 @@ class DMCFM(nn.Module):
         self.mv_encoder = MvEnc(c)
         self.mv_hyper_prior_encoder = _hyper_encoder(c.ch_mv, c.ch_mv_z)
         self.mv_hyper_prior_decoder = _hyper_decoder(c.ch_mv_z, c.ch_mv)
+        self._add_mv_prior(c)
+        self.mv_decoder = MvDec(c)
+
+        self._add_contexts(c)
+
+        self.contextual_encoder = ContextualEncoder(c)
+        self.contextual_hyper_prior_encoder = _hyper_encoder(c.ch_16x,
+                                                             c.ch_z)
+        self.contextual_hyper_prior_decoder = _hyper_decoder(c.ch_z,
+                                                             c.ch_16x)
+        self._add_y_prior(c)
+        self.contextual_decoder = ContextualDecoder(c)
+        self.recon_generation_net = ReconGeneration(c)
+
+        for name in self.Q_PARAMS:
+            setattr(self, name, nn.Parameter(torch.ones(2, 1, 1, 1)))
+        self.bit_estimator_z = common.BitEstimatorModule(2, c.ch_z)
+        self.bit_estimator_z_mv = common.BitEstimatorModule(2, c.ch_mv_z)
+
+    # the module groups FM and DCVC-DC (legacy/dcvc_dc.py) share, added at
+    # the same places of both trees
+
+    def _add_mv_prior(self, c):
+        """The mv prior's fusion (with its adaptors for an empty and a full
+        DPB) and the spatial prior with its three step adaptors."""
         self.mv_y_prior_fusion_adaptor_0 = DepthConvBlockFM(c.ch_mv,
                                                             2 * c.ch_mv)
         self.mv_y_prior_fusion_adaptor_1 = DepthConvBlockFM(2 * c.ch_mv,
@@ -396,9 +469,10 @@ class DMCFM(nn.Module):
         for i in (1, 2, 3):
             setattr(self, f"mv_y_spatial_prior_adaptor_{i}",
                     ConvK(4 * c.ch_mv, 3 * c.ch_mv, kernel=1))
-        self.mv_y_spatial_prior = _spatial_prior(c.ch_mv)
-        self.mv_decoder = MvDec(c)
+        self.mv_y_spatial_prior = spatial_prior_stack(c.ch_mv)
 
+    def _add_contexts(self, c):
+        """The feature adaptors, the pyramid and the context fusion."""
         self.feature_adaptor_I = ConvK(3, c.ch_1x)
         for i in range(3):
             setattr(self, f"feature_adaptor_{i}",
@@ -406,11 +480,9 @@ class DMCFM(nn.Module):
         self.feature_extractor = FMFeatureExtractor(c)
         self.context_fusion_net = MultiScaleContextFusion(c)
 
-        self.contextual_encoder = ContextualEncoder(c)
-        self.contextual_hyper_prior_encoder = _hyper_encoder(c.ch_16x,
-                                                             c.ch_z)
-        self.contextual_hyper_prior_decoder = _hyper_decoder(c.ch_z,
-                                                             c.ch_16x)
+    def _add_y_prior(self, c):
+        """The contextual prior's temporal encoder, fusion (and adaptors)
+        and spatial prior (and step adaptors)."""
         self.temporal_prior_encoder = seq(
             ConvK(c.ch_4x, c.ch_8x, stride=2), LReLU(0.1),
             ConvK(c.ch_8x, c.ch_16x, stride=2))
@@ -425,14 +497,7 @@ class DMCFM(nn.Module):
         for i in (1, 2, 3):
             setattr(self, f"y_spatial_prior_adaptor_{i}",
                     ConvK(4 * c.ch_16x, 3 * c.ch_16x, kernel=1))
-        self.y_spatial_prior = _spatial_prior(c.ch_16x)
-        self.contextual_decoder = ContextualDecoder(c)
-        self.recon_generation_net = ReconGeneration(c)
-
-        for name in ("mv_y_q_enc", "mv_y_q_dec", "y_q_enc", "y_q_dec"):
-            setattr(self, name, nn.Parameter(torch.ones(2, 1, 1, 1)))
-        self.bit_estimator_z = common.BitEstimatorModule(2, c.ch_z)
-        self.bit_estimator_z_mv = common.BitEstimatorModule(2, c.ch_mv_z)
+        self.y_spatial_prior = spatial_prior_stack(c.ch_16x)
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -449,7 +514,7 @@ class DMCFM(nn.Module):
         nn.init.trunc_normal_(fk, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
         self.align.fusion_bias.zero_()
-        for name in ("mv_y_q_enc", "mv_y_q_dec", "y_q_enc", "y_q_dec"):
+        for name in self.Q_PARAMS:
             getattr(self, name).fill_(1.0)
         for be in (self.bit_estimator_z, self.bit_estimator_z_mv):
             for p in be.parameters():
@@ -467,43 +532,12 @@ class DMCFM(nn.Module):
 
     def from_reference(self, state):
         """A reference state_dict (DCVC-FM's video_model.py module tree)
-        -> this model's, by key_fn_fm of each parameter's flax path: the
-        z priors' Bitparm tensors stacked into their h / b / a banks
-        (BitEstimatorModule.from_reference), the grouped fusion conv
-        `align.fusion.{weight,bias}` (ch, o*ch/g, 1, 1) turned into the
-        (g, o*ch/g, ch/g) kernel, every other tensor renamed.  Keys that
-        no parameter maps from are left for the caller to report."""
-        state = dict(state)
-        for prefix in ("bit_estimator_z", "bit_estimator_z_mv"):
-            state = getattr(self, prefix).from_reference(state, key_fn_fm,
-                                                         prefix)
-        out = {}
-        for key, param in self.state_dict().items():
-            if key in state and key.split(".")[0].startswith(
-                    "bit_estimator_z"):
-                out[key] = state.pop(key)
-                continue
-            segs = key.split(".")
-            path = tuple(segs[:-1]) + ({"weight": "kernel"}.get(segs[-1],
-                                                                segs[-1]),)
-            ref = key_fn_fm(path)
-            if isinstance(ref, tuple):       # ("group_conv", key)
-                ref = ref[1]
-                if ref not in state:
-                    continue
-                t = state.pop(ref).float()
-                if t.dim() > 1:              # (ch, I, 1, 1) -> (g, I, ch/g)
-                    g, icpg, ocpg = param.shape
-                    t = t.reshape(g, ocpg, icpg).transpose(1, 2)
-                out[key] = t.reshape(param.shape)
-            elif ref in state:
-                out[key] = state.pop(ref)
-        out.update(state)
-        return out
+        -> this model's (state_from_reference with key_fn_fm)."""
+        return state_from_reference(self, state, key_fn_fm)
 
     @property
     def dtype(self):
-        return self.mv_y_q_enc.dtype
+        return self.feature_adaptor_I.conv.weight.dtype
 
     def _q(self, name, q_index):
         return get_curr_q(getattr(self, name), q_index,
@@ -649,30 +683,35 @@ class DMCFM(nn.Module):
         test_helper.py:134); else a dict of U(-0.5, 0.5) tensors {y, mv_y,
         z, mv_z} or a torch.Generator to draw them from in that order.
         Returns (result dict, new dpb)."""
+        q = {name: self._q(name, q_index) for name in
+             ("mv_y_q_enc", "mv_y_q_dec", "y_q_enc", "y_q_dec")}
+        return self._forward(x, dpb, q, fa_idx, noise)
+
+    def _forward(self, x, dpb, q, fa_idx, noise):
+        """forward() on the quant scalars `q` {mv_y_q_enc, mv_y_q_dec,
+        y_q_enc, y_q_dec} (shared with DCVC-DC, legacy/dcvc_dc.py)."""
         ref_frame = dpb["ref_frame"]
         est_mv = self.optic_flow(x.to(self.dtype), ref_frame.to(self.dtype))
         mv_y = self.mv_encoder(est_mv, dpb["ref_mv_feature"],
-                               self._q("mv_y_q_enc", q_index))
+                               q["mv_y_q_enc"])
         mv_z = self.mv_hyper_prior_encoder(mv_y)
         mv_z_hat = ste_round(mv_z)
         mv_params = self._mv_fusion(self.mv_hyper_prior_decoder(mv_z_hat),
                                     dpb["ref_mv_y"])
         mv_y_res, mv_y_q, mv_y_hat, mv_scales_hat = self._four_part(
             "mv", mv_y, mv_params)
-        mv_hat, mv_feature = self.mv_decoder(mv_y_hat,
-                                             self._q("mv_y_q_dec", q_index))
+        mv_hat, mv_feature = self.mv_decoder(mv_y_hat, q["mv_y_q_dec"])
         c1, c2, c3, warp_frame = self.motion_compensation(
             ref_frame, dpb["ref_feature"], mv_hat, fa_idx)
 
         y = self.contextual_encoder(x.to(self.dtype), c1, c2, c3,
-                                    self._q("y_q_enc", q_index))
+                                    q["y_q_enc"])
         z = self.contextual_hyper_prior_encoder(y)
         z_hat = ste_round(z)
         params = self._ctx_fusion(self.contextual_hyper_prior_decoder(z_hat),
                                   dpb["ref_y"], c3)
         y_res, y_q, y_hat, scales_hat = self._four_part("ctx", y, params)
-        recon_feat = self.contextual_decoder(y_hat, c2, c3,
-                                             self._q("y_q_dec", q_index))
+        recon_feat = self.contextual_decoder(y_hat, c2, c3, q["y_q_dec"])
         feature, x_hat = self.recon_generation_net(recon_feat, c1)
         x_hat = torch.clamp(x_hat.float(), 0.0, 1.0)
 

@@ -26,15 +26,14 @@ import dataclasses
 import torch
 import torch.nn as nn
 
-from ..core.quant import ste_round
+from ..core.quant import ste_round, z_to_int16
 from ..core.shuffle import pixel_shuffle
 from ..entropy.gaussian import gaussian_prob_train, probs_to_bits
 from ..models import common
 from ..utils.keys import key_fn_evc
+from .dcvc_hem import dual_prior_train, spatial_params, split_spatial
 from .fm_layers import Conv, LReLU, depthwise3x3, ffn_hidden, \
     lecun_init_legacy_, lrelu
-from .hem_intra import dual_prior_train, spatial_params, split_spatial, \
-    z_to_int16
 
 
 @dataclasses.dataclass(frozen=True)

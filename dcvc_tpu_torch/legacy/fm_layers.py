@@ -279,19 +279,20 @@ def max_pool_2x(x):
 
 class UNet2(nn.Module):
     """3-level UNet over DepthConvBlock4 (reference UNet2,
-    video_net.py:168-205)."""
+    video_net.py:168-205); `block` another depth-conv block (DCVC-DC's
+    UNet takes DepthConvBlockFM)."""
 
-    def __init__(self, in_ch, out_ch=64):
+    def __init__(self, in_ch, out_ch=64, block=DepthConvBlock4FM):
         super().__init__()
-        self.conv1 = DepthConvBlock4FM(in_ch, 32)
-        self.conv2 = DepthConvBlock4FM(32, 64)
-        self.conv3 = DepthConvBlock4FM(64, 128)
+        self.conv1 = block(in_ch, 32)
+        self.conv2 = block(32, 64)
+        self.conv3 = block(64, 128)
         for i in range(4):
-            setattr(self, f"context_refine_{i}", DepthConvBlock4FM(128, 128))
+            setattr(self, f"context_refine_{i}", block(128, 128))
         self.up3 = SubpelConv(128, 64, r=2, kernel=1)
-        self.up_conv3 = DepthConvBlock4FM(128, 64)
+        self.up_conv3 = block(128, 64)
         self.up2 = SubpelConv(64, 32, r=2, kernel=1)
-        self.up_conv2 = DepthConvBlock4FM(64, out_ch)
+        self.up_conv2 = block(64, out_ch)
 
     def forward(self, x):
         x1 = self.conv1(x)

@@ -18,11 +18,11 @@ import dataclasses
 import torch
 import torch.nn as nn
 
-from ..core.masks import _phase_np
-from ..core.quant import add_noise, lower_bound, ste_round
+from ..core.quant import add_noise, lower_bound, ste_round, z_to_int16
 from ..entropy.gaussian import gaussian_prob_train, probs_to_bits
 from ..models import common
-from .dcvc_hem import HEMUNet
+from .dcvc_hem import HEMUNet, dual_prior_train, spatial_params, \
+    split_spatial
 from .fm_layers import ConvK, LReLU, SubpelConv, lecun_init_legacy_, \
     lrelu, seq
 
@@ -82,65 +82,6 @@ class RBU(nn.Module):
         h = lrelu(self.subpel_conv(x), 0.01)
         h = lrelu(self.conv(h), 0.1)
         return h + self.upsample(x)
-
-
-def checkerboard_masks(y):
-    """The dual checkerboard's two (1, h, w, 1) masks of y's grid, as
-    y's dtype: phases (0,0)|(1,1), and the rest (common_model.py:102-145)."""
-    h, w = y.shape[1], y.shape[2]
-    m0 = torch.from_numpy(_phase_np(h, w, 0, 0) | _phase_np(h, w, 1, 1))
-    m0 = m0.to(y.device)[None, :, :, None]
-    return m0.to(y.dtype), (~m0).to(y.dtype)
-
-
-def dual_prior_train(y, q_step, scales, means, spatial_prior):
-    """The training-time 2-pass cross-checkerboard prior (reference
-    common_model.py:76-131, dcvc_tpu's EVC.forward_dual_prior): the
-    channel halves take opposite phases; the second pass is conditioned
-    on the first through spatial_prior.  Returns (y_res, y_q, y_hat,
-    scales_hat), y_hat scaled back by the lower-bounded quant step."""
-    mask_0, mask_1 = checkerboard_masks(y)
-    q_step = torch.clamp_min(q_step, 0.5)
-    y = y / q_step
-    y_0, y_1 = y.chunk(2, dim=-1)
-    s_0, s_1 = scales.chunk(2, dim=-1)
-    m_0, m_1 = means.chunk(2, dim=-1)
-    r00, q00, h00, sh00 = common.process_with_mask_train(y_0, s_0, m_0,
-                                                         mask_0)
-    r11, q11, h11, sh11 = common.process_with_mask_train(y_1, s_1, m_1,
-                                                         mask_1)
-    sp = torch.cat([h00, h11, means, scales,
-                    q_step.expand(y.shape).to(y.dtype)], dim=-1)
-    s_0, m_0, s_1, m_1 = spatial_prior(sp).chunk(4, dim=-1)
-    r01, q01, h01, sh01 = common.process_with_mask_train(y_0, s_0, m_0,
-                                                         mask_1)
-    r10, q10, h10, sh10 = common.process_with_mask_train(y_1, s_1, m_1,
-                                                         mask_0)
-    y_res = torch.cat([r00 + r01, r11 + r10], dim=-1)
-    y_q = torch.cat([q00 + q01, q11 + q10], dim=-1)
-    y_hat = torch.cat([h00 + h01, h11 + h10], dim=-1)
-    scales_hat = torch.cat([sh00 + sh01, sh11 + sh10], dim=-1)
-    return y_res, y_q, y_hat * q_step, scales_hat
-
-
-def spatial_params(y_hat_0, q_step, scales, means, dtype):
-    """The spatial prior's input at inference: [y_hat part 0, means,
-    scales, the quant step broadcast to y's shape]."""
-    return torch.cat([y_hat_0.to(dtype), means, scales,
-                      q_step.expand(y_hat_0.shape).to(dtype)], dim=-1)
-
-
-def split_spatial(out):
-    """Spatial prior output [s0, m0, s1, m1] -> (scales, means) of the
-    second pass, channel halves concatenated."""
-    s0, m0, s1, m1 = out.chunk(4, dim=-1)
-    return torch.cat([s0, s1], dim=-1), torch.cat([m0, m1], dim=-1)
-
-
-def z_to_int16(z):
-    """round(z) clipped to +-30000, as int16 (the legacy z symbols)."""
-    return torch.clamp(torch.round(z.float()), -30000, 30000).to(
-        torch.int16)
 
 
 class IntraNoAR(nn.Module):

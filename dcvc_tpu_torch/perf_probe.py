@@ -8,7 +8,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
     python3 -m dcvc_tpu_torch.perf_probe train [--runs 1]
     python3 -m dcvc_tpu_torch.perf_probe legacy [--runs 2]
-    python3 -m dcvc_tpu_torch.perf_probe fm [--runs 2]
+    python3 -m dcvc_tpu_torch.perf_probe fm|hem|dc [--runs 2]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
@@ -48,12 +48,13 @@ published widths in float32 (chip_smoke.py's weights), a warm encode and
 decode at 1080p and 720p each, printing `profile`'s line per call
 (run_legacy).
 
-`fm` profiles DCVC-FM's P-frame codec at its published width in float32
-(chip_smoke.py's weights, perf_probe.lifted_fm): a warm 1080p P frame's
-encode and decode, the DPB full, printing `profile`'s line per call
-(run_fm).  Its blocks are not K1's and it decodes on the host, so it
-launches no kernel of the port (fm_stage_launches derives that from the
-model on the meta device).
+`fm`, `hem` and `dc` profile DCVC-FM's, DCVC-HEM's and DCVC-DC's P-frame
+codecs at their published widths in float32 (chip_smoke.py's weights:
+lifted_fm, lifted_hem, lifted_dc): a warm 1080p P frame's encode and
+decode, the DPB full, printing `profile`'s line per call (run_p_frame).
+Their blocks are not K1's and they decode on the host, so they launch no
+kernel of the port (fm_stage_launches, hem_stage_launches and
+dc_stage_launches derive that from the models on the meta device).
 
 `train` builds each full-width training cell of TRAIN_CELLS (DMCI, LD,
 HTS, HTL at their published widths in float32, TF32 off), takes one warm
@@ -350,27 +351,33 @@ FM_LIFT = {"init_scale": LEGACY_INIT_SCALE, "y_gain": 300.0,
            "recon_gain": 1e4, "recon_bias": 0.5}
 
 
-def lifted_fm(cfg, seed, lift=None):
-    """A float32 DMCFM (on the CPU) with seeded random weights
-    (reset_parameters, as DMCFMCodec.init_random draws them), lifted as
-    `lift` (FM_LIFT when None) says."""
+def lifted_fm(cfg, seed, lift=None, model_cls=None):
+    """A float32 DMCFM, or a DMCDC (`model_cls`; DCVC-DC has FM's module
+    names where the lift applies), on the CPU with seeded random weights
+    (reset_parameters, as the codecs' init_random draws them), lifted as
+    `lift` (FM_LIFT when None) says; DC's anchors are spread
+    log-uniformly between the q_enc / q_dec pairs."""
     from .legacy.dcvc_fm import DMCFM
     lift = FM_LIFT if lift is None else lift
-    m = DMCFM(cfg)
+    m = (model_cls or DMCFM)(cfg)
     m.reset_parameters(torch.Generator().manual_seed(seed))
     with torch.no_grad():
         m.damp_(lift["init_scale"])
         for side in ("mv_y", "y"):
-            getattr(m, f"{side}_q_enc").copy_(
-                torch.tensor(lift["q_enc"]).view(2, 1, 1, 1))
-            getattr(m, f"{side}_q_dec").copy_(
-                torch.tensor(lift["q_dec"]).view(2, 1, 1, 1))
+            for end in ("enc", "dec"):
+                lo, hi = lift[f"q_{end}"]
+                if hasattr(m, f"{side}_q_{end}"):
+                    q = getattr(m, f"{side}_q_{end}")
+                else:
+                    q = getattr(m, f"{side}_q_scale_{end}")
+                n = q.shape[0]
+                q.copy_(torch.tensor([lo * (hi / lo) ** (i / (n - 1))
+                                      for i in range(n)]).view(q.shape))
         m.contextual_encoder.conv4.conv.weight.mul_(lift["y_gain"])
         m.mv_encoder.enc_3_2.conv.weight.mul_(lift["mv_gain"])
-        m.contextual_hyper_prior_encoder.layers_3.conv.weight.mul_(
+        m.contextual_hyper_prior_encoder[-1].conv.weight.mul_(
             lift["z_gain"])
-        m.mv_hyper_prior_encoder.layers_3.conv.weight.mul_(
-            lift["mv_z_gain"])
+        m.mv_hyper_prior_encoder[-1].conv.weight.mul_(lift["mv_z_gain"])
         for fusion, spatial, ch in ((m.y_prior_fusion, m.y_spatial_prior,
                                      cfg.ch_16x),
                                     (m.mv_y_prior_fusion,
@@ -384,9 +391,65 @@ def lifted_fm(cfg, seed, lift=None):
     return m
 
 
-def fm_stage_launches(cfg, h, w):
+# DCVC-DC's on the card: FM's lift (its modules, anchors and symbols
+# behave as FM's at init_scale 0.4)
+DC_LIFT = dict(FM_LIFT)
+
+
+def lifted_dc(cfg, seed, lift=None):
+    """A float32 DMCDC (on the CPU) with seeded random weights, lifted as
+    `lift` (DC_LIFT when None) says (lifted_fm)."""
+    from .legacy.dcvc_dc import DMCDC
+    return lifted_fm(cfg, seed, DC_LIFT if lift is None else lift, DMCDC)
+
+
+# DCVC-HEM's seeded random weights on the card: at the codec's
+# init_scale 0.4 every symbol codes as 0, so the kernels are damped by
+# `init_scale`, the last convs of the contextual and mv encoders (y_gain,
+# mv_gain) and of the two hyper encoders (z_gain, mv_z_gain) are lifted,
+# the scale parts of the prior fusions' and spatial priors' last biases
+# by scale_bias, and the reconstruction's last conv (recon_gain,
+# recon_bias) so that x_hat spreads over [0, 1].  Its q scales come from
+# the runner's ladders, so the q vectors stay at one.
+HEM_LIFT = {"init_scale": LEGACY_INIT_SCALE, "y_gain": 300.0,
+            "mv_gain": 1000.0, "z_gain": 5.0, "mv_z_gain": 10.0,
+            "scale_bias": 2.0, "recon_gain": 1e4, "recon_bias": 0.5}
+
+
+def lifted_hem(cfg, seed, lift=None):
+    """A float32 DMCHEM (on the CPU) with seeded random weights
+    (reset_parameters, as DMCHEMCodec.init_random draws them), lifted as
+    `lift` (HEM_LIFT when None) says."""
+    from .legacy.dcvc_hem import DMCHEM
+    lift = HEM_LIFT if lift is None else lift
+    m = DMCHEM(cfg)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        m.damp_(lift["init_scale"])
+        m.ce_conv4.conv.weight.mul_(lift["y_gain"])
+        m.mv_encoder.layers_6.conv.weight.mul_(lift["mv_gain"])
+        m.contextual_hyper_prior_encoder.layers_4.conv.weight.mul_(
+            lift["z_gain"])
+        m.mv_hyper_prior_encoder.layers_8.conv.weight.mul_(
+            lift["mv_z_gain"])
+        for fusion, spatial, ch in ((m.y_prior_fusion, m.y_spatial_prior,
+                                     cfg.ch_m),
+                                    (m.mv_y_prior_fusion,
+                                     m.mv_y_spatial_prior, cfg.ch_mv)):
+            fusion.layers_4.conv.bias[ch:2 * ch] += lift["scale_bias"]
+            bias = spatial.layers_4.conv.bias
+            bias[:ch // 2] += lift["scale_bias"]
+            bias[ch:ch + ch // 2] += lift["scale_bias"]
+        recon = m.rg_recon_conv.conv
+        recon.weight.mul_(lift["recon_gain"])
+        recon.bias.add_(lift["recon_bias"])
+    return m
+
+
+def fm_stage_launches(cfg, h, w, model_cls=None):
     """The K1 launches of each stage of a DCVC-FM P frame (DMCFMCodec,
-    float32) on an (h, w) frame, from the model itself: its stage methods
+    float32; DCVC-DC's with model_cls DMCDC, whose stages and forward
+    take FM's arguments) on an (h, w) frame, from the model itself: its stage methods
     on the meta device in the codec's order, and the eval forward of the
     family runner's estimated-bits mode (`forward`, on the frame padded
     to 64), for the first P frame
@@ -401,7 +464,7 @@ def fm_stage_launches(cfg, h, w):
     yh, yw = ph // 16, pw // 16
     log = LaunchLog()
     with torch.device("meta"), meta_launches(), log:
-        m = DMCFM(cfg)
+        m = (model_cls or DMCFM)(cfg)
         e = torch.empty
         x = e(1, ph, pw, 3)
         full = {"ref_feature": e(1, ph, pw, cfg.ch_1x),
@@ -436,6 +499,59 @@ def fm_stage_launches(cfg, h, w):
                 "ref_mv_y": e(1, fh // 16, fw // 16, cfg.ch_mv)})):
             with log.call(f"{which} forward"):
                 m(xf, {**dict.fromkeys(full), **dpb, "ref_frame": xf}, 0, 1)
+    return dict(log.calls)
+
+
+def dc_stage_launches(cfg, h, w):
+    """fm_stage_launches of DCVC-DC (DMCDCCodec, float32): its blocks are
+    FM's LeakyReLU FFNs and it decodes on the host, so every Counter is
+    empty."""
+    from .legacy.dcvc_dc import DMCDC
+    return fm_stage_launches(cfg, h, w, DMCDC)
+
+
+def hem_stage_launches(cfg, h, w):
+    """The K1 launches of each stage of a DCVC-HEM P frame (DMCHEMCodec,
+    float32) on an (h, w) frame, from the model itself: its stage methods
+    on the meta device in the codec's order (frames padded to 64), and
+    the eval forward of the family runner's estimated-bits mode, for the
+    first P frame after an intra frame (`first ...`) and a later one
+    (`later ...`).  HEM's blocks are lrelu / ReLU / SE convs, not K1's,
+    and it decodes on the host, so every Counter is empty.  Returns
+    {stage: Counter of Launch}."""
+    from .core.padding import get_padding_size
+    from .legacy.dcvc_hem import DMCHEM
+    pad_r, pad_b = get_padding_size(h, w, 64)
+    ph, pw = h + pad_b, w + pad_r
+    yh, yw = ph // 16, pw // 16
+    log = LaunchLog()
+    with torch.device("meta"), meta_launches(), log:
+        m = DMCHEM(cfg)
+        e = torch.empty
+        x, qs = e(1, ph, pw, 3), e(())
+        latents = {"ref_y": e(1, yh, yw, cfg.ch_m),
+                   "ref_mv_y": e(1, yh, yw, cfg.ch_mv)}
+        for which, feature in (("first", None),
+                               ("later", e(1, ph, pw, cfg.ch_n))):
+            def stage(name, fn, *args):
+                with log.call(f"{which} {name}"):
+                    return fn(*args)
+            mv_y, mv_z = stage("mv_analysis", m.mv_analysis, x, x, qs)
+            q_step, scales, means = stage("mv_prior", m.mv_prior, mv_z,
+                                          latents["ref_mv_y"])
+            stage("mv_spatial", m.mv_spatial, mv_y, q_step, scales, means)
+            mv_hat = stage("mv_synthesis", m.mv_synthesis, mv_y, qs)[1]
+            c1, c2, c3 = stage("mc", m.mc, x, feature, mv_hat)
+            y, z = stage("ctx_analysis", m.ctx_analysis, x, c1, c2, c3, qs)
+            q_step, scales, means = stage("ctx_prior", m.ctx_prior, z, c3,
+                                          latents["ref_y"])
+            stage("ctx_spatial", m.ctx_spatial, y, q_step, scales, means)
+            stage("synthesis", m.synthesis, y, c1, c2, c3, qs)
+            dpb = {"ref_frame": x, "ref_feature": feature,
+                   **(latents if feature is not None else
+                      dict.fromkeys(latents))}
+            with log.call(f"{which} forward"):
+                m(x, dpb, qs, qs)
     return dict(log.calls)
 
 
@@ -1080,6 +1196,8 @@ def run_legacy(dev, runs):
 
 FM_SEED = 30
 FM_Q_INDEX = 51
+HEM_SEED = 40
+DC_SEED = 50
 
 
 def fm_p_codec(dev):
@@ -1091,31 +1209,77 @@ def fm_p_codec(dev):
                       cfg=FM_CONFIG, device=dev)
 
 
-def run_fm(dev, runs):
-    """`profile`'s lines for a warm DCVC-FM P frame at 1080p (DMCFMCodec at
-    FM_CONFIG, float32, lifted_fm's weights, q_index FM_Q_INDEX): the DPB
-    seeded with a frame and filled by one P frame, then the third frame's
-    encode and decode (fa_idx 0), the DPB put back before each call,
-    `runs` profiled calls each."""
-    codec = fm_p_codec(dev)
+def hem_p_codec(dev):
+    """DMCHEMCodec at HEM_CONFIG on the card, float32, with lifted_hem's
+    weights (chip_smoke.py's)."""
+    from .legacy.dcvc_hem import HEM_CONFIG
+    from .runtime.hem_codec import DMCHEMCodec
+    return DMCHEMCodec(lifted_hem(HEM_CONFIG, HEM_SEED).state_dict(),
+                       cfg=HEM_CONFIG, device=dev)
+
+
+def dc_p_codec(dev):
+    """DMCDCCodec at DC_CONFIG on the card, float32, with lifted_dc's
+    weights (chip_smoke.py's)."""
+    from .legacy.dcvc_dc import DC_CONFIG
+    from .runtime.dc_codec import DMCDCCodec
+    return DMCDCCodec(lifted_dc(DC_CONFIG, DC_SEED).state_dict(),
+                      cfg=DC_CONFIG, device=dev)
+
+
+def hem_q_scales(q_index):
+    """HEM's (mv, y) q scales at a q index: the family runner's ladders."""
+    from .eval.family import interpolate_log
+    return (float(interpolate_log(0.5, 2.0)[q_index]),
+            float(interpolate_log(0.3, 3.0)[q_index]))
+
+
+def p_frame_calls(name):
+    """(codec builder, encode(codec, x, i, q), decode(codec, bits, i, q,
+    h, w), seed) of a legacy P codec by name: FM (fa_idx from
+    INDEX_MAP_FM), DC (from INDEX_MAP_DC) or HEM (the q scales of the
+    family runner's ladders)."""
+    from .eval.family import INDEX_MAP_DC, INDEX_MAP_FM
+    if name == "HEM":
+        return (hem_p_codec,
+                lambda c, x, i, q: c.compress(x, *hem_q_scales(q)),
+                lambda c, b, i, q, h, w: c.decompress(b, *hem_q_scales(q),
+                                                      h, w), HEM_SEED)
+    build, fa_map, seed = {"FM": (fm_p_codec, INDEX_MAP_FM, FM_SEED),
+                           "DC": (dc_p_codec, INDEX_MAP_DC, DC_SEED)}[name]
+    return (build,
+            lambda c, x, i, q: c.compress(x, q, fa_idx=fa_map[i % len(
+                fa_map)]),
+            lambda c, b, i, q, h, w: c.decompress(b, q, h, w, fa_idx=fa_map[
+                i % len(fa_map)]), seed)
+
+
+def run_p_frame(name, dev, runs):
+    """`profile`'s lines for a warm legacy P frame at 1080p (`name`: FM,
+    HEM or DC at its published config, float32, chip_smoke.py's lifted
+    weights, q index FM_Q_INDEX): the DPB seeded with a frame and filled
+    by one P frame, then the third frame's encode and decode, the DPB put
+    back before each call, `runs` profiled calls each."""
+    build, encode, decode, seed = p_frame_calls(name)
+    codec = build(dev)
     h, w, q = 1080, 1920, FM_Q_INDEX
-    frames = [f + 0.5 for f in make_sequence(h, w, 3, FM_SEED, dev)]
+    frames = [f + 0.5 for f in make_sequence(h, w, 3, seed, dev)]
     codec.set_ref_frame(frames[0])
-    codec.compress(frames[1], q, fa_idx=1)
+    encode(codec, frames[1], 1, q)
     dpb = dict(codec.dpb)
-    bits = codec.compress(frames[2], q, fa_idx=0)["bit_stream"]
+    bits = encode(codec, frames[2], 2, q)["bit_stream"]
 
-    def encode():
+    def enc():
         codec.dpb = dict(dpb)
-        return codec.compress(frames[2], q, fa_idx=0)
+        return encode(codec, frames[2], 2, q)
 
-    def decode():
+    def dec():
         codec.dpb = dict(dpb)
-        return codec.decompress(bits, q, h, w, fa_idx=0)
-    for kind, fn in (("encode", encode), ("decode", decode)):
+        return decode(codec, bits, 2, q, h, w)
+    for kind, fn in (("encode", enc), ("decode", dec)):
         fn()
         for r in range(runs):
-            profile_call(f"FM {w}x{h} {kind}", codec, fn, r)
+            profile_call(f"{name} {w}x{h} {kind}", codec, fn, r)
 
 
 # ------------------------------------------------------------ training
@@ -1439,7 +1603,7 @@ def run_k2(dev, symbols, lanes, clocks=False):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles",
-                                     "train", "legacy", "fm"))
+                                     "train", "legacy", "fm", "hem", "dc"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
@@ -1468,8 +1632,8 @@ def main():
         run_train(dev, args.runs)
     elif args.mode == "legacy":
         run_legacy(dev, args.runs)
-    elif args.mode == "fm":
-        run_fm(dev, args.runs)
+    elif args.mode in ("fm", "hem", "dc"):
+        run_p_frame(args.mode.upper(), dev, args.runs)
     else:
         run_profile(dev, args.runs)
 

@@ -28,9 +28,10 @@ save_native move a port model to and from a dcvc_tpu.params.v1 file
 
 The legacy models: EVC's modules are named after key_fn_evc's keys
 (evc_params_from_jax; evc_params_to_jax parses them back,
-`_evc_flax_path`), IntraNoAR's and DCVC-FM's mirror the flax tree
-(intra_noar_params_from_jax / _to_jax, fm_params_from_jax / _to_jax:
-the scopes joined by '.').  Their leaves convert by name: a conv
+`_evc_flax_path`), IntraNoAR's, DCVC-FM's, DCVC-DC's and DCVC-HEM's
+mirror the flax tree (intra_noar_params_from_jax / _to_jax, and its
+aliases fm_, dc_ and hem_params_from_jax / _to_jax: the scopes joined
+by '.').  Their leaves convert by name: a conv
 `kernel` as above, a Dense `kernel` (I, O) to nn.Linear's (O, I), and
 q_basic (1, 1, 1, N), FM's q anchors (2, 1, 1, 1) and its grouped fusion
 kernel (g, I, O) keep their shapes.
@@ -395,6 +396,13 @@ def intra_noar_params_to_jax(state):
 # kernel (g, I, O) and the q anchors (2, 1, 1, 1) kept as they are
 fm_params_from_jax = intra_noar_params_from_jax
 fm_params_to_jax = intra_noar_params_to_jax
+# so do DCVC-DC's (legacy/dcvc_dc.py, the three feature adaptors under
+# their flax names feature_adaptor_{0,1,2}) and DCVC-HEM's (legacy/
+# dcvc_hem.py, its SE layers' Dense kernels as nn.Linear weights)
+dc_params_from_jax = intra_noar_params_from_jax
+dc_params_to_jax = intra_noar_params_to_jax
+hem_params_from_jax = intra_noar_params_from_jax
+hem_params_to_jax = intra_noar_params_to_jax
 
 
 def evc_key(path):
@@ -463,7 +471,9 @@ def evc_params_to_jax(state):
 def _converters(model):
     """(flax tree -> state_dict, state_dict -> flax tree) of a port
     model."""
+    from ..legacy.dcvc_dc import DMCDC
     from ..legacy.dcvc_fm import DMCFM
+    from ..legacy.dcvc_hem import DMCHEM
     from ..legacy.dcvc_rt import DMCRT
     from ..legacy.evc import EVC
     from ..legacy.hem_intra import IntraNoAR
@@ -481,6 +491,10 @@ def _converters(model):
         return intra_noar_params_from_jax, intra_noar_params_to_jax
     if isinstance(model, DMCFM):
         return fm_params_from_jax, fm_params_to_jax
+    if isinstance(model, DMCDC):
+        return dc_params_from_jax, dc_params_to_jax
+    if isinstance(model, DMCHEM):
+        return hem_params_from_jax, hem_params_to_jax
     if isinstance(model, DMCLD):
         return dmc_ld_params_from_jax, dmc_ld_params_to_jax
     if isinstance(model, DMCHT):
@@ -492,7 +506,7 @@ def _converters(model):
 
 def load_native_into(model, path):
     """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT, DMCRT, EVC,
-    IntraNoAR or DMCFM at the file's config: config_from_header of its
+    IntraNoAR, DMCFM, DMCDC or DMCHEM at the file's config: config_from_header of its
     header) from the dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter
     the file lacks or one the model does not use; load_state_dict raises on
     a shape that differs.  Returns the model."""

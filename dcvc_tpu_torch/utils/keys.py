@@ -4,11 +4,13 @@ dcvc_tpu/utils/torch_import.py.
 The port names its parameters after the reference torch module tree; the
 JAX package's checkpoint importer maps each flax leaf path to that name.
 utils/jax_bridge.py inverts the importer with these maps (key_fn_evc: the
-port's EVC module names, legacy/evc.py; key_fn_fm: the reference names
-of DCVC-FM's keys, which legacy/dcvc_fm.py DMCFM.from_reference reads).
-They are verbatim copies (pinned by tests/test_torch_core.py and, for
-DCVC-FM's, tests/test_torch_dcvc_fm.py), because the port imports
-nothing of the JAX package.
+port's EVC module names, legacy/evc.py; key_fn_fm, key_fn_dc and
+key_fn_hem: the reference names of DCVC-FM's, DCVC-DC's and DCVC-HEM's
+keys, which their models' from_reference reads, legacy/dcvc_fm.py
+state_from_reference).  They are verbatim copies (pinned by
+tests/test_torch_core.py and, for DCVC-FM's, DC's and HEM's,
+tests/test_torch_fm_weights.py and tests/test_torch_hem_dc_weights.py),
+because the port imports nothing of the JAX package.
 """
 
 import re
@@ -339,3 +341,196 @@ def key_fn_fm(path):
 
     leaf = {"kernel": "weight"}.get(leaf, leaf)
     return ".".join(out + [leaf])
+
+
+# ----------------------------------------------------------------- DCVC-DC
+
+# flax scopes that are bare SubpelConv modules (torch Sequential .0)
+_DC_SUBPEL_PARENTS = {"up1", "up2", "up3", "up4", "conv2_up", "conv3_up",
+                      "dec_3_1"}
+_DC_HYPER_DECS = {"mv_hyper_prior_decoder", "contextual_hyper_prior_decoder"}
+
+
+def key_fn_dc(path):
+    """DCVC-DC checkpoint map (DCVC-DC/src/models/video_model.py +
+    video_net.py module trees).  Same DCB/enc-dec-list conventions as FM
+    but: SpyNet keeps torch's moduleBasic.N naming, hyper coders are the
+    flat HEM-style Sequentials, and the UNet is DepthConvBlock-based."""
+    segs = list(path)
+    if len(segs) == 1:                 # q_basic / q_scale leaves
+        return segs[0]
+    leaf = segs.pop()
+    top = segs[0]
+    if top in ("bit_estimator_z", "bit_estimator_z_mv"):
+        n = 3 if leaf == "a" else 4
+        return ("stack_last", [f"{top}.f{i + 1}.{leaf}" for i in range(n)])
+    if segs == ["align"] and leaf in ("fusion_kernel", "fusion_bias"):
+        which = "weight" if leaf == "fusion_kernel" else "bias"
+        return ("group_conv", f"align.fusion.{which}")
+
+    out = []
+    i = 0
+    while i < len(segs):
+        s = segs[i]
+        rest = segs[i + 1:]
+        prev = segs[i - 1] if i else ""
+        m = re.fullmatch(r"conv_offset_(\d+)", s)
+        if m:
+            out.append(f"conv_offset.{2 * int(m.group(1))}")
+            i += 2 if rest and rest[0] == "conv" else 1
+            continue
+        if s in ("dc", "ffn") and rest:
+            out.append(_fm_dcb_sub([s] + rest))
+            i += 3 if len(rest) >= 2 and rest[1] == "conv" else 2
+            continue
+        if s in ("subpel_conv", "upsample") and rest and rest[0] == "conv":
+            out.append(_FM_RBU_SUB[s])
+            i += 2
+            continue
+        if s == "conv":
+            is_subpel = prev in _DC_SUBPEL_PARENTS or (
+                top in _DC_HYPER_DECS and re.fullmatch(r"layers_[26]", prev))
+            if rest and rest[0] == "conv":
+                out.append("0" if is_subpel else "conv")
+                i += 2
+                continue
+            if is_subpel:
+                out.append("0")
+            i += 1
+            continue
+        m = re.fullmatch(r"layers_(\d+)", s)
+        if m:
+            out.append(m.group(1))
+            i += 1
+            continue
+        m = re.fullmatch(r"(moduleBasic|feature_adaptor)_(\d+)", s)
+        if m:
+            out.append(f"{m.group(1)}.{m.group(2)}")
+            i += 1
+            continue
+        m = re.fullmatch(r"(enc_\d+|dec_\d+|context_refine)_(\d+)", s)
+        if m:
+            out.append(f"{m.group(1)}.{m.group(2)}")
+            i += 1
+            continue
+        out.append(s)
+        i += 1
+
+    leaf = {"kernel": "weight"}.get(leaf, leaf)
+    return ".".join(out + [leaf])
+
+
+# ---------------------------------------------------------------- DCVC-HEM
+
+# mv_decoder slots that are ResidualBlockUpsample (their inner bare conv
+# stays '.conv'; elsewhere a bare subpel conv becomes '.0')
+_HEM_RBU_SLOTS = {("mv_decoder", 1), ("mv_decoder", 3), ("mv_decoder", 5)}
+
+
+def _hem_unet_sub(rest):
+    """HEM UNet internals (DCVC-HEM/src/models/video_net.py:99-225).
+    rest: path segs after the unet scope, leaf excluded."""
+    head = rest[0]
+    m = re.fullmatch(r"context_refine_(\d+)", head)
+    if m:  # HEMResBlock: conv1/conv2 ConvK wrappers
+        return f"context_refine.{m.group(1)}.{rest[1]}", None
+    if head in ("up2", "up3"):          # subpel Sequential
+        return f"{head}.0", None
+    # ConvBlockResidual (conv1/conv2/conv3/up_conv2/up_conv3)
+    inner = rest[1]
+    if inner == "conv1":
+        return f"{head}.conv.0", None
+    if inner == "conv2":
+        return f"{head}.conv.2", None
+    if inner == "up_dim":
+        return f"{head}.up_dim", None
+    if inner == "se":
+        idx = "0" if rest[2] == "fc1" else "2"
+        return f"{head}.conv.3.fc.{idx}", "linear"
+    raise KeyError(rest)
+
+
+def _hem_top(s):
+    m = re.fullmatch(r"(ce|cd|tp)_(\w+)", s)
+    if m:
+        scope = {"ce": "contextual_encoder", "cd": "contextual_decoder",
+                 "tp": "temporal_prior_encoder"}[m.group(1)]
+        return f"{scope}.{m.group(2)}"
+    m = re.fullmatch(r"fx_conv(\d)", s)
+    if m:
+        return f"feature_extractor.conv{m.group(1)}"
+    m = re.fullmatch(r"fx_res(\d)", s)
+    if m:
+        return f"feature_extractor.res_block{m.group(1)}"
+    m = re.fullmatch(r"cf_res(\d)_(up|out)", s)
+    if m:
+        return f"context_fusion_net.res_block{m.group(1)}_{m.group(2)}"
+    m = re.fullmatch(r"cf_(conv\d_(?:up|out))", s)
+    if m:
+        return f"context_fusion_net.{m.group(1)}"
+    if s in ("rg_first_conv", "rg_recon_conv"):
+        return f"recon_generation_net.{s[3:]}"
+    m = re.fullmatch(r"rg_unet_(\d)", s)
+    if m:
+        return f"recon_generation_net.unet_{m.group(1)}"
+    return s
+
+
+def key_fn_hem(path):
+    """DCVC-HEM checkpoint map (DCVC-HEM/src/models/video_model.py +
+    video_net.py module trees)."""
+    segs = list(path)
+    if len(segs) == 1:   # top-level leaves (mv_y_q_basic, y_q_scale, ...)
+        return segs[0]
+    leaf = {"kernel": "weight"}.get(segs[-1], segs[-1])
+    top = segs[0]
+    if top in ("bit_estimator_z", "bit_estimator_z_mv"):
+        n = 3 if segs[-1] == "a" else 4
+        return ("stack_last", [f"{top}.f{i + 1}.{segs[-1]}"
+                               for i in range(n)])
+    out = [_hem_top(top)]
+    tag = None
+    rest = segs[1:-1]
+    if top.startswith("rg_unet"):
+        sub, tag = _hem_unet_sub(rest)
+        out.append(sub)
+        rest = []
+    i = 0
+    last_idx = None
+    while i < len(rest):
+        s = rest[i]
+        nxt = rest[i + 1] if i + 1 < len(rest) else None
+        m = re.fullmatch(r"layers_(\d+)", s)
+        if m:
+            last_idx = int(m.group(1))
+            out.append(m.group(1))
+            i += 1
+            continue
+        m = re.fullmatch(r"moduleBasic_(\d+)", s)
+        if m:
+            out.append(f"moduleBasic.{m.group(1)}")
+            i += 1
+            continue
+        if s in ("subpel_conv", "upsample") and nxt == "conv":
+            out.append(f"{s}.0")
+            i += 3   # consume subpel_conv/conv/conv
+            continue
+        if s == "conv" and nxt == "conv":
+            # bare SubpelConv: '.0' — except RBU's plain conv member
+            if (top, last_idx) in _HEM_RBU_SLOTS:
+                out.append("conv")
+            else:
+                out.append("0")
+            i += 2
+            continue
+        if s in ("conv1", "conv2", "downsample", "up_dim") and nxt == "conv":
+            out.append(s)
+            i += 2
+            continue
+        if s == "conv" and nxt is None:      # bare ConvK wrapper
+            i += 1
+            continue
+        out.append(s)
+        i += 1
+    key = ".".join(out + [leaf])
+    return (tag, key) if tag else key

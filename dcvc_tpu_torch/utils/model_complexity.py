@@ -28,7 +28,8 @@ def count_macs(fn, *args):
 def _fm_inputs(model, h, w, device):
     """DCVC-FM's eval forward at (h, w): a later P frame (the DPB full:
     the previous frame, its feature, mv feature and both latents), q_index
-    0, fa_idx 1, the rates of the rounded latents."""
+    0, fa_idx 1 (DCVC-DC's: anchor 0, frame 1), the rates of the rounded
+    latents."""
     cfg, z = model.cfg, torch.zeros
     dpb = {"ref_frame": z(1, h, w, 3, device=device),
            "ref_feature": z(1, h, w, cfg.ch_1x, device=device),
@@ -38,13 +39,29 @@ def _fm_inputs(model, h, w, device):
     return (z(1, h, w, 3, device=device), dpb, 0, 1)
 
 
+def _hem_inputs(model, h, w, device):
+    """DCVC-HEM's eval forward at (h, w): a later P frame (the DPB full:
+    the previous frame, its feature and both latents), q scales 1, the
+    rates of the rounded latents."""
+    cfg, z = model.cfg, torch.zeros
+    dpb = {"ref_frame": z(1, h, w, 3, device=device),
+           "ref_feature": z(1, h, w, cfg.ch_n, device=device),
+           "ref_y": z(1, h // 16, w // 16, cfg.ch_m, device=device),
+           "ref_mv_y": z(1, h // 16, w // 16, cfg.ch_mv, device=device)}
+    one = torch.ones((), device=device)
+    return (z(1, h, w, 3, device=device), dpb, one, one)
+
+
 def _inputs(model, h, w, device):
     """A training forward's inputs at (h, w): the frame (a chunk of
     frame_delay frames for a video model, a later chunk: the previous
     feature and memory given), qp 0 and its noise."""
     from ..legacy.dcvc_fm import DMCFM
-    if isinstance(model, DMCFM):
+    from ..legacy.dcvc_hem import DMCHEM
+    if isinstance(model, DMCFM):        # DMCDC too: the same arguments
         return _fm_inputs(model, h, w, device)
+    if isinstance(model, DMCHEM):
+        return _hem_inputs(model, h, w, device)
     cfg = model.cfg
     noise = draw_noise(cfg, 1, h, w, torch.Generator().manual_seed(0),
                        device)
@@ -60,8 +77,9 @@ def model_macs_per_pixel(model, h=256, w=256):
     """kMACs per pixel of the training forward of a port DMCI, DMCHT or
     DMCLD (float32) at (h, w), rounded up to multiples of 64 as the
     training forward needs; per pixel of each of its frames (a video
-    chunk codes frame_delay of them).  DCVC-FM's (DMCFM): its eval
-    forward of a later P frame, one frame."""
+    chunk codes frame_delay of them).  DCVC-FM's, DCVC-DC's and
+    DCVC-HEM's (DMCFM, DMCDC, DMCHEM): the eval forward of a later P
+    frame, one frame."""
     h, w = -(-h // 64) * 64, -(-w // 64) * 64
     device = next(model.parameters()).device
     args = _inputs(model, h, w, device)

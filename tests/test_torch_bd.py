@@ -24,6 +24,8 @@
   stays unchanged.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import hashlib
 import inspect
 import json

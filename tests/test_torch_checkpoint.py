@@ -11,6 +11,8 @@ coder's cached tables beside them (both loaders ignore those).  The port's
 loader raises on a key the model does not use and on one it lacks.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,11 +2,14 @@
 tests/test_complexity.py: a matmul counts exactly m*k*n MACs
 (FlopCounterMode counts products, where XLA's cost analysis also counts
 elementwise work, so the port's counts are not held to the JAX
-package's); each TINY model's training forward (DCVC-FM's: its eval
-forward of a later P frame) counts more than zero kMACs per pixel, a video chunk's per pixel of each of its frames; a
+package's); each TINY model's training forward (DCVC-FM's, DCVC-HEM's
+and DCVC-DC's: the eval forward of a later P frame) counts more than
+zero kMACs per pixel, a video chunk's per pixel of each of its frames; a
 1x1 convolution counts H*W*Cin*Cout; StageTimer counts and averages; the
 trace context writes a Chrome trace.
 """
+
+import torch_threads  # noqa: F401  (first: caps torch's threads)
 
 import json
 import os
@@ -14,7 +17,9 @@ import os
 import pytest
 import torch
 
+from dcvc_tpu_torch.legacy.dcvc_dc import DMCDC, TINY_DC_CONFIG
 from dcvc_tpu_torch.legacy.dcvc_fm import DMCFM, TINY_FM_CONFIG
+from dcvc_tpu_torch.legacy.dcvc_hem import DMCHEM, TINY_HEM_CONFIG
 from dcvc_tpu_torch.models.dmc_ht import DMCHT, TINY_HT_CONFIG, \
     TINY_HTL_CONFIG
 from dcvc_tpu_torch.models.dmc_ld import DMCLD, TINY_LD_CONFIG
@@ -38,8 +43,9 @@ def test_conv_macs():
 @pytest.mark.parametrize("model", [
     lambda: DMCI(TINY_CONFIG), lambda: DMCHT(TINY_HT_CONFIG),
     lambda: DMCHT(TINY_HTL_CONFIG), lambda: DMCLD(TINY_LD_CONFIG),
-    lambda: DMCFM(TINY_FM_CONFIG)],
-    ids=["dmci", "hts", "htl", "ld", "fm"])
+    lambda: DMCFM(TINY_FM_CONFIG), lambda: DMCHEM(TINY_HEM_CONFIG),
+    lambda: DMCDC(TINY_DC_CONFIG)],
+    ids=["dmci", "hts", "htl", "ld", "fm", "hem", "dc"])
 def test_model_complexity_runs(model):
     model = model()
     kmacs = model_macs_per_pixel(model, 64, 64)

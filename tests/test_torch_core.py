@@ -6,6 +6,8 @@ Pixel (un)shuffle, padding, the candidate-domain phase split/merge/valid
 CDF banks, and the pins on the code the port copies from the JAX package.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import ast
 import glob
 import importlib.util
@@ -305,3 +307,15 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_test_workers_cap_torch_threads(monkeypatch):
+    """tests/torch_threads.py gives each xdist worker its share of the
+    cores (at least one thread), and this process runs within it."""
+    import torch_threads
+    assert torch.get_num_threads() <= torch_threads.share_of_cores()
+    cores = len(os.sched_getaffinity(0))
+    for workers, want in ((1, cores), (6, max(1, cores // 6)),
+                          (4 * cores, 1)):
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", str(workers))
+        assert torch_threads.share_of_cores() == want

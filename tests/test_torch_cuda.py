@@ -10,6 +10,8 @@ tests/conftest.py (which imports jax) is left out:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 import torch

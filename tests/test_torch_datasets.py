@@ -5,6 +5,8 @@ same seed, the same crops, flips, pads, QPs and lambdas, sample for
 sample and batch for batch; and the pins on the bodies the port copies.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import inspect
 import json
 import os

@@ -22,6 +22,8 @@ The weights (the bridge, key_fn_fm, params.v1, .pth.tar) are held by
 tests/test_torch_fm_weights.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax

@@ -11,6 +11,8 @@ prior outputs' scales are lifted by 2 so that y symbols are coded (see
 tests/test_torch_dmc_htl.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 import torch

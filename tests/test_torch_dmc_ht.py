@@ -10,6 +10,8 @@ The reconstructed frames are a clamp to [-0.5, 0.5] of head outputs far
 larger than that range, so they are held to an absolute 1e-4 instead.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ DPBs, its streams are byte-identical to the JAX codec's, and it decodes
 the JAX streams.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

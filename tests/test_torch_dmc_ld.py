@@ -22,6 +22,8 @@ dcvc_tpu's at TINY_LD_CONFIG, float32 on the CPU, on the same weights
   symbols are coded.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ larger than that range, so it is held to an absolute 1e-4 instead (0.03
 of an 8-bit level; seen: 3e-5).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

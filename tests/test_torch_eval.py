@@ -21,6 +21,8 @@ colour transforms, harness and CLI against dcvc_tpu's, on the CPU.
   starts (tests/test_torch_eval_tools.py holds --worker 2 to --worker 1).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import io
 import json
 import os

@@ -21,6 +21,8 @@ at the TINY configs:
   and dtypes), skip 0.15; with collect_symbols None nothing is kept.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import json
 import os
 import sys

@@ -20,6 +20,8 @@ names) and inputs.
   every symbol is 0 and the stream is ~90 bytes).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import inspect
 

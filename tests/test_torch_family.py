@@ -19,6 +19,8 @@ yet raise, and so does --fast for rt, as the JAX runner does (DCVC-FM's
 runner and its --fast mode: tests/test_torch_family_fm.py).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import json
 import os
 
@@ -103,15 +105,15 @@ def jax_run(model_files, png_seq, tmp_path_factory):
     return res, {f: (out / f).read_bytes() for f in os.listdir(out)}
 
 
-def _same_numbers(got, want):
-    """Every number of the results equal, the PSNRs within PSNR_ATOL:
+def _same_numbers(got, want, psnr_atol=PSNR_ATOL):
+    """Every number of the results equal, the PSNRs within psnr_atol:
     each framework rounds its own float reconstruction to 8 bits."""
     assert set(got) == set(want)
     for r in want:
         for k in NUMBERS:
             if "psnr" in k:
                 np.testing.assert_allclose(got[r][k], want[r][k], rtol=0,
-                                           atol=PSNR_ATOL, err_msg=k)
+                                           atol=psnr_atol, err_msg=k)
             else:
                 assert got[r][k] == want[r][k], k
 
@@ -174,8 +176,16 @@ def test_yuv_reader_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("model", ["dc", "hem", "tcm", "dcvc"])
 def test_models_not_ported_raise(model, tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        family.FamilyRunner(model, str(tmp_path), tiny=True, device="cpu")
+    """TCM and DCVC are not ported and raise; HEM and DC, once on this
+    list, build their codecs."""
+    if model in family.NOT_PORTED:
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            family.FamilyRunner(model, str(tmp_path), tiny=True,
+                                device="cpu")
+        return
+    runner = family.FamilyRunner(model, str(tmp_path), tiny=True,
+                                 device="cpu")
+    assert type(runner.p_codec) is family.P_CODECS[model][0]
 
 
 def test_fast_mode_raises(png_seq, tmp_path):

@@ -20,6 +20,8 @@ bridged params (fm_params_to_jax); its init_random is never called.
   two encodes give the same bytes.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,8 @@ of the strided 1x1 and 2x2 convs comes to 0 on one side and 1 on the
 other there, and the k x k convs pad k // 2.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

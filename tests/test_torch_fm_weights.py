@@ -17,6 +17,8 @@ dcvc_tpu's flax tree at TINY_FM_CONFIG and FM_CONFIG.
 The weights are tests/test_torch_dcvc_fm.py's lifted seeded init.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 import inspect
 

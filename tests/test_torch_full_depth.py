@@ -19,6 +19,8 @@ decoder 11, FA_M 10) would pass them.
   minutes on the CPU, running it op by op seconds.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax

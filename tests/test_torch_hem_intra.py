@@ -21,6 +21,8 @@ inputs.
   z and y symbols spread over many CDF rows.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import jax

@@ -9,6 +9,8 @@ Reconstructions of the two codecs are compared within an absolute 1e-4,
 the bound of tests/test_torch_dmci.py for the synthesis stage.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

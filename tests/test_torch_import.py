@@ -5,6 +5,8 @@ state_dict into our flax DMCI and compare the full deterministic forward
 Skipped when the reference repo is not mounted.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import os
 import sys
 

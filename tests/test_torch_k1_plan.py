@@ -15,6 +15,8 @@ at least a wave of 64 x 64 tiles launches at least a wave of blocks.  The
 plans of the 87 shapes that predate the tails are pinned.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import hashlib
 
 import math

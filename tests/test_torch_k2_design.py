@@ -20,6 +20,8 @@ rans.cc's own way, exactly.
   decode.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import functools
 
 import numpy as np

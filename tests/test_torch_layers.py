@@ -9,6 +9,8 @@ taken in another order.  The CUDA kernel itself is compared with its plain
 version on the card by tests/test_torch_cuda.py and by chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

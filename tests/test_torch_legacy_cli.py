@@ -19,6 +19,8 @@ port repaired, on the CPU in float32 at the TINY configs.
   --dtype follow it.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import argparse
 import json
 import os

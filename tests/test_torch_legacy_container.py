@@ -3,6 +3,8 @@
 dcvc_tpu's, so its DCVC-RT NAL stream (SPS, I and P NALs) is the JAX
 writer's bytes, reads back, and dedupes its SPS the same way."""
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import io
 import os
 

@@ -11,6 +11,8 @@ the CPU, exact.
   f32 bit patterns.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import inspect
 
 import jax

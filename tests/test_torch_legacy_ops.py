@@ -12,6 +12,8 @@ a 64x64 pair, on the port's seeded weights carried to flax by the bridge
 (its modules mirror the flax tree).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

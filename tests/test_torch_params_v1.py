@@ -29,6 +29,8 @@ CPU in float32.
   through the inverse bridge.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import dataclasses
 
 import flax.serialization

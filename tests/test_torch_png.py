@@ -7,6 +7,8 @@ writer.  Interlaced, 16-bit, palette and grey
 + alpha files, and a corrupted one, raise.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import struct
 import zlib
 

@@ -12,6 +12,8 @@ split_streams and init_state against the originals, and the sync-free
 sort compaction of the device decode against the mask compaction.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

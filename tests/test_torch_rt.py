@@ -29,6 +29,8 @@ the same weights (through the bridge) and inputs.
   branches.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import inspect
 
 import jax

@@ -22,6 +22,8 @@ inputs.
   same rng) and every parameter's gradient of an RD loss.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

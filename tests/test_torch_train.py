@@ -20,6 +20,8 @@ reach ~1e5, so y_q + means loses y to f32 cancellation and x_hat is
 decided by rounding noise in both frameworks alike.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

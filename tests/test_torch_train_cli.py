@@ -8,6 +8,8 @@ whose encode -> decode is bit-exact.  With --device cuda and
 no card both raise.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import os
 
 import numpy as np

@@ -24,6 +24,8 @@ below that share the signs may differ, and the parameters agree within
 2 lr plus that.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

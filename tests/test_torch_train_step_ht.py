@@ -5,6 +5,8 @@ cascaded and not, rematerialised and not, at the tolerances of
 tests/test_torch_train_step.py.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import pytest
 
 from dcvc_tpu.models.dmc_ht import DMCHT as JaxDMCHT

@@ -23,6 +23,8 @@ through three full-width blocks) makes larger than HTS's, and the
 decoder carries that spacing into every frame.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
