@@ -16,8 +16,9 @@ tests/test_device_decode.py / tests/test_pallas_decode.py (1/2/3/5/8
 lanes, escapes, a count below the lane count and of 0, z -> y -> y
 threading).  Checks the stages of the six full-width models (DMCI, HTS,
 HTL, LD, DCVC-RT's intra and P models) in bf16 on the card against
-float32 on the CPU, those of EVC, IntraNoAR, DCVC-FM, DCVC-HEM and
-DCVC-DC (float32) on the card against the CPU at 256x256, and one TINY
+float32 on the CPU, those of EVC, IntraNoAR, DCVC-FM, DCVC-HEM, DCVC-DC,
+cheng2020, bmshj2018 and DCVC-2021 (float32) on the card against the CPU
+at 256x256, and one TINY
 DMCI and one TINY HTS 2-chunk training step on the card against the same
 steps on the CPU (float32, TF32 off).  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
@@ -67,6 +68,16 @@ every K2 launch's inputs:
     checks as DCVC-FM's part (HEM at the q scales of the family runner's
     ladders, DC's fa_idx from INDEX_MAP_DC); neither launches a kernel
     (perf_probe.hem_stage_launches, dc_stage_launches);
+  - the CompressAI intra codecs and DCVC-2021 (float32, RGB in [0, 1],
+    seeded weights lifted so that symbols are coded:
+    perf_probe.lifted_compressai, lifted_dcvc): Cheng2020Codec at
+    CHENG2020_Q1_3 and HyperpriorCodec at BMSHJ2018_Q1_5 code a 1080p
+    image each, DCVCCodec at DCVC_CONFIG 2 P frames at 1080p from
+    cheng2020's reconstruction, each decoded bit-exact (the final
+    reference frame too); each call's wall time split into the host AR
+    loop (with its us per latent position), the host rANS coder and the
+    rest (HostClock); no kernel launched
+    (perf_probe.compressai_stage_launches, dcvc_stage_launches);
   - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
     float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
     stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
@@ -97,14 +108,16 @@ every K2 launch's inputs:
     estimated-bits mode: finite bpp and PSNRs, frame types I P P P I P);
     family_main --model hem and --model dc on a seeded 720p file of 4
     frames (gop 4, 2 rates: one container file per frame, every frame
-    bit-exact), then --model hem --fast.
+    bit-exact), then --model hem --fast; family_main --model dcvc
+    (cheng2020 + DCVC, the JAX runner's init) on a seeded 720p file of 4
+    frames (gop 4, one rate), then --fast.
   - the evaluation surface, each part timed: params.v1 (the float32
     DMCI and HTS models written by save_native, read by load_native_into,
     their codecs coding a 1080p frame and a chunk to the in-memory
     codecs' bytes and DPB); the image CLI (image_main on three seeded
     PNGs, 1920x1080, 1280x720 and 768x512, host and device decodes, then
-    --i_frame_model evc and intra_noar on params.v1 files of the legacy
-    part's weights; every image bit-exact); the workers (video_main
+    --i_frame_model evc, intra_noar, cheng2020 and bmshj2018 on params.v1
+    files of the legacy parts' weights; every image bit-exact); the workers (video_main
     --worker 2, two spawned processes on the one card, against --worker
     1: the same .bin bytes
     and numbers; the pool's launches are its processes' and not counted
@@ -172,7 +185,10 @@ from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, INDEX_MAP, RT_CONFIG, \
     shift_qp
 from dcvc_tpu_torch.legacy.dcvc_dc import DC_CONFIG, DMCDC
 from dcvc_tpu_torch.legacy.dcvc_fm import DMCFM, FM_CONFIG
+from dcvc_tpu_torch.legacy.compressai_zoo import BMSHJ2018_Q1_5, \
+    CHENG2020_Q1_3, Cheng2020Anchor, ScaleHyperprior
 from dcvc_tpu_torch.legacy.dcvc_hem import DMCHEM, HEM_CONFIG
+from dcvc_tpu_torch.legacy.dcvc_net import DCVC_CONFIG, DCVCNet
 from dcvc_tpu_torch.legacy.evc import EVC_CONFIG, SCALABLE_EVC_CONFIG
 from dcvc_tpu_torch.legacy.hem_intra import INTRA_NOAR_CONFIG, \
     INTRA_NOAR_FM_CONFIG
@@ -183,10 +199,14 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     k2_latency_bound_ms, ld_stage_launches, legacy_intra_launches, \
     dc_p_codec, dc_stage_launches, fm_p_codec, fm_stage_launches, \
     hem_p_codec, hem_q_scales, hem_stage_launches, lifted_legacy_intra, \
+    compressai_stage_launches, dcvc_p_codec, dcvc_stage_launches, \
+    lifted_compressai, \
     make_sequence, max_sm_clock_mhz, nvidia_smi, p_frame_calls, \
     profile_launches, run_k2_case, \
     rt_stage_launches, sass_counts, smooth_frame, TRAIN_CELLS, \
     TRAIN_INIT_SCALE, damped_model, train_setup
+from dcvc_tpu_torch.runtime.compressai_codec import Cheng2020Codec, \
+    HyperpriorCodec
 from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
 from dcvc_tpu_torch.runtime.rt_image_codec import RTIntraCodec
@@ -325,6 +345,17 @@ FM_FAMILY_H, FM_FAMILY_W = 720, 1280
 # entry: family_main --model hem and dc on a seeded 720p YUV420 file of
 # HEM_DC_FAMILY_FRAMES frames, gop 4, 2 rates, then --model hem --fast
 HEM_DC_FAMILY_FRAMES = 4
+# The CompressAI intra codecs and DCVC-2021 (float32, seeded weights
+# lifted as perf_probe.lifted_compressai / lifted_dcvc say): one 1080p
+# image each for cheng2020 (CHENG2020_Q1_3) and bmshj2018 (BMSHJ2018_Q1_5),
+# and DCVC_P_FRAMES DCVC P frames at 1080p from cheng2020's
+# reconstruction; their masked-conv AR is the host's serial loop (~0.2-0.4
+# ms per latent position), so the frames are few.  Their family_main run:
+# DCVC_FAMILY_FRAMES 720p frames at gop 4, one rate, then --fast.
+COMPRESSAI_SEEDS = {"cheng2020": 70, "bmshj2018": 71}
+DCVC_CASE = (1080, 1920, 72)
+DCVC_P_FRAMES = 2
+DCVC_FAMILY_FRAMES = 4
 # the evaluation entry's PNG source: PNG_FRAMES seeded 1080p frames
 PNG_FRAMES = 3
 # the evaluation entry's phase: a seeded 1080p YUV420 file of CLI_FRAMES
@@ -1404,18 +1435,18 @@ def phase_stages_fm(codec, name="FM"):
     report_stages(name, f"q_index {q}", out)
 
 
-def report_stages(name, what, out):
+def report_stages(name, what, out, symbols=("mv_z", "z")):
     """Logs the card-vs-CPU relative RMS of each stage output in
-    out[where] and the shares of differing mv_z / z symbols; fails above
-    LEGACY_STAGE_REL_TOL."""
+    out[where] and the shares of differing `symbols` (mv_z / z); fails
+    above LEGACY_STAGE_REL_TOL."""
     diff = {k: (out["card"].pop(k).cpu() != out["cpu"].pop(k)).float()
-            .mean().item() for k in ("mv_z", "z")}
+            .mean().item() for k in symbols}
     errs = {k: rel_rms(out["card"][k], v) for k, v in out["cpu"].items()}
     side = LEGACY_STAGE_SIDE
     log(f"{name} stages on the card vs the CPU, float32, {side}x{side}, "
         f"{what}, relative RMS (tol {LEGACY_STAGE_REL_TOL}): "
-        f"{json.dumps(errs)}; symbols differing: mv_z {diff['mv_z']} z "
-        f"{diff['z']}")
+        f"{json.dumps(errs)}; symbols differing: "
+        + " ".join(f"{k} {v}" for k, v in diff.items()))
     bad = [k for k, e in errs.items() if not e <= LEGACY_STAGE_REL_TOL]
     if bad:
         raise AssertionError(f"{name} stage outputs disagree with the CPU: "
@@ -1749,6 +1780,306 @@ def phase_family_hem_dc(dev, launch_log):
     return tuple(total)
 
 
+# -------------------------------- the CompressAI intra codecs, DCVC-2021
+
+COMPRESSAI_CODECS = {"cheng2020": (Cheng2020Codec, CHENG2020_Q1_3),
+                     "bmshj2018": (HyperpriorCodec, BMSHJ2018_Q1_5)}
+
+
+def compressai_codecs(dev):
+    """{name: codec} of COMPRESSAI_CODECS on the card, float32, with
+    lifted_compressai's weights."""
+    return {name: cls(lifted_compressai(name, cfg, COMPRESSAI_SEEDS[name])
+                      .state_dict(), cfg=cfg, device=dev)
+            for name, (cls, cfg) in COMPRESSAI_CODECS.items()}
+
+
+def compressai_launches(name, h, w):
+    """(S = 1, stacked, K2) launches of one encode and of one decode of a
+    CompressAI codec on an (h, w) image, from the model on the meta device
+    (perf_probe.compressai_stage_launches): its blocks are not K1's and it
+    decodes on the host, so none."""
+    cls, cfg = COMPRESSAI_CODECS[name]
+    n = {k: sum(v.values()) for k, v in
+         compressai_stage_launches(cls.MODEL_CLS, cfg, h, w).items()}
+    decode = n["h_s"] + n["g_s"]
+    return (n["g_a"] + n["h_a"] + decode, 0, 0), (decode, 0, 0)
+
+
+def dcvc_launches(h, w):
+    """(S = 1, stacked, K2) launches of one DCVC P-frame encode, of one
+    decode, and of one eval forward (perf_probe.dcvc_stage_launches):
+    none."""
+    n = {k: sum(v.values())
+         for k, v in dcvc_stage_launches(DCVC_CONFIG, h, w).items()}
+    decode = n["mv_prior"] + n["mv_synthesis"] + n["ctx_prior"] \
+        + n["synthesis"]
+    return ((decode + n["mv_analysis"] + n["ctx_analysis"], 0, 0),
+            (decode, 0, 0), (n["forward"], 0, 0))
+
+
+def phase_stages_compressai_dcvc(compressai, dcvc):
+    """cheng2020's, bmshj2018's and DCVC's stages at full width on the
+    card against the same models on the CPU, both float32, on a
+    LEGACY_STAGE_SIDE square frame (pair): g_a's y, h_s on the CPU's z_hat,
+    g_s on the CPU's rounded y, cheng2020's masked context conv and
+    entropy parameters; DCVC's mv_analysis mv_y, mv_prior, mv_synthesis
+    (context, temporal prior) on the CPU's rounded mv_y, ctx_analysis y,
+    ctx_prior and synthesis on the CPU's latents.  The shares of
+    differing z / mv_z symbols are printed.  Fails above
+    LEGACY_STAGE_REL_TOL (relative RMS)."""
+    side, cpu_dev = LEGACY_STAGE_SIDE, torch.device("cpu")
+    ref, x = [f + 0.5 for f in make_sequence(side, side, 2, 73, cpu_dev)]
+    with torch.inference_mode():
+        for name, codec in compressai.items():
+            gpu, dev = codec.model, codec.device
+            cpu = type(gpu)(codec.cfg)
+            cpu.load_state_dict({k: v.cpu()
+                                 for k, v in gpu.state_dict().items()})
+            out = {}
+            for where, m, d in (("cpu", cpu, cpu_dev), ("card", gpu, dev)):
+                y = m.g_a(x.to(d))
+                z = m.h_a(y)
+                if where == "cpu":
+                    z_hat, y_hat = torch.round(z), torch.round(y)
+                stages = {"g_a y": y, "h_s": m.h_s(z_hat.to(d)),
+                          "g_s x_hat": m.g_s(y_hat.to(d)),
+                          "z": torch.round(z)}
+                if name == "cheng2020":
+                    ctx = m._masked_conv(y_hat.to(d))
+                    stages["context"] = ctx
+                    stages["entropy_parameters"] = m.entropy_parameters(
+                        torch.cat([stages["h_s"], ctx], dim=-1))
+                out[where] = stages
+            report_stages(name, "image", out, ("z",))
+        gpu, dev, cfg = dcvc.model, dcvc.device, dcvc.cfg
+        cpu = type(gpu)(cfg)
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        out = {}
+        for where, m, d in (("cpu", cpu, cpu_dev), ("card", gpu, dev)):
+            mv_y, mv_z = m.mv_analysis(x.to(d), ref.to(d))
+            if where == "cpu":
+                mv_z_c, mv_y_hat = mv_z, torch.round(mv_y)
+            context, temporal = m.mv_synthesis(mv_y_hat.to(d), ref.to(d))
+            if where == "cpu":
+                ctx_c = context
+            y, z = m.ctx_analysis(x.to(d), ctx_c.to(d))
+            if where == "cpu":
+                z_c, y_hat = z, torch.round(y)
+            out[where] = {"mv_z": mv_z, "z": z, "mv_analysis mv_y": mv_y,
+                          "mv_prior": m.mv_prior(mv_z_c.to(d)),
+                          "mv_synthesis context": context,
+                          "mv_synthesis temporal": temporal,
+                          "ctx_analysis y": y,
+                          "ctx_prior": m.ctx_prior(z_c.to(d)),
+                          "synthesis x_hat": m.synthesis(y_hat.to(d),
+                                                         ctx_c.to(d))}
+        report_stages("DCVC", "P frame", out)
+
+
+class HostClock:
+    """Inside, the host AR loops' encode / decode and the host rANS
+    coders' calls of `codecs` are timed: ar_ms (the AR loops, less the
+    rANS calls they make), rans_ms (every rANS call), positions (latent
+    positions the AR loops visited)."""
+
+    RANS = ("encode_with_indexes", "flush", "get_encoded_stream",
+            "set_stream", "decode_stream")
+
+    def __init__(self, codecs):
+        self.codecs = codecs
+        self.ar_ms = self.rans_ms = self._in_ar_rans = 0.0
+        self.positions = 0
+        self._depth = 0
+
+    def _wrap(self, obj, name, kind):
+        fn = getattr(obj, name)
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            if kind == "ar":
+                self._depth += 1
+                self.positions += args[0].shape[0] * args[0].shape[1]
+            try:
+                return fn(*args)
+            finally:
+                ms = 1e3 * (time.perf_counter() - t0)
+                if kind == "ar":
+                    self._depth -= 1
+                    self.ar_ms += ms
+                else:
+                    self.rans_ms += ms
+                    if self._depth:
+                        self._in_ar_rans += ms
+        setattr(obj, name, timed)
+        self._saved.append((obj, name))
+
+    def __enter__(self):
+        self._saved = []
+        for c in self.codecs:
+            for ar in [getattr(c, a) for a in ("ar", "ar_y", "ar_mv")
+                       if hasattr(c, a)]:
+                self._wrap(ar, "encode", "ar")
+                self._wrap(ar, "decode", "ar")
+            for coder in (c.encoder, c.decoder):
+                for name in self.RANS:
+                    if hasattr(coder, name):
+                        self._wrap(coder, name, "rans")
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name in self._saved:
+            delattr(obj, name)
+        self.ar_ms -= self._in_ar_rans
+
+    def line(self, wall_ms):
+        """The split of a call of wall_ms: device stages and glue (the
+        rest), host AR, host rANS."""
+        per = 1e3 * self.ar_ms / max(self.positions, 1)
+        return (f"wall_ms={wall_ms} host_ar_ms={self.ar_ms} "
+                f"(positions={self.positions}, us_per_position={per}) "
+                f"host_rans_ms={self.rans_ms} device_and_glue_ms="
+                f"{wall_ms - self.ar_ms - self.rans_ms}")
+
+
+def phase_compressai_dcvc(dev, launch_log, compressai, dcvc):
+    """The CompressAI intra codecs and DCVC-2021 on the card (full
+    published widths, float32): cheng2020 and bmshj2018 encode a seeded
+    1080p image and decode it (the decoder's x_hat equal to the encoder's
+    bit for bit); then DCVC_P_FRAMES DCVC P frames at 1080p from
+    cheng2020's reconstruction, encoded and decoded from the same
+    reference (every x_hat and the final reference frame bit for bit).
+    Each call's wall time is split (HostClock) into the host AR loop (and
+    its us per latent position), the host rANS coder, and the rest (the
+    device stages and glue).  Returns the (S = 1, stacked, K2) launches
+    derived for it (none)."""
+    t0 = time.perf_counter()
+    h, w, seed = DCVC_CASE
+    frames = [f + 0.5 for f in make_sequence(h, w, DCVC_P_FRAMES + 1, seed,
+                                             dev)]
+    derived = [0, 0, 0]
+
+    def run(label, want, codec, fn):
+        with HostClock([codec]) as clock:
+            out, ms, *n = counted(launch_log, label, fn)
+        expect(label, tuple(n), want)
+        for i in range(3):
+            derived[i] += want[i]
+        log(f"{label}: {clock.line(ms)}")
+        return out
+
+    seed_frame = None
+    for name, codec in compressai.items():
+        enc_n, dec_n = compressai_launches(name, h, w)
+        res = run(f"{name} {w}x{h} encode", enc_n, codec,
+                  lambda: codec.compress(frames[0]))
+        out = run(f"{name} {w}x{h} decode", dec_n, codec,
+                  lambda: codec.decompress(res["y_string"], res["z_string"],
+                                           h, w))
+        if out["x_hat"].shape != (1, h, w, 3) or not torch.equal(
+                out["x_hat"], res["x_hat"]):
+            raise AssertionError(f"{name} {w}x{h}: the decode is not "
+                                 f"bit-exact")
+        n_bytes = len(res["y_string"]) + len(res["z_string"])
+        log(f"{name} {w}x{h}: bytes={n_bytes} bpp={n_bytes * 8 / (h * w)} "
+            f"psnr={psnr01(res['x_hat'], frames[0])}; decode bit-exact | "
+            f"{nvidia_smi()}")
+        if name == "cheng2020":
+            seed_frame = res["x_hat"]
+    enc_n, dec_n, _ = dcvc_launches(h, w)
+    dcvc.set_ref_frame(seed_frame)
+    encoded = [run(f"DCVC {w}x{h} P frame {i} encode", enc_n, dcvc,
+                   lambda i=i: dcvc.compress(frames[i]))
+               for i in range(1, DCVC_P_FRAMES + 1)]
+    enc_ref = dcvc.ref_frame
+    dcvc.set_ref_frame(seed_frame)
+    strings = ("mv_y_string", "mv_z_string", "y_string", "z_string")
+    for i, res in enumerate(encoded, 1):
+        out = run(f"DCVC {w}x{h} P frame {i} decode", dec_n, dcvc,
+                  lambda res=res: dcvc.decompress(
+                      *[res[k] for k in strings], h, w))
+        if not torch.equal(out["x_hat"], res["x_hat"]):
+            raise AssertionError(f"DCVC {w}x{h} P frame {i}: the decode is "
+                                 f"not bit-exact")
+    if not torch.equal(dcvc.ref_frame, enc_ref):
+        raise AssertionError("DCVC: the final reference frames differ")
+    sizes = [[len(r[k]) for k in strings] for r in encoded]
+    log(f"DCVC {w}x{h} ({DCVC_P_FRAMES} P frames): bytes (mv_y, mv_z, y, z) "
+        f"{sizes}, bpp {[sum(b) * 8 / (h * w) for b in sizes]}, psnr "
+        f"{[psnr01(r['x_hat'], frames[i]) for i, r in enumerate(encoded, 1)]}"
+        f"; every decode bit-exact, final reference equal")
+    log(f"CompressAI / DCVC-2021: bit-exact, no kernel launched "
+        f"({time.perf_counter() - t0:.3f} s)")
+    return tuple(derived)
+
+
+def phase_family_dcvc(dev, launch_log):
+    """The family entry for DCVC-2021 on the card: family_main.main --model
+    dcvc (cheng2020 at CHENG2020_Q1_3 and DCVC at DCVC_CONFIG, float32,
+    seeded random weights as the JAX runner draws them: P at init_scale
+    0.4) on a seeded FM_FAMILY_W x FM_FAMILY_H YUV420 file of
+    DCVC_FAMILY_FRAMES frames, gop 4, one rate: exit code 0 (every frame
+    bit-exact), one container file per frame, finite PSNRs, bpp > 0, the
+    frame types I P P P.  Then --fast: exit 0, finite bpp and PSNRs, no
+    stream written.  Returns the (S = 1, stacked, K2) launches derived for
+    it (none)."""
+    t0 = time.perf_counter()
+    root = scratch_dir("dcvc_family")
+    n = DCVC_FAMILY_FRAMES
+    types = [0 if i % 4 == 0 else 1 for i in range(n)]
+    total = [0, 0, 0]
+    try:
+        cfg_path, seq = write_cli_inputs(root, dev, n, 18, 4, FM_FAMILY_H,
+                                         FM_FAMILY_W)
+        for fast in (False, True):
+            h, w = FM_FAMILY_H, FM_FAMILY_W
+            if fast:
+                h, w = -(-h // 64) * 64, -(-w // 64) * 64
+            i_enc, i_dec = compressai_launches("cheng2020", h, w)
+            p_enc, p_dec, fwd = dcvc_launches(h, w)
+            want = [0, 0, 0]
+            for i in range(n):
+                parts = ([i_enc] if fast else [i_enc, i_dec]) if i % 4 == 0 \
+                    else ([fwd] if fast else [p_enc, p_dec])
+                for part in parts:
+                    want = [a + b for a, b in zip(want, part)]
+            out_dir = os.path.join(root, "fast" if fast else "coded")
+            out_json = out_dir + ".json"
+            argv = ["--model", "dcvc", "--test_config", cfg_path, "--gop",
+                    "4", "--rate_num", "1", "--stream_path", out_dir,
+                    "--output_path", out_json] + (["--fast"] if fast else [])
+            label = f"DCVC family_main{' --fast' if fast else ''}"
+            code, ms, *got = counted(launch_log, label,
+                                     lambda: family_main.main(argv))
+            expect(label, tuple(got), tuple(want))
+            total = [a + b for a, b in zip(total, want)]
+            with open(out_json) as f:
+                result = json.load(f)["results"]["Smoke"][seq]
+            files = sorted(os.listdir(out_dir))
+            if len(files) != (0 if fast else n):
+                raise AssertionError(f"{label}: wrote {files}")
+            for rate, r in result.items():
+                if code != 0 or not r["bitexact"] or r["frame_type"] != \
+                        types or not np.isfinite(r["avg_psnr"]) or not \
+                        np.all(np.isfinite(r["frame_bpp"])) or not \
+                        r["avg_bpp"] > 0:
+                    raise AssertionError(f"{label} {rate}: exit {code}, "
+                                         f"{r}")
+                log(f"{label} {rate}: q_index={r['q_index']} "
+                    f"bpp={r['avg_bpp']} frame_bpp={r['frame_bpp']} "
+                    f"psnr={r['avg_psnr']} (i {r['avg_psnr_i']} p "
+                    f"{r['avg_psnr_p']}) avg_frame_encoding_ms="
+                    f"{1e3 * r['avg_frame_encoding_time']} "
+                    f"avg_frame_decoding_ms="
+                    f"{1e3 * r['avg_frame_decoding_time']} ({ms} ms with "
+                    f"the codec builds)")
+        log(f"DCVC family_main: every frame bit-exact, one file per frame; "
+            f"--fast finite ({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(root)
+    return tuple(total)
+
+
 def write_cli_inputs(root, dev, frames=CLI_FRAMES, seed=8,
                      intra_period=-1, h=CLI_H, w=CLI_W):
     """A seeded YUV420 file of `frames` w x h frames (the drifting
@@ -2047,9 +2378,10 @@ def phase_image_cli(dev, launch_log):
     """image_main (DMCIConfig(), bf16, seeded random weights, skip 0.15) on
     three seeded PNGs, with and without device_ec: every image bit-exact
     (exit code 0), the .bin files and the bits and PSNRs of the two runs
-    equal.  Then image_main --i_frame_model evc and intra_noar on the same
-    PNGs (float32, --model_path: a params.v1 file of the legacy phase's
-    weights, written by save_native): every image bit-exact, exit code 0.
+    equal.  Then image_main --i_frame_model evc, intra_noar, cheng2020 and
+    bmshj2018 on the same PNGs (float32, --model_path: a params.v1 file of
+    the legacy parts' weights, written by save_native): every image
+    bit-exact, exit code 0.
     Returns the (S = 1, stacked, K2) launches derived for it."""
     t0 = time.perf_counter()
     root = scratch_dir("image")
@@ -2098,11 +2430,21 @@ def phase_image_cli(dev, launch_log):
                 (a["bpp"], a["psnr"]) != (b["bpp"], b["psnr"]) for a, b in
                 zip(res0["per_image"].values(), res1["per_image"].values())):
             raise AssertionError("image CLI: the device_ec run differs")
-        for model, cls, cfg, seed in (
-                ("evc", EVCCodec, EVC_CONFIG, 20),
-                ("intra_noar", IntraNoARCodec, INTRA_NOAR_CONFIG, 21)):
+        for model, weights, launches_of in (
+                ("evc", lambda: lifted_legacy_intra(EVCCodec.MODEL_CLS,
+                                                    EVC_CONFIG, 20),
+                 lambda h, w: legacy_launches(EVCCodec, EVC_CONFIG, h, w)),
+                ("intra_noar",
+                 lambda: lifted_legacy_intra(IntraNoARCodec.MODEL_CLS,
+                                             INTRA_NOAR_CONFIG, 21),
+                 lambda h, w: legacy_launches(IntraNoARCodec,
+                                              INTRA_NOAR_CONFIG, h, w)),
+                *[(name, lambda name=name: lifted_compressai(
+                    name, COMPRESSAI_CODECS[name][1], COMPRESSAI_SEEDS[name]),
+                   lambda h, w, name=name: compressai_launches(name, h, w))
+                  for name in COMPRESSAI_CODECS]):
             path = os.path.join(root, f"{model}.bin")
-            save_native(lifted_legacy_intra(cls.MODEL_CLS, cfg, seed), path)
+            save_native(weights(), path)
             argv = ["--i_frame_model", model, "--model_path", path,
                     "--image_path", os.path.join(root, "png"),
                     "--stream_path", os.path.join(root, f"bin_{model}"),
@@ -2113,7 +2455,7 @@ def phase_image_cli(dev, launch_log):
                                  lambda: image_main.main(argv))
             want = [0, 0, 0]
             for h, w, _ in IMAGE_CASES:
-                for launches in legacy_launches(cls, cfg, h, w):
+                for launches in launches_of(h, w):
                     want = [a + b for a, b in zip(want, launches)]
             expect(label, tuple(n), tuple(want))
             derived = [a + b for a, b in zip(derived, want)]
@@ -2124,15 +2466,16 @@ def phase_image_cli(dev, launch_log):
                                for r in result["per_image"].values()):
                 raise AssertionError(f"{label}: exit code {rc}, "
                                      f"{result['per_image']}")
-            log(f"{label} (params.v1 of the legacy phase's weights): "
+            log(f"{label} (params.v1 of the legacy parts' weights): "
                 + "; ".join(f"{name} ms={1e3 * r['time']} bpp={r['bpp']} "
                             f"psnr={r['psnr']} bitexact={r['bitexact']}"
                             for name, r in result["per_image"].items())
                 + f" (run {ms} ms with its codec build)")
     finally:
         shutil.rmtree(root)
-    log(f"image CLI: {len(IMAGE_CASES)} images x 4 runs bit-exact (DMCI "
-        f"host and device decodes equal; EVC, IntraNoAR) "
+    log(f"image CLI: {len(IMAGE_CASES)} images x 6 runs bit-exact (DMCI "
+        f"host and device decodes equal; EVC, IntraNoAR, cheng2020, "
+        f"bmshj2018) "
         f"({time.perf_counter() - t0:.3f} s)")
     return tuple(derived)
 
@@ -2314,7 +2657,8 @@ def phase_complexity():
     HEM and DC: the eval forward of a later P frame), counted by
     FlopCounterMode on the
     meta device (shapes only, no compute): products and convolutions, not
-    elementwise work."""
+    elementwise work; DCVC-2021: the eval forward of a P frame; the
+    CompressAI models: the estimation forward of an image."""
     t0 = time.perf_counter()
     parts = []
     for name, cls, cfg in (("DMCI", DMCI, DMCIConfig()),
@@ -2323,7 +2667,10 @@ def phase_complexity():
                            ("LD", DMCLD, LD_CONFIG),
                            ("FM", DMCFM, FM_CONFIG),
                            ("HEM", DMCHEM, HEM_CONFIG),
-                           ("DC", DMCDC, DC_CONFIG)):
+                           ("DC", DMCDC, DC_CONFIG),
+                           ("DCVC", DCVCNet, DCVC_CONFIG),
+                           ("cheng2020", Cheng2020Anchor, CHENG2020_Q1_3),
+                           ("bmshj2018", ScaleHyperprior, BMSHJ2018_Q1_5)):
         with torch.device("meta"):
             model = cls(cfg)
         parts.append(f"{name} {model_macs_per_pixel(model, 1080, 1920)}")
@@ -2621,6 +2968,7 @@ def main():
     legacy = legacy_codecs(dev)
     fm_p = fm_p_codec(dev)
     hem_p, dc_p = hem_p_codec(dev), dc_p_codec(dev)
+    compressai, dcvc_p = compressai_codecs(dev), dcvc_p_codec(dev)
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
@@ -2631,6 +2979,7 @@ def main():
     phase_stages_fm(fm_p)
     phase_stages_hem(hem_p)
     phase_stages_fm(dc_p, "DC")
+    phase_stages_compressai_dcvc(compressai, dcvc_p)
     phase_train_parity(dev)
 
     # the main path, one part at a time, each with the counts set to 0
@@ -2651,7 +3000,9 @@ def main():
               ("DCVC-HEM", lambda: phase_p_frames(
                   "HEM", legacy["IntraNoAR"], hem_p, dev, launch_log)),
               ("DCVC-DC", lambda: phase_p_frames(
-                  "DC", legacy["IntraNoAR"], dc_p, dev, launch_log))]
+                  "DC", legacy["IntraNoAR"], dc_p, dev, launch_log)),
+              ("CompressAI / DCVC-2021", lambda: phase_compressai_dcvc(
+                  dev, launch_log, compressai, dcvc_p))]
     parts += [("training", lambda: phase_train(dev)),
               ("trainers -> codecs",
                lambda: phase_trained_codecs(dev, launch_log, k2_log))]
@@ -2670,6 +3021,7 @@ def main():
             ("FM family", lambda: phase_fm_family(dev, launch_log)),
             ("HEM / DC family", lambda: phase_family_hem_dc(dev,
                                                             launch_log)),
+            ("DCVC family", lambda: phase_family_dcvc(dev, launch_log)),
             ("params.v1", lambda: phase_params_v1(dmci, video["HTS"], dev,
                                                   launch_log)),
             ("image CLI", lambda: phase_image_cli(dev, launch_log)),

@@ -2,7 +2,7 @@
 dcvc_tpu/eval/family.py): encode -> one NAL stream file -> decode from
 disk -> metrics, for the pre-UF models.
 
-The port runs four of the JAX runner's models:
+The port runs five of the JAX runner's models:
   - DCVC-RT (`model="rt"`): its intra codec and P-frame codec, its NAL
     container (bitstream/legacy_container.py: the SPS carries the size
     and a 1-bit lane flag, each frame's IP NAL its qp), the qp_shift
@@ -24,15 +24,21 @@ The port runs four of the JAX runner's models:
     own bits.  HEM's P frames take the continuous q scales
     mv_q_scales[q] / y_q_scales[q] and their file carries q twice; DC's
     take the q index and the feature adaptor INDEX_MAP_DC[i % 4], their
-    file the frame's i % 4.
+    file the frame's i % 4;
+  - DCVC-2021 (`model="dcvc"`, DCVC/test_video.py:73-176): Cheng2020Codec
+    (cheng2020-anchor at CHENG2020_Q1_3, the JAX runner's init) for the
+    intra frames and DCVCCodec (init_scale 0.4) for the P frames, both
+    fixed-rate, one file per frame: the two-string intra container and the
+    four-string P container (dcvc_encode_i / _p); both codecs run their
+    masked-conv AR on the host (runtime/dcvc_codec.py HostAR).
 The estimated-bits fast mode (run_sequence_fast, the reference's
 test_helper.py:134) codes the intra frames for real and takes the P
 frames' rates from the P model's forward on rounded latents (FM: on
 INDEX_MAP_FM's adaptors; HEM: at the q scales, its x_hat the clipped DPB
-frame), frames edge-padded to a multiple of 64, bpp over the original
-pixels.  The other models (TCM, DCVC) are not ported yet (ROADMAP.md §1
-item 7) and raise; so does the fast mode for rt and dc, as in the JAX
-runner.
+frame; DCVC: DCVCNet's forward against the previous clipped recon),
+frames edge-padded to a multiple of 64, bpp over the original pixels.
+TCM is not ported yet (ROADMAP.md §1 item 7b) and raises; so does the
+fast mode for rt and dc, as in the JAX runner.
 
 All legacy models work on RGB in [0, 1].  The codecs run in float32 on
 every device, as dcvc_tpu's runner builds them (its RT codecs in f32 on
@@ -40,9 +46,9 @@ every backend, eval/family.py:157-167; the other legacy codecs default
 to f32); bfloat16 only when the caller asks for it (`dtype`,
 family_main --dtype bf16).  In float32 the RT intra trunk's
 DepthConvBlocks take the plain PyTorch block on the card too
-(layers/blocks.py kernel_path), as the reference's do; FM's, HEM's and
-DC's blocks are not K1's and they decode on the host, so their paths
-launch no kernel.
+(layers/blocks.py kernel_path), as the reference's do; FM's, HEM's,
+DC's and DCVC's blocks are not K1's and they decode on the host, so
+their paths launch no kernel.
 """
 
 import math
@@ -54,9 +60,13 @@ import torch
 
 from ..bitstream import legacy_container as lc
 from ..legacy import dcvc_hem
+from ..legacy.compressai_zoo import Cheng2020Anchor, Cheng2020Config, \
+    TINY_CHENG2020
 from ..legacy.dcvc_dc import DC_CONFIG, DMCDC, DMCDCConfig, TINY_DC_CONFIG
 from ..legacy.dcvc_fm import DMCFM, DMCFMConfig, FM_CONFIG, \
     TINY_FM_CONFIG, empty_dpb
+from ..legacy.dcvc_net import DCVC_CONFIG, DCVCConfig, DCVCNet, \
+    TINY_DCVC_CONFIG
 from ..legacy.dcvc_hem import DMCHEM, DMCHEMConfig, HEM_CONFIG, \
     TINY_HEM_CONFIG
 from ..legacy.dcvc_rt import DMCRT, DMCRTCodec, DMCRTConfig, \
@@ -64,7 +74,9 @@ from ..legacy.dcvc_rt import DMCRT, DMCRTCodec, DMCRTConfig, \
 from ..legacy.hem_intra import INTRA_NOAR_CONFIG, IntraNoAR, \
     IntraNoARConfig, TINY_INTRA_NOAR_CONFIG
 from ..legacy.rt_intra import DMCIRT, DMCIRTConfig, TINY_RT_INTRA_CONFIG
+from ..runtime.compressai_codec import Cheng2020Codec
 from ..runtime.dc_codec import DMCDCCodec
+from ..runtime.dcvc_codec import DCVCCodec
 from ..runtime.evc_codec import IntraNoARCodec
 from ..runtime.fm_codec import DMCFMCodec
 from ..runtime.hem_codec import DMCHEMCodec
@@ -72,11 +84,11 @@ from ..runtime.rt_image_codec import RTIntraCodec
 from ..utils.jax_bridge import load_into, native_config
 from ..utils.metrics import calc_psnr
 
-MODELS = ("rt", "fm", "hem", "dc")
-NOT_PORTED = ("dcvc", "tcm")
+MODELS = ("rt", "fm", "hem", "dc", "dcvc")
+NOT_PORTED = ("tcm",)
 # the JAX runner's fast mode covers fm, dcvc, tcm and hem; of these the
-# port runs fm and hem
-FAST_MODELS = ("fm", "hem")
+# port runs fm, hem and dcvc
+FAST_MODELS = ("fm", "hem", "dcvc")
 INDEX_MAP_DC = [0, 1, 0, 2]                  # DC's feature adaptors
 INDEX_MAP_FM = [0, 1, 0, 2, 0, 2, 0, 2]     # FM test_helper.py:146
 # (model file class, its default config) of each codec, by model
@@ -86,11 +98,14 @@ MODEL_FILES = {"rt": ((DMCIRT, DMCIRTConfig()), (DMCRT, DMCRTConfig())),
                "hem": ((IntraNoAR, IntraNoARConfig()),
                        (DMCHEM, DMCHEMConfig())),
                "dc": ((IntraNoAR, IntraNoARConfig()),
-                      (DMCDC, DMCDCConfig()))}
+                      (DMCDC, DMCDCConfig())),
+               "dcvc": ((Cheng2020Anchor, Cheng2020Config()),
+                        (DCVCNet, DCVCConfig()))}
 # each legacy P codec: (its class, its config, its TINY config)
 P_CODECS = {"fm": (DMCFMCodec, FM_CONFIG, TINY_FM_CONFIG),
             "hem": (DMCHEMCodec, HEM_CONFIG, TINY_HEM_CONFIG),
-            "dc": (DMCDCCodec, DC_CONFIG, TINY_DC_CONFIG)}
+            "dc": (DMCDCCodec, DC_CONFIG, TINY_DC_CONFIG),
+            "dcvc": (DCVCCodec, DCVC_CONFIG, TINY_DCVC_CONFIG)}
 
 
 def interpolate_log(min_val, max_val, num=64, decreasing=True):
@@ -153,7 +168,7 @@ class FamilyRunner:
         if model not in MODELS:
             raise ValueError(
                 f"model {model!r}: the port runs {MODELS}; "
-                + (f"{model} is not ported yet (ROADMAP.md §1 item 7)"
+                + (f"{model} is not ported yet (ROADMAP.md §1 item 7b)"
                    if model in NOT_PORTED else "unknown model"))
         self.model = model
         self.stream_dir = stream_dir
@@ -187,9 +202,15 @@ class FamilyRunner:
                 gen_p, cfg=TINY_RT_CONFIG if tiny else None, init_scale=0.4,
                 **kw)
         else:
-            self.i_codec = IntraNoARCodec.init_random(
-                gen_i, cfg=TINY_INTRA_NOAR_CONFIG if tiny
-                else INTRA_NOAR_CONFIG, init_scale=0.4, **kw)
+            if self.model == "dcvc":
+                # the JAX runner's cheng2020 at its own init (no damping)
+                self.i_codec = Cheng2020Codec.init_random(
+                    gen_i, cfg=TINY_CHENG2020 if tiny else Cheng2020Config(),
+                    **kw)
+            else:
+                self.i_codec = IntraNoARCodec.init_random(
+                    gen_i, cfg=TINY_INTRA_NOAR_CONFIG if tiny
+                    else INTRA_NOAR_CONFIG, init_scale=0.4, **kw)
             codec, cfg, tiny_cfg = P_CODECS[self.model]
             self.p_codec = codec.init_random(
                 gen_p, cfg=tiny_cfg if tiny else cfg, init_scale=0.4, **kw)
@@ -241,12 +262,13 @@ class FamilyRunner:
     def _is_intra(i, gop):
         return i % gop == 0 if gop > 0 else i == 0
 
-    # ------------------------------------------------------ DCVC-HEM, DC
+    # ------------------------------------------------ DCVC-HEM, DC, DCVC
 
     def run_sequence_files(self, frames_rgb, rate_idx, gop, seq_name="seq"):
-        """DCVC-HEM / DCVC-DC end-to-end (dcvc_tpu's run_sequence for hem
-        and dc): each frame into its own container file, decoded back from
-        disk, the decode held bit-exact against the encode."""
+        """DCVC-HEM / DCVC-DC / DCVC end-to-end (dcvc_tpu's run_sequence
+        for hem, dc and dcvc): each frame into its own container file,
+        decoded back from disk, the decode held bit-exact against the
+        encode."""
         h, w = frames_rgb[0].shape[1:]
         q = self._q_index(rate_idx)
         frames = self._frames01(frames_rgb)
@@ -275,6 +297,8 @@ class FamilyRunner:
         return result
 
     def _encode_file(self, i, x, q, h, w, path, is_i):
+        if self.model == "dcvc":
+            return self._encode_file_dcvc(x, h, w, path, is_i)
         if is_i:
             res = self.i_codec.compress(x, float(self.i_q_scales[q]), h, w)
             if self.model == "hem":
@@ -292,9 +316,30 @@ class FamilyRunner:
             lc.dc_encode_p(res["bit_stream"], False, q, i % 4, path)
         return _numpy(res["x_hat"])
 
+    def _encode_file_dcvc(self, x, h, w, path, is_i):
+        """DCVC's fixed-rate codecs: the two-string intra container, the
+        four-string P container."""
+        if is_i:
+            res = self.i_codec.compress(x, h, w)
+            lc.dcvc_encode_i(h, w, res["y_string"], res["z_string"], path)
+            self.p_codec.set_ref_frame(res["x_hat"], h, w)
+        else:
+            res = self.p_codec.compress(x, h, w)
+            lc.dcvc_encode_p(h, w, res["mv_y_string"], res["mv_z_string"],
+                             res["y_string"], res["z_string"], path)
+        return _numpy(res["x_hat"])
+
     def _decode_file(self, i, h, w, path, is_i):
         """One frame from its file; an intra frame reseeds the DPB."""
-        if is_i:
+        if self.model == "dcvc":
+            if is_i:
+                hh, ww, y_s, z_s = lc.dcvc_decode_i(path)
+                x_hat = self.i_codec.decompress(y_s, z_s, hh, ww)["x_hat"]
+                self.p_codec.set_ref_frame(x_hat, h, w)
+            else:
+                hh, ww, *strings = lc.dcvc_decode_p(path)
+                x_hat = self.p_codec.decompress(*strings, hh, ww)["x_hat"]
+        elif is_i:
             if self.model == "hem":
                 hh, ww, q, stream = lc.hem_decode_i(path)
             else:
@@ -405,7 +450,9 @@ class FamilyRunner:
         frames through the real intra codec, P frames' rates from the P
         model's forward on rounded latents (FM: DMCFM.forward on
         INDEX_MAP_FM's adaptors; HEM: DMCHEM.forward at the q scales, its
-        x_hat the clipped DPB frame).  Frames are edge-padded to a
+        x_hat the clipped DPB frame; DCVC: DCVCNet.forward against the
+        previous reconstruction, its x_hat the clipped recon_image).
+        Frames are edge-padded to a
         multiple of 64 (the reference's replicate pad), bpp is over the
         original pixels and the PSNR over the cropped reconstruction."""
         if self.model not in FAST_MODELS:
@@ -427,7 +474,12 @@ class FamilyRunner:
         for i, x in enumerate(frames):
             is_i = self._is_intra(i, gop)
             result["frame_type"].append(0 if is_i else 1)
-            if is_i:
+            if is_i and self.model == "dcvc":
+                res = self.i_codec.compress(x, hp, wp)
+                dpb = x_hat = res["x_hat"]
+                bpp = (len(res["y_string"]) + len(res["z_string"])) * 8 \
+                    / (h * w)
+            elif is_i:
                 res = self.i_codec.compress(x, float(self.i_q_scales[q]),
                                             hp, wp)
                 x_hat = res["x_hat"]
@@ -436,7 +488,10 @@ class FamilyRunner:
                 bpp = len(res["bit_stream"]) * 8 / (h * w)
             else:
                 x_t = torch.from_numpy(x).to(self.device)
-                if self.model == "hem":
+                if self.model == "dcvc":
+                    res = model(dpb, x_t)
+                    dpb = x_hat = torch.clamp(res["recon_image"], 0.0, 1.0)
+                elif self.model == "hem":
                     scales = [torch.tensor(float(v[q]), device=self.device)
                               for v in (self.mv_q_scales, self.y_q_scales)]
                     res, dpb = model(x_t, dpb, *scales)

@@ -9,9 +9,9 @@ a model end to end over its own stream container, decoded from disk.
 The arguments and the result JSON are test_video_family.py's, with
 `--device` (default cuda) and `--dtype` (default f32, the reference's
 type on every device; bf16 on request).  The port runs `--model rt`,
-`fm`, `hem` and `dc` (eval/family.py); the other models raise.  `--fast`
-is the estimated-bits mode (FamilyRunner.run_sequence_fast), for fm and
-hem; it raises for rt and dc, as the JAX runner does.  The model files are dcvc_tpu.params.v1
+`fm`, `hem`, `dc` and `dcvc` (eval/family.py); tcm raises.  `--fast` is
+the estimated-bits mode (FamilyRunner.run_sequence_fast), for fm, hem and
+dcvc; it raises for rt and dc, as the JAX runner does.  The model files are dcvc_tpu.params.v1
 files or reference .pth.tar checkpoints.  Sources are PNG folders (read
 with utils/png.py: the machine with the card has no PIL) or YUV420 files,
 converted to RGB with the BT.709 transforms of core/color.py as the JAX
@@ -49,7 +49,7 @@ def parse_args(argv=None):
                    help="tiny model configs (smoke/CI)")
     p.add_argument("--fast", action="store_true",
                    help="estimated-bits mode without entropy coding (fm, "
-                        "hem; reference test_helper.py:134)")
+                        "hem, dcvc; reference test_helper.py:134)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model_path_i", default=None,
                    help="I-codec model file (dcvc_tpu.params.v1 or "

@@ -29,8 +29,18 @@ card at the published config, float32 on the CPU or under --tiny.
 seeded random weights damped by init_scale 0.4, or --model_path's (a
 params.v1 file, its header's config winning; for EVC also a reference
 .pth.tar at the published config).  The JAX codecs have no device
-decode, so --device_ec 1 raises with either.  cheng2020 and bmshj2018
-are not ported yet (ROADMAP.md §1 item 7) and raise.
+decode, so --device_ec 1 raises with either.
+
+`--i_frame_model cheng2020 | bmshj2018` (runtime/compressai_codec.py)
+are fixed-rate codecs of RGB in [0, 1], float32 on every device, as
+test_image.py:86-95 builds them: CHENG2020_Q1_3 / BMSHJ2018_Q1_5
+(TINY_CHENG2020 / TINY_HYPERPRIOR under --tiny), seeded random weights
+at the JAX codecs' own init, or --model_path's (a params.v1 file, its
+header's config winning, or a reference CompressAI .pth.tar).  Each image
+goes into the two-string container (legacy_container.dcvc_encode_i, as
+test_image.py:134-142 writes it); cheng2020's masked-conv AR runs on the
+host.  --device_ec 1 raises with either (no device decode in the JAX
+package).
 """
 
 import argparse
@@ -43,10 +53,14 @@ import time
 import numpy as np
 import torch
 
+from ..bitstream.legacy_container import dcvc_decode_i, dcvc_encode_i
 from ..core.color import rgb2ycbcr_np, ycbcr2rgb
+from ..legacy.compressai_zoo import BMSHJ2018_Q1_5, CHENG2020_Q1_3, \
+    TINY_CHENG2020, TINY_HYPERPRIOR
 from ..legacy.evc import EVC_CONFIG, TINY_EVC_CONFIG
 from ..legacy.hem_intra import INTRA_NOAR_CONFIG, TINY_INTRA_NOAR_CONFIG
 from ..models.dmci import DMCI, DMCIConfig, TINY_CONFIG
+from ..runtime.compressai_codec import Cheng2020Codec, HyperpriorCodec
 from ..runtime.evc_codec import EVCCodec, IntraNoARCodec
 from ..runtime.image_codec import DMCICodec
 from ..utils.jax_bridge import is_native, load_into, native_config
@@ -58,13 +72,18 @@ from .video_main import check_device, str2bool
 LEGACY_INTRA = {"evc": (EVCCodec, EVC_CONFIG, TINY_EVC_CONFIG),
                 "intra_noar": (IntraNoARCodec, INTRA_NOAR_CONFIG,
                                TINY_INTRA_NOAR_CONFIG)}
-NOT_PORTED = ("cheng2020", "bmshj2018")
+# the fixed-rate CompressAI codecs, likewise
+COMPRESSAI = {"cheng2020": (Cheng2020Codec, CHENG2020_Q1_3, TINY_CHENG2020),
+              "bmshj2018": (HyperpriorCodec, BMSHJ2018_Q1_5,
+                            TINY_HYPERPRIOR)}
+NOT_PORTED = ()
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--i_frame_model", default="dmci",
-                   choices=("dmci",) + tuple(LEGACY_INTRA) + NOT_PORTED)
+                   choices=("dmci",) + tuple(LEGACY_INTRA)
+                   + tuple(COMPRESSAI))
     p.add_argument("--image_path", required=True,
                    help="folder of .png images")
     p.add_argument("--qp", type=int, default=32)
@@ -86,35 +105,37 @@ def parse_args(argv=None):
 
 
 def build_legacy_codec(args, device):
-    """The EVCCodec / IntraNoARCodec of the arguments: float32 (as
-    test_image.py builds them), seeded random weights at init_scale 0.4
-    or --model_path's."""
+    """The EVCCodec / IntraNoARCodec / Cheng2020Codec / HyperpriorCodec of
+    the arguments: float32 (as test_image.py builds them), seeded random
+    weights (EVC, IntraNoAR: at init_scale 0.4) or --model_path's."""
     if args.device_ec:
         raise ValueError(f"--device_ec: the {args.i_frame_model} codec has "
                          f"no device entropy decode (the JAX package's has "
                          f"none); decode through the host coder")
-    cls, published, tiny = LEGACY_INTRA[args.i_frame_model]
+    compressai = args.i_frame_model in COMPRESSAI
+    cls, published, tiny = (COMPRESSAI if compressai
+                            else LEGACY_INTRA)[args.i_frame_model]
     default = tiny if args.tiny else published
     if args.model_path:
-        if not is_native(args.model_path) and cls is not EVCCodec:
+        if not is_native(args.model_path) and cls is IntraNoARCodec:
             raise ValueError(f"{args.model_path}: IntraNoAR reads "
                              f"dcvc_tpu.params.v1 files only (the JAX "
                              f"package has no reference key map for it)")
         cfg = native_config(args.model_path, cls.CONFIG_CLS, default)
         model = load_into(cls.MODEL_CLS(cfg), args.model_path)
         return cls(model.state_dict(), cfg=cfg, device=device)
+    # the JAX codecs' own init: EVC / IntraNoAR damped by 0.4, the
+    # CompressAI codecs undamped
+    damping = {} if compressai else {"init_scale": 0.4}
     return cls.init_random(torch.Generator().manual_seed(0), cfg=default,
-                           init_scale=0.4, device=device)
+                           device=device, **damping)
 
 
 def build_codec(args):
     """The codec of --i_frame_model on args.device."""
-    if args.i_frame_model in NOT_PORTED:
-        raise NotImplementedError(
-            f"--i_frame_model {args.i_frame_model}: the CompressAI codecs "
-            f"are not ported yet (ROADMAP.md §1 item 7)")
     device = check_device(args.device)
-    if args.i_frame_model in LEGACY_INTRA:
+    if args.i_frame_model in LEGACY_INTRA or \
+            args.i_frame_model in COMPRESSAI:
         return build_legacy_codec(args, device)
     kw = {"device": device, "device_ec": args.device_ec}
     default = TINY_CONFIG if args.tiny else DMCIConfig()
@@ -172,6 +193,20 @@ def code_one_legacy(codec, q_scale, rgb01, bin_path):
     return out["x_hat"][0].cpu().numpy(), len(res["bit_stream"]), bitexact
 
 
+def code_one_compressai(codec, rgb01, bin_path):
+    """code_one for the CompressAI codecs: RGB in [0, 1], the two strings
+    in the container file, decoded from it.  Returns (decoder RGB, the
+    file's bytes, bit-exact)."""
+    h, w = rgb01.shape[:2]
+    res = codec.compress(rgb01[None].astype(np.float32), h, w)
+    dcvc_encode_i(h, w, res["y_string"], res["z_string"], bin_path)
+    hh, ww, y_s, z_s = dcvc_decode_i(bin_path)
+    out = codec.decompress(y_s, z_s, hh, ww)
+    bitexact = bool(torch.equal(out["x_hat"], res["x_hat"]))
+    return (out["x_hat"][0].cpu().numpy(), os.path.getsize(bin_path),
+            bitexact)
+
+
 def main(argv=None):
     """Codes every PNG of --image_path; writes the JSON; returns the exit
     code (1 if an image is not bit-exact, 2 if there is no image)."""
@@ -196,6 +231,9 @@ def main(argv=None):
         if args.i_frame_model in LEGACY_INTRA:
             x_dec, n_bytes, bitexact = code_one_legacy(codec, args.q_scale,
                                                        rgb01, bin_path)
+        elif args.i_frame_model in COMPRESSAI:
+            x_dec, n_bytes, bitexact = code_one_compressai(codec, rgb01,
+                                                           bin_path)
         else:
             x_dec, n_bytes, bitexact = code_one(codec, args.qp, rgb01,
                                                 bin_path)

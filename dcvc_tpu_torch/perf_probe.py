@@ -54,7 +54,10 @@ lifted_fm, lifted_hem, lifted_dc): a warm 1080p P frame's encode and
 decode, the DPB full, printing `profile`'s line per call (run_p_frame).
 Their blocks are not K1's and they decode on the host, so they launch no
 kernel of the port (fm_stage_launches, hem_stage_launches and
-dc_stage_launches derive that from the models on the meta device).
+dc_stage_launches derive that from the models on the meta device); nor
+do the CompressAI intra codecs and DCVC-2021 (compressai_stage_launches,
+dcvc_stage_launches), whose weights chip_smoke.py lifts with
+lifted_compressai / lifted_dcvc.
 
 `train` builds each full-width training cell of TRAIN_CELLS (DMCI, LD,
 HTS, HTL at their published widths in float32, TF32 off), takes one warm
@@ -553,6 +556,135 @@ def hem_stage_launches(cfg, h, w):
             with log.call(f"{which} forward"):
                 m(x, dpb, qs, qs)
     return dict(log.calls)
+
+
+def dcvc_stage_launches(cfg, h, w):
+    """The K1 launches of each stage of a DCVC-2021 P frame (DCVCCodec,
+    float32) on an (h, w) frame, from the model itself: its stage methods
+    on the meta device in the codec's order (frames padded to 64; the AR
+    runs on the host between them), and the eval forward of the family
+    runner's estimated-bits mode.  DCVC's blocks are GDN / ReLU /
+    LeakyReLU convs, not K1's, and it decodes on the host, so every
+    Counter is empty.  Returns {stage: Counter of Launch}."""
+    from .legacy.dcvc_net import DCVCNet
+    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+    yh, yw = ph // 16, pw // 16
+    log = LaunchLog()
+
+    def stage(name, fn, *args):
+        with log.call(name):
+            return fn(*args)
+    with torch.device("meta"), meta_launches(), log:
+        m = DCVCNet(cfg)
+        x = torch.empty(1, ph, pw, 3)
+        _, mv_z = stage("mv_analysis", m.mv_analysis, x, x)
+        stage("mv_prior", m.mv_prior, mv_z)
+        context = stage("mv_synthesis", m.mv_synthesis,
+                        torch.empty(1, yh, yw, cfg.ch_mv), x)[0]
+        _, z = stage("ctx_analysis", m.ctx_analysis, x, context)
+        stage("ctx_prior", m.ctx_prior, z)
+        stage("synthesis", m.synthesis, torch.empty(1, yh, yw, cfg.ch_m),
+              context)
+        stage("forward", m, x, x)
+    return dict(log.calls)
+
+
+def compressai_stage_launches(model_cls, cfg, h, w):
+    """The K1 launches of each stage of a CompressAI intra codec
+    (ScaleHyperprior or Cheng2020Anchor, float32) on an (h, w) frame, from
+    the model itself on the meta device: g_a, h_a, h_s, g_s (cheng2020's
+    AR runs on the host), and the estimation forward.  Their blocks are
+    GDN / residual convs, not K1's, and they decode on the host, so every
+    Counter is empty.  Returns {stage: Counter of Launch}."""
+    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+    log = LaunchLog()
+
+    def stage(name, fn, *args):
+        with log.call(name):
+            return fn(*args)
+    with torch.device("meta"), meta_launches(), log:
+        m = model_cls(cfg)
+        x = torch.empty(1, ph, pw, 3)
+        y = stage("g_a", m.g_a, x)
+        z = stage("h_a", m.h_a, y)
+        stage("h_s", m.h_s, z)
+        stage("g_s", m.g_s, y)
+        stage("forward", m, x)
+    return dict(log.calls)
+
+
+# The DCVC-2021 P model's seeded random weights on the card: at the JAX
+# runner's init_scale 0.4 the GDN ladders leave mv_y ~1e-3 and y ~1e-2,
+# so every symbol codes as 0.  The last convs of the mv and contextual
+# encoders (mv_gain, y_gain) and of the two hyper encoders (mv_z_gain,
+# z_gain) are lifted, the scale halves of the entropy-parameter chains'
+# last biases by scale_bias, and the reconstruction's last conv
+# (recon_gain, recon_bias) so that x_hat spreads over [0, 1].
+DCVC_LIFT = {"init_scale": LEGACY_INIT_SCALE, "mv_gain": 8000.0,
+             "y_gain": 600.0, "mv_z_gain": 300.0, "z_gain": 100.0,
+             "scale_bias": 2.0, "recon_gain": 10.0, "recon_bias": 0.5}
+
+
+def lifted_dcvc(cfg, seed, lift=None):
+    """A float32 DCVCNet (on the CPU) with seeded random weights
+    (reset_parameters, as DCVCCodec.init_random draws them), lifted as
+    `lift` (DCVC_LIFT when None) says."""
+    from .legacy.dcvc_net import DCVCNet
+    lift = DCVC_LIFT if lift is None else lift
+    m = DCVCNet(cfg)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        m.damp_(lift["init_scale"])
+        m.mv_encoder.layers_6.weight.mul_(lift["mv_gain"])
+        m.contextual_encoder.layers_8.weight.mul_(lift["y_gain"])
+        m.mv_prior_encoder.layers_4.weight.mul_(lift["mv_z_gain"])
+        m.prior_encoder.layers_4.weight.mul_(lift["z_gain"])
+        for ep, ch in ((m.entropy_parameters, cfg.ch_m),
+                       (m.entropy_parameters_mv, cfg.ch_mv)):
+            ep.layers_4.bias[ch:] += lift["scale_bias"]   # (means, scales)
+        recon = m.contextual_decoder_part2.layers_3
+        recon.weight.mul_(lift["recon_gain"])
+        recon.bias.add_(lift["recon_bias"])
+    return m
+
+
+# The CompressAI intra models' seeded random weights (the JAX codecs'
+# init_scale 1.0): hyperprior's y and z are ~0.3 / ~0.1 and its relu
+# scales 0, cheng2020's z ~0.1, so y (y_gain) and z (z_gain, the hyper
+# encoder's last conv) are lifted and the scales by scale_bias; the
+# reconstructions are centred at recon_bias (hyperprior's is ~0.03,
+# cheng2020's reaches +-40 at TINY, so its last subpel conv is damped by
+# recon_gain).
+COMPRESSAI_LIFT = {
+    "bmshj2018": {"y_gain": 4.0, "z_gain": 20.0, "scale_bias": 1.0,
+                  "recon_gain": 1.0, "recon_bias": 0.5},
+    "cheng2020": {"y_gain": 2.0, "z_gain": 20.0, "scale_bias": 1.0,
+                  "recon_gain": 0.02, "recon_bias": 0.5}}
+
+
+def lifted_compressai(name, cfg, seed, lift=None):
+    """A float32 ScaleHyperprior (`name` bmshj2018) or Cheng2020Anchor
+    (cheng2020) on the CPU with seeded random weights (reset_parameters,
+    as the codecs' init_random draws them), lifted as `lift`
+    (COMPRESSAI_LIFT[name] when None) says."""
+    from .legacy.compressai_zoo import Cheng2020Anchor, ScaleHyperprior
+    lift = COMPRESSAI_LIFT[name] if lift is None else lift
+    cheng = name == "cheng2020"
+    m = (Cheng2020Anchor if cheng else ScaleHyperprior)(cfg)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        m.g_a_layers_6.weight.mul_(lift["y_gain"])
+        (m.h_a_layers_4 if cheng else m.h_a_layers_2).weight.mul_(
+            lift["z_gain"])
+        if cheng:                   # (scales, means) halves
+            m.ep_layers_2.bias[:cfg.N] += lift["scale_bias"]
+            recon = m.g_s_layers_7.conv
+        else:
+            m.h_s_layers_2.bias.add_(lift["scale_bias"])
+            recon = m.g_s_layers_6
+        recon.weight.mul_(lift["recon_gain"])
+        recon.bias.add_(lift["recon_bias"])
+    return m
 
 
 class K2Call(NamedTuple):
@@ -1198,6 +1330,7 @@ FM_SEED = 30
 FM_Q_INDEX = 51
 HEM_SEED = 40
 DC_SEED = 50
+DCVC_SEED = 60
 
 
 def fm_p_codec(dev):
@@ -1225,6 +1358,15 @@ def dc_p_codec(dev):
     from .runtime.dc_codec import DMCDCCodec
     return DMCDCCodec(lifted_dc(DC_CONFIG, DC_SEED).state_dict(),
                       cfg=DC_CONFIG, device=dev)
+
+
+def dcvc_p_codec(dev):
+    """DCVCCodec at DCVC_CONFIG on the card, float32, with lifted_dcvc's
+    weights (chip_smoke.py's)."""
+    from .legacy.dcvc_net import DCVC_CONFIG
+    from .runtime.dcvc_codec import DCVCCodec
+    return DCVCCodec(lifted_dcvc(DCVC_CONFIG, DCVC_SEED).state_dict(),
+                     cfg=DCVC_CONFIG, device=dev)
 
 
 def hem_q_scales(q_index):

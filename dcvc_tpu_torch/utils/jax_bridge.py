@@ -34,7 +34,14 @@ aliases fm_, dc_ and hem_params_from_jax / _to_jax: the scopes joined
 by '.').  Their leaves convert by name: a conv
 `kernel` as above, a Dense `kernel` (I, O) to nn.Linear's (O, I), and
 q_basic (1, 1, 1, N), FM's q anchors (2, 1, 1, 1) and its grouped fusion
-kernel (g, I, O) keep their shapes.
+kernel (g, I, O) keep their shapes.  DCVC-2021's and the CompressAI
+codecs' modules mirror the flax tree too (dcvc_params_from_jax / _to_jax,
+compressai_params_from_jax / _to_jax), with one more leaf kind: a flax
+ConvTranspose kernel (kh, kw, I, O) is ConvTranspose2d's weight (I, O,
+kh, kw) flipped in space, where the reference key map tags the leaf
+"deconv"; a CompressAI codec's file is the JAX codec's {"params",
+"eb_params"} tree, its EntropyBottleneck at `entropy_bottleneck.*` in the
+port's state_dict.
 """
 
 import numpy as np
@@ -43,7 +50,8 @@ import torch
 from .checkpoint import PARAMS_V1, checkpoint_format, config_from_header, \
     load_header, load_params, load_reference_into, save_params
 from .keys import _LD_SEQ_TOPS, _STACKED_SUB, _stacked_leaf, \
-    key_fn_dmc_ht, key_fn_dmc_ld, key_fn_dmci, key_fn_evc, key_fn_rt
+    key_fn_cheng2020, key_fn_dcvc, key_fn_dmc_ht, key_fn_dmc_ld, \
+    key_fn_dmci, key_fn_evc, key_fn_hyperprior, key_fn_rt
 
 
 def _leaves(tree, path=()):
@@ -468,10 +476,88 @@ def evc_params_to_jax(state):
     return _nest(items)
 
 
+# ------------------------------- DCVC-2021 and the CompressAI intra codecs
+# Their modules mirror the flax tree too (legacy/dcvc_net.py,
+# legacy/compressai_zoo.py), but a flax ConvTranspose kernel (kh, kw, I, O)
+# is torch ConvTranspose2d's weight (I, O, kh, kw) flipped in space, as
+# the JAX importer converts it: a leaf is a transposed conv where the
+# reference key map tags it ("deconv", key).
+
+def _is_deconv(key_fn, path):
+    key = key_fn(path)
+    return isinstance(key, tuple) and key[0] == "deconv"
+
+
+def _mirror_from_jax(flax_params, key_fn):
+    state = {}
+    for path, leaf in _leaves(flax_params):
+        if path[-1] == "kernel" and _is_deconv(key_fn, path):
+            arr = _f32(leaf)[::-1, ::-1].transpose(2, 3, 0, 1)
+            t = torch.from_numpy(arr.copy())
+        else:
+            t = _legacy_tensor(path, leaf)
+        state[_mirror_key(path)] = t
+    return state
+
+
+def _mirror_to_jax(state, key_fn):
+    items = {}
+    for key, t in state.items():
+        segs = key.split(".")
+        path = tuple(segs[:-1]) + ({"weight": "kernel"}.get(segs[-1],
+                                                            segs[-1]),)
+        if path[-1] == "kernel" and _is_deconv(key_fn, path):
+            items[path] = t.detach().cpu().permute(2, 3, 0, 1).flip(
+                0, 1).contiguous()
+        else:
+            items[path] = _legacy_leaf(key, t)
+    return _nest(items)
+
+
+def dcvc_params_from_jax(flax_params):
+    """flax DCVCNet params -> the state_dict of
+    dcvc_tpu_torch.legacy.dcvc_net.DCVCNet (the masked convs' kernels as
+    conv weights, the deconvs' flipped into ConvTranspose2d's layout)."""
+    return _mirror_from_jax(flax_params, key_fn_dcvc)
+
+
+def dcvc_params_to_jax(state):
+    """The state_dict of a port DCVCNet -> the flax DCVCNet params, the
+    inverse of dcvc_params_from_jax."""
+    return _mirror_to_jax(state, key_fn_dcvc)
+
+
+_EB = "entropy_bottleneck."
+
+
+def compressai_params_from_jax(tree, key_fn):
+    """A JAX CompressAI codec's {"params", "eb_params"} tree -> the
+    state_dict of the port's ScaleHyperprior (key_fn_hyperprior) or
+    Cheng2020Anchor (key_fn_cheng2020): the model's leaves mirrored, the
+    eb_params under `entropy_bottleneck.`."""
+    state = _mirror_from_jax(tree["params"], key_fn)
+    state.update({_EB + k: torch.from_numpy(_f32(v).copy())
+                  for k, v in tree["eb_params"].items()})
+    return state
+
+
+def compressai_params_to_jax(state, key_fn):
+    """The inverse of compressai_params_from_jax: {"params": the flax
+    model params, "eb_params": the EntropyBottleneck's}, the layout of the
+    JAX package's params.v1 files of these codecs."""
+    eb = {k[len(_EB):]: t.detach().cpu().contiguous()
+          for k, t in state.items() if k.startswith(_EB)}
+    return {"params": _mirror_to_jax(
+        {k: t for k, t in state.items() if not k.startswith(_EB)}, key_fn),
+        "eb_params": _nest({(k,): t for k, t in eb.items()})}
+
+
 def _converters(model):
     """(flax tree -> state_dict, state_dict -> flax tree) of a port
     model."""
+    from ..legacy.compressai_zoo import Cheng2020Anchor, ScaleHyperprior
     from ..legacy.dcvc_dc import DMCDC
+    from ..legacy.dcvc_net import DCVCNet
     from ..legacy.dcvc_fm import DMCFM
     from ..legacy.dcvc_hem import DMCHEM
     from ..legacy.dcvc_rt import DMCRT
@@ -495,6 +581,13 @@ def _converters(model):
         return dc_params_from_jax, dc_params_to_jax
     if isinstance(model, DMCHEM):
         return hem_params_from_jax, hem_params_to_jax
+    if isinstance(model, DCVCNet):
+        return dcvc_params_from_jax, dcvc_params_to_jax
+    if isinstance(model, (ScaleHyperprior, Cheng2020Anchor)):
+        key_fn = key_fn_hyperprior if isinstance(model, ScaleHyperprior) \
+            else key_fn_cheng2020
+        return (lambda tree: compressai_params_from_jax(tree, key_fn),
+                lambda state: compressai_params_to_jax(state, key_fn))
     if isinstance(model, DMCLD):
         return dmc_ld_params_from_jax, dmc_ld_params_to_jax
     if isinstance(model, DMCHT):
@@ -506,7 +599,8 @@ def _converters(model):
 
 def load_native_into(model, path):
     """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT, DMCRT, EVC,
-    IntraNoAR, DMCFM, DMCDC or DMCHEM at the file's config: config_from_header of its
+    IntraNoAR, DMCFM, DMCDC, DMCHEM, DCVCNet, ScaleHyperprior or
+    Cheng2020Anchor at the file's config: config_from_header of its
     header) from the dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter
     the file lacks or one the model does not use; load_state_dict raises on
     a shape that differs.  Returns the model."""

@@ -7,13 +7,19 @@ utils/jax_bridge.py inverts the importer with these maps (key_fn_evc: the
 port's EVC module names, legacy/evc.py; key_fn_fm, key_fn_dc and
 key_fn_hem: the reference names of DCVC-FM's, DCVC-DC's and DCVC-HEM's
 keys, which their models' from_reference reads, legacy/dcvc_fm.py
-state_from_reference).  They are verbatim copies (pinned by
-tests/test_torch_core.py and, for DCVC-FM's, DC's and HEM's,
-tests/test_torch_fm_weights.py and tests/test_torch_hem_dc_weights.py),
+state_from_reference; key_fn_dcvc, key_fn_hyperprior, key_fn_cheng2020
+and import_entropy_bottleneck: DCVC-2021's and the CompressAI codecs',
+legacy/dcvc_net.py and legacy/compressai_zoo.py).  They are verbatim
+copies (pinned by tests/test_torch_core.py and, for DCVC-FM's, DC's and
+HEM's, tests/test_torch_fm_weights.py and
+tests/test_torch_hem_dc_weights.py, for the last four
+tests/test_torch_compressai.py and tests/test_torch_dcvc_net.py),
 because the port imports nothing of the JAX package.
 """
 
 import re
+
+import numpy as np
 
 _DCB_MAP = {"dc_in": "dc.0", "dc_dw": "dc.2", "dc_out": "dc.3",
             "ffn_in": "ffn.0", "ffn_out": "ffn.2", "adaptor": "adaptor"}
@@ -534,3 +540,161 @@ def key_fn_hem(path):
         i += 1
     key = ".".join(out + [leaf])
     return (tag, key) if tag else key
+
+
+# ------------------------------------------------------------- DCVC (2021)
+
+_DCVC_TOP = {
+    "mv_encoder": "mvEncoder", "mv_decoder_part1": "mvDecoder_part1",
+    "mv_decoder_part2": "mvDecoder_part2",
+    "contextual_encoder": "contextualEncoder",
+    "contextual_decoder_part1": "contextualDecoder_part1",
+    "contextual_decoder_part2": "contextualDecoder_part2",
+    "prior_encoder": "priorEncoder", "prior_decoder": "priorDecoder",
+    "mv_prior_encoder": "mvpriorEncoder",
+    "mv_prior_decoder": "mvpriorDecoder",
+    "temporal_prior_encoder": "temporalPriorEncoder",
+    "optic_flow": "opticFlow",
+}
+
+
+# scopes whose conv entries are all torch ConvTranspose2d
+_DCVC_DECONV = {"mv_decoder_part1", "prior_decoder", "mv_prior_decoder"}
+
+
+def key_fn_dcvc(path):
+    """DCVC-2021 checkpoint map (DCVC-family/DCVC/src/models/
+    DCVC_net.py:22-181 module tree; flax Sequential list positions match
+    the torch Sequential indices by construction)."""
+    segs = list(path)
+    leaf = {"kernel": "weight"}.get(segs[-1], segs[-1])
+    top = segs[0]
+    if top in ("bit_estimator_z", "bit_estimator_z_mv"):
+        # torch BitEstimator: f1..f4 Bitparm rows (video_net.py);
+        # ours stacks the layer axis last: a (1,C,3), b/h (1,C,4)
+        name = "bitEstimator_z_mv" if top.endswith("_mv") \
+            else "bitEstimator_z"
+        n = 3 if segs[-1] == "a" else 4
+        return ("stack_last", [f"{name}.f{i + 1}.{segs[-1]}"
+                               for i in range(n)])
+    out = [_DCVC_TOP.get(top, top)]
+    deconv = False
+    for i, s in enumerate(segs[1:-1]):
+        is_last = i == len(segs) - 3
+        m = re.fullmatch(r"layers_(\d+)", s)
+        if m:
+            out.append(m.group(1))
+            if top in _DCVC_DECONV:
+                deconv = True
+            continue
+        m = re.fullmatch(r"moduleBasic_(\d+)", s)
+        if m:
+            out.append(f"moduleBasic.{m.group(1)}")
+            continue
+        if s == "conv" and is_last:          # SubpelConv3x3 inner conv
+            out.append("0")
+            continue
+        if top in ("contextual_decoder_part1", "contextual_encoder") \
+                and s in ("conv1", "conv2"):
+            # ResBlockLRelu: torch ResBlock_LeakyReLU_0_Point_1's
+            # Sequential 'conv' indices 0 / 2 (DCVC_net video_net.py)
+            out.append("conv.0" if s == "conv1" else "conv.2")
+            continue
+        out.append(s)
+    key = ".".join(out + [leaf])
+    return ("deconv", key) if deconv and leaf == "weight" else key
+
+
+# ---------------------------------------------------------------- CompressAI
+# cheng2020-anchor / bmshj2018-hyperprior (the DCVC / TCM I-frame models);
+# the torch modules are nn.Sequentials whose indices skip activation slots
+
+def _seq_key(scope, flax_idx, torch_indices, sub, leaf, deconv_at=()):
+    ti = torch_indices[flax_idx]
+    parts = [f"{scope}.{ti}"] + sub
+    key = ".".join(parts + [leaf])
+    if flax_idx in deconv_at and leaf == "weight":
+        return ("deconv", key)
+    return key
+
+
+def _compressai_sub(sub):
+    """Residual-block / subpel internals -> torch child names."""
+    out = []
+    i = 0
+    while i < len(sub):
+        s = sub[i]
+        nxt = sub[i + 1] if i + 1 < len(sub) else None
+        if s in ("subpel_conv", "upsample") and nxt == "conv":
+            out.append(f"{s}.0")      # subpel_conv3x3 Sequential(conv, PS)
+            i += 2
+            continue
+        out.append(s)
+        i += 1
+    return out
+
+
+# flax list slots that are bare SubpelConv3x3 modules: their inner conv
+# is torch Sequential index 0 (subpel_conv3x3, layers.py:56-60)
+_CHENG_SUBPEL_SLOTS = {("h_s", 1), ("h_s", 3), ("g_s", 7)}
+
+
+def key_fn_hyperprior(path):
+    """bmshj2018-hyperprior (priors.py:200-254): g_a/g_s 1:1 Sequential
+    indices (GDN between convs counts), h_a/h_s skip ReLU slots."""
+    segs = list(path)
+    leaf = {"kernel": "weight"}.get(segs[-1], segs[-1])
+    m = re.fullmatch(r"(g_a|g_s|h_a|h_s)_layers_(\d+)", segs[0])
+    assert m, f"unmapped path {path}"
+    scope, idx = m.group(1), int(m.group(2))
+    sub = _compressai_sub(segs[1:-1])
+    if scope == "g_a":
+        return _seq_key("g_a", idx, list(range(7)), sub, leaf)
+    if scope == "g_s":
+        return _seq_key("g_s", idx, list(range(7)), sub, leaf,
+                        deconv_at=(0, 2, 4, 6))
+    if scope == "h_a":
+        return _seq_key("h_a", idx, [0, 2, 4], sub, leaf)
+    return _seq_key("h_s", idx, [0, 2, 4], sub, leaf, deconv_at=(0, 1))
+
+
+def key_fn_cheng2020(path):
+    """cheng2020-anchor (waseda.py:28-95)."""
+    segs = list(path)
+    leaf = {"kernel": "weight"}.get(segs[-1], segs[-1])
+    if segs[0] == "context_prediction_kernel":
+        return "context_prediction.weight"
+    if segs[0] == "context_prediction_bias":
+        return "context_prediction.bias"
+    m = re.fullmatch(r"ep_layers_(\d+)", segs[0])
+    if m:
+        return f"entropy_parameters.{int(m.group(1)) * 2}.{leaf}"
+    m = re.fullmatch(r"(g_a|g_s|h_a|h_s)_layers_(\d+)", segs[0])
+    assert m, f"unmapped path {path}"
+    scope, idx = m.group(1), int(m.group(2))
+    sub = _compressai_sub(segs[1:-1])
+    if (scope, idx) in _CHENG_SUBPEL_SLOTS and sub == ["conv"]:
+        sub = ["0"]
+    if scope in ("g_a", "g_s"):
+        return _seq_key(scope, idx, list(range(8)), sub, leaf)
+    if scope == "h_a":
+        return _seq_key("h_a", idx, [0, 2, 4, 6, 8], sub, leaf)
+    return _seq_key("h_s", idx, [0, 2, 4, 6, 8], sub, leaf)
+
+
+def import_entropy_bottleneck(state_dict, prefix="entropy_bottleneck",
+                              n_filters=4):
+    """Torch EntropyBottleneck params -> the eb_params dict used by
+    entropy/compressai.py (direct copies; entropy_models.py:238-264)."""
+    p = {}
+    for i in range(n_filters + 1):
+        p[f"matrix_{i}"] = np.asarray(
+            state_dict[f"{prefix}._matrices.{i}"], np.float32)
+        p[f"bias_{i}"] = np.asarray(
+            state_dict[f"{prefix}._biases.{i}"], np.float32)
+        if i < n_filters:
+            p[f"factor_{i}"] = np.asarray(
+                state_dict[f"{prefix}._factors.{i}"], np.float32)
+    p["quantiles"] = np.asarray(state_dict[f"{prefix}.quantiles"],
+                                np.float32)
+    return p

@@ -56,12 +56,19 @@ def _inputs(model, h, w, device):
     """A training forward's inputs at (h, w): the frame (a chunk of
     frame_delay frames for a video model, a later chunk: the previous
     feature and memory given), qp 0 and its noise."""
+    from ..legacy.compressai_zoo import Cheng2020Anchor, ScaleHyperprior
     from ..legacy.dcvc_fm import DMCFM
     from ..legacy.dcvc_hem import DMCHEM
+    from ..legacy.dcvc_net import DCVCNet
     if isinstance(model, DMCFM):        # DMCDC too: the same arguments
         return _fm_inputs(model, h, w, device)
     if isinstance(model, DMCHEM):
         return _hem_inputs(model, h, w, device)
+    frame = torch.zeros(1, h, w, 3, device=device)
+    if isinstance(model, DCVCNet):      # (reference, current frame)
+        return (frame, frame)
+    if isinstance(model, (ScaleHyperprior, Cheng2020Anchor)):
+        return (frame,)
     cfg = model.cfg
     noise = draw_noise(cfg, 1, h, w, torch.Generator().manual_seed(0),
                        device)
@@ -79,7 +86,9 @@ def model_macs_per_pixel(model, h=256, w=256):
     training forward needs; per pixel of each of its frames (a video
     chunk codes frame_delay of them).  DCVC-FM's, DCVC-DC's and
     DCVC-HEM's (DMCFM, DMCDC, DMCHEM): the eval forward of a later P
-    frame, one frame."""
+    frame, one frame; DCVC-2021's (DCVCNet) its eval forward of a P frame,
+    the CompressAI models' (ScaleHyperprior, Cheng2020Anchor) their
+    estimation forward of an image."""
     h, w = -(-h // 64) * 64, -(-w // 64) * 64
     device = next(model.parameters()).device
     args = _inputs(model, h, w, device)

@@ -17,7 +17,10 @@ import os
 import pytest
 import torch
 
+from dcvc_tpu_torch.legacy.compressai_zoo import Cheng2020Anchor, \
+    ScaleHyperprior, TINY_CHENG2020, TINY_HYPERPRIOR
 from dcvc_tpu_torch.legacy.dcvc_dc import DMCDC, TINY_DC_CONFIG
+from dcvc_tpu_torch.legacy.dcvc_net import DCVCNet, TINY_DCVC_CONFIG
 from dcvc_tpu_torch.legacy.dcvc_fm import DMCFM, TINY_FM_CONFIG
 from dcvc_tpu_torch.legacy.dcvc_hem import DMCHEM, TINY_HEM_CONFIG
 from dcvc_tpu_torch.models.dmc_ht import DMCHT, TINY_HT_CONFIG, \
@@ -44,8 +47,11 @@ def test_conv_macs():
     lambda: DMCI(TINY_CONFIG), lambda: DMCHT(TINY_HT_CONFIG),
     lambda: DMCHT(TINY_HTL_CONFIG), lambda: DMCLD(TINY_LD_CONFIG),
     lambda: DMCFM(TINY_FM_CONFIG), lambda: DMCHEM(TINY_HEM_CONFIG),
-    lambda: DMCDC(TINY_DC_CONFIG)],
-    ids=["dmci", "hts", "htl", "ld", "fm", "hem", "dc"])
+    lambda: DMCDC(TINY_DC_CONFIG), lambda: DCVCNet(TINY_DCVC_CONFIG),
+    lambda: Cheng2020Anchor(TINY_CHENG2020),
+    lambda: ScaleHyperprior(TINY_HYPERPRIOR)],
+    ids=["dmci", "hts", "htl", "ld", "fm", "hem", "dc", "dcvc", "cheng2020",
+         "bmshj2018"])
 def test_model_complexity_runs(model):
     model = model()
     kmacs = model_macs_per_pixel(model, 64, 64)

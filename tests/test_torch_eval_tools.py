@@ -179,9 +179,9 @@ def test_image_cli_refuses_legacy_models_and_a_missing_card(image_inputs,
     base = ["--image_path", str(image_inputs / "png"), "--stream_path",
             str(tmp_path / "bin"), "--output_path", str(tmp_path / "o.json"),
             "--tiny"]
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="device entropy decode"):
         image_main.main(base + ["--i_frame_model", "cheng2020", "--device",
-                                "cpu"])
+                                "cpu", "--device_ec", "1"])
     if not torch.cuda.is_available():
         assert image_main.parse_args(base).device == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
