@@ -17,8 +17,9 @@ lanes, escapes, a count below the lane count and of 0, z -> y -> y
 threading).  Checks the stages of the six full-width models (DMCI, HTS,
 HTL, LD, DCVC-RT's intra and P models) in bf16 on the card against
 float32 on the CPU, those of EVC, IntraNoAR, DCVC-FM, DCVC-HEM, DCVC-DC,
-cheng2020, bmshj2018 and DCVC-2021 (float32) on the card against the CPU
-at 256x256, and one TINY
+cheng2020, bmshj2018, DCVC-2021 and DCVC-TCM (float32) on the card
+against the CPU at 256x256 (TCM's with no z symbol differing), and one
+TINY
 DMCI and one TINY HTS 2-chunk training step on the card against the same
 steps on the CPU (float32, TF32 off).  Then it drives the
 main path, one part at a time, each with the launch counts set to 0 just
@@ -78,6 +79,13 @@ every K2 launch's inputs:
     loop (with its us per latent position), the host rANS coder and the
     rest (HostClock); no kernel launched
     (perf_probe.compressai_stage_launches, dcvc_stage_launches);
+  - DCVC-TCM (float32, TF32 off, RGB in [0, 1], seeded weights lifted so
+    that symbols are coded: perf_probe.lifted_tcm): DMCTCMCodec at
+    TCM_CONFIG, its DPB seeded by the bmshj2018 codec's reconstruction: 3
+    P frames at 1080p and 2 at 720p, encoded twice (the same bytes) and
+    decoded bit-exact with equal final DPBs (frame and feature), the warm
+    1080p P frame timed and split into the host rANS coder and the rest;
+    no kernel launched (perf_probe.tcm_stage_launches);
   - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
     float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
     stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
@@ -110,7 +118,12 @@ every K2 launch's inputs:
     frames (gop 4, 2 rates: one container file per frame, every frame
     bit-exact), then --model hem --fast; family_main --model dcvc
     (cheng2020 + DCVC, the JAX runner's init) on a seeded 720p file of 4
-    frames (gop 4, one rate), then --fast.
+    frames (gop 4, one rate), then --fast; family_main --model tcm
+    (bmshj2018 + TCM, the JAX runner's init) on a seeded 720p file of 4
+    frames (gop 4, one rate), then --fast, then with --model_path_p on the
+    runner's own P model written as a reference .pth.tar by
+    save_reference and converted to params.v1 by utils/import_cli.py (the
+    same .bin bytes and numbers).
   - the evaluation surface, each part timed: params.v1 (the float32
     DMCI and HTS models written by save_native, read by load_native_into,
     their codecs coding a 1080p frame and a chunk to the in-memory
@@ -170,7 +183,7 @@ import time
 import numpy as np
 import torch
 
-from dcvc_tpu_torch.eval import bd_gate, family_main, image_main, \
+from dcvc_tpu_torch.eval import bd_gate, family, family_main, image_main, \
     video_main
 from dcvc_tpu_torch.eval.harness import run_one_point_with_stream
 from dcvc_tpu_torch.kernels import fused_dcb as K1
@@ -189,6 +202,7 @@ from dcvc_tpu_torch.legacy.compressai_zoo import BMSHJ2018_Q1_5, \
     CHENG2020_Q1_3, Cheng2020Anchor, ScaleHyperprior
 from dcvc_tpu_torch.legacy.dcvc_hem import DMCHEM, HEM_CONFIG
 from dcvc_tpu_torch.legacy.dcvc_net import DCVC_CONFIG, DCVCNet
+from dcvc_tpu_torch.legacy.dcvc_tcm import DMCTCM, TCM_CONFIG
 from dcvc_tpu_torch.legacy.evc import EVC_CONFIG, SCALABLE_EVC_CONFIG
 from dcvc_tpu_torch.legacy.hem_intra import INTRA_NOAR_CONFIG, \
     INTRA_NOAR_FM_CONFIG
@@ -204,7 +218,8 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     make_sequence, max_sm_clock_mhz, nvidia_smi, p_frame_calls, \
     profile_launches, run_k2_case, \
     rt_stage_launches, sass_counts, smooth_frame, TRAIN_CELLS, \
-    TRAIN_INIT_SCALE, damped_model, train_setup
+    TRAIN_INIT_SCALE, damped_model, tcm_p_codec, tcm_stage_launches, \
+    train_setup
 from dcvc_tpu_torch.runtime.compressai_codec import Cheng2020Codec, \
     HyperpriorCodec
 from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
@@ -215,6 +230,7 @@ from dcvc_tpu_torch.train import image_main as train_image_main
 from dcvc_tpu_torch.train import video_main as train_video_main
 from dcvc_tpu_torch.train.step import Optimizer, image_train_step
 from dcvc_tpu_torch.train.video_step import video_train_step
+from dcvc_tpu_torch.utils import import_cli
 from dcvc_tpu_torch.utils.checkpoint import load_latest_status, \
     load_reference_into, save_reference
 from dcvc_tpu_torch.utils.jax_bridge import load_native_into, \
@@ -356,6 +372,16 @@ COMPRESSAI_SEEDS = {"cheng2020": 70, "bmshj2018": 71}
 DCVC_CASE = (1080, 1920, 72)
 DCVC_P_FRAMES = 2
 DCVC_FAMILY_FRAMES = 4
+# DCVC-TCM (float32, seeded weights lifted as perf_probe.lifted_tcm
+# says): cases (height, width, seed, P frames), each from an intra frame
+# of the bmshj2018 codec of the part before; the warm 1080p P frame's
+# encode and decode timed (median of TCM_TIMED), split into the host rANS
+# coder and the rest.  Its family_main run: TCM_FAMILY_FRAMES 720p frames
+# at gop 4, one rate, then --fast, then with --model_path_p on the
+# runner's own P model gone through save_reference and import_cli.
+TCM_CASES = [(1080, 1920, 81, 3), (720, 1280, 82, 2)]
+TCM_TIMED = 3
+TCM_FAMILY_FRAMES = 4
 # the evaluation entry's PNG source: PNG_FRAMES seeded 1080p frames
 PNG_FRAMES = 3
 # the evaluation entry's phase: a seeded 1080p YUV420 file of CLI_FRAMES
@@ -1514,13 +1540,14 @@ def phase_stages_hem(codec):
 def p_frame_launches(name, h, w):
     """{"first" / "later": ((S = 1, stacked, K2) launches of one P-frame
     encode, of one decode), "... forward": those of the eval forward} of
-    a legacy P codec (`name`: FM, HEM or DC) on an (h, w) frame, from the
-    model on the meta device (perf_probe.fm_stage_launches,
-    hem_stage_launches, dc_stage_launches): their blocks are not K1's and
-    they decode on the host, so none."""
+    a legacy P codec (`name`: FM, HEM, DC or TCM) on an (h, w) frame, from
+    the model on the meta device (perf_probe.fm_stage_launches,
+    hem_stage_launches, dc_stage_launches, tcm_stage_launches): their
+    blocks are not K1's and they decode on the host, so none."""
     derive, cfg = {"FM": (fm_stage_launches, FM_CONFIG),
                    "HEM": (hem_stage_launches, HEM_CONFIG),
-                   "DC": (dc_stage_launches, DC_CONFIG)}[name]
+                   "DC": (dc_stage_launches, DC_CONFIG),
+                   "TCM": (tcm_stage_launches, TCM_CONFIG)}[name]
     n = {k: sum(v.values()) for k, v in derive(cfg, h, w).items()}
     out = {}
     for which in ("first", "later"):
@@ -2075,6 +2102,256 @@ def phase_family_dcvc(dev, launch_log):
                     f"the codec builds)")
         log(f"DCVC family_main: every frame bit-exact, one file per frame; "
             f"--fast finite ({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(root)
+    return tuple(total)
+
+
+# ------------------------------------------------------------------ DCVC-TCM
+
+def phase_stages_tcm(codec):
+    """DCVC-TCM's stages at full width on the card against the same model
+    on the CPU, both float32, on a LEGACY_STAGE_SIDE square pair of
+    frames: mv_analysis's mv_y, mv_prior and mv_synthesis on the CPU's
+    mv_z and rounded mv_y, mc's contexts (from the frame, and from a
+    feature) on the CPU's mv_hat, ctx_analysis's y, ctx_prior and
+    synthesis (x_hat, feature) on the CPU's z, contexts and rounded y.
+    Fails above LEGACY_STAGE_REL_TOL (relative RMS) or if a mv_z or z
+    symbol differs."""
+    gpu, dev, cfg = codec.model, codec.device, codec.cfg
+    cpu = DMCTCM(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    side, on_cpu = LEGACY_STAGE_SIDE, torch.device("cpu")
+    ref, x = [f + 0.5 for f in make_sequence(side, side, 2, 83, on_cpu)]
+    feature = torch.rand(1, side, side, cfg.ch_n,
+                         generator=torch.Generator().manual_seed(84))
+    out = {}
+    with torch.inference_mode():
+        for where, m, d in (("cpu", cpu, on_cpu), ("card", gpu, dev)):
+            mv_y, mv_z = m.mv_analysis(x.to(d), ref.to(d))
+            if where == "cpu":
+                mv_z_c, mv_y_hat = mv_z, torch.round(mv_y)
+            mv_prior = m.mv_prior(mv_z_c.to(d))
+            mv_hat = m.mv_synthesis(mv_y_hat.to(d))
+            if where == "cpu":
+                mv_hat_c = mv_hat
+            first = m.mc(ref.to(d), None, mv_hat_c.to(d))
+            later = m.mc(ref.to(d), feature.to(d), mv_hat_c.to(d))
+            if where == "cpu":
+                ctx = later
+            ctx_d = [c.to(d) for c in ctx]
+            y, z = m.ctx_analysis(x.to(d), *ctx_d)
+            if where == "cpu":
+                z_c, y_hat = z, torch.round(y)
+            prior = m.ctx_prior(z_c.to(d), *ctx_d)
+            syn = m.synthesis(y_hat.to(d), *ctx_d)
+            out[where] = {
+                "mv_z": mv_z, "z": z, "mv_analysis mv_y": mv_y,
+                "mv_prior scales": mv_prior[0], "mv_prior means": mv_prior[1],
+                "mv_synthesis mv_hat": mv_hat,
+                **{f"mc first c{i + 1}": c for i, c in enumerate(first)},
+                **{f"mc later c{i + 1}": c for i, c in enumerate(later)},
+                "ctx_analysis y": y, "ctx_prior scales": prior[0],
+                "ctx_prior means": prior[1], "synthesis x_hat": syn[0],
+                "synthesis feature": syn[1]}
+    differ = {k: int((out["card"][k].cpu() != out["cpu"][k]).sum())
+              for k in ("mv_z", "z")}
+    report_stages("TCM", "P frame", out)
+    if any(differ.values()):
+        raise AssertionError(f"TCM: symbols differ between the card and "
+                             f"the CPU: {differ}")
+
+
+def phase_tcm(dev, launch_log, intra, pcodec):
+    """DCVC-TCM on the card (TCM_CONFIG, float32, TF32 off; lifted_tcm's
+    weights): at each size of TCM_CASES an intra frame of `intra` (the
+    bmshj2018 codec) seeds the DPB, then the P frames are encoded twice
+    from it (the same bytes) and decoded from it: every decoder x_hat
+    equals the encoder's bit for bit and the final DPBs (frame and
+    feature) are equal.  At 1080p the warm encode and decode of the third
+    P frame (the DPB holding a feature) are timed (median of TCM_TIMED
+    calls each, host clock, synchronised), each split into the host rANS
+    coder and the rest (device stages and glue).  Returns the (S = 1,
+    stacked, K2) launches derived for it (none)."""
+    t0 = time.perf_counter()
+    derived = [0, 0, 0]
+
+    def run(label, want, fn):
+        with HostClock([pcodec]) as clock:
+            out, ms, *n = counted(launch_log, label, fn)
+        expect(label, tuple(n), want)
+        for i in range(3):
+            derived[i] += want[i]
+        return out, ms, clock.rans_ms
+
+    for h, w, seed, n_p in TCM_CASES:
+        launches = p_frame_launches("TCM", h, w)
+        frames = [f + 0.5 for f in make_sequence(h, w, n_p + 1, seed, dev)]
+        label = f"TCM {w}x{h}"
+        seed_frame = run(f"{label} intra frame",
+                         compressai_launches("bmshj2018", h, w)[0],
+                         lambda: intra.compress(frames[0]))[0]["x_hat"]
+
+        def encode(i):
+            which = "first" if i == 1 else "later"
+            return run(f"{label} P frame {i} encode", launches[which][0],
+                       lambda: pcodec.compress(frames[i]))
+
+        def decode(i, stream):
+            which = "first" if i == 1 else "later"
+            return run(f"{label} P frame {i} decode", launches[which][1],
+                       lambda: pcodec.decompress(stream, h, w))
+
+        passes = []
+        for _ in range(2):
+            pcodec.set_ref_frame(seed_frame)
+            passes.append([encode(i)[0] for i in range(1, n_p + 1)])
+        enc_dpb = pcodec.dpb
+        streams = [r["bit_stream"] for r in passes[0]]
+        if [r["bit_stream"] for r in passes[1]] != streams:
+            raise AssertionError(f"{label}: two encodes differ")
+        pcodec.set_ref_frame(seed_frame)
+        for i, res in enumerate(passes[0], 1):
+            out = decode(i, res["bit_stream"])[0]
+            if out["x_hat"].shape != (1, h, w, 3) or not torch.equal(
+                    out["x_hat"], res["x_hat"]):
+                raise AssertionError(f"{label} P frame {i}: the decode is "
+                                     f"not bit-exact")
+        for k, v in enc_dpb.items():
+            if not torch.equal(pcodec.dpb[k], v):
+                raise AssertionError(f"{label}: final DPB {k} differs "
+                                     f"between encoder and decoder")
+        psnrs = [float(psnr01(r["x_hat"], frames[i]))
+                 for i, r in enumerate(passes[0], 1)]
+        log(f"{label} ({n_p} P frames): bytes {[len(b) for b in streams]}, "
+            f"bpp {[len(b) * 8 / (h * w) for b in streams]}, psnr {psnrs}; "
+            f"decode bit-exact, final DPB equal, two encodes equal")
+        if (h, w) != TCM_CASES[0][:2]:
+            continue
+        pcodec.set_ref_frame(seed_frame)
+        for i in (1, 2):
+            encode(i)
+        dpb = pcodec.dpb
+        times = {"encode": [], "decode": []}
+        rans = {"encode": [], "decode": []}
+        for _ in range(TCM_TIMED):
+            pcodec.dpb = dpb
+            res, ms, r_ms = encode(3)
+            times["encode"].append(ms)
+            rans["encode"].append(r_ms)
+            pcodec.dpb = dpb
+            out, ms, r_ms = decode(3, res["bit_stream"])
+            times["decode"].append(ms)
+            rans["decode"].append(r_ms)
+            if not torch.equal(out["x_hat"], res["x_hat"]):
+                raise AssertionError(f"{label}: the decode is not bit-exact")
+        med = {k: statistics.median(v) for k, v in times.items()}
+        med_rans = {k: statistics.median(v) for k, v in rans.items()}
+        log(f"TCM {w}x{h} P frame 3 (feature in the DPB) warm: "
+            f"encode_ms={med['encode']} (host_rans_ms={med_rans['encode']}"
+            f", rest_ms={med['encode'] - med_rans['encode']}) "
+            f"decode_ms={med['decode']} (host_rans_ms={med_rans['decode']}"
+            f", rest_ms={med['decode'] - med_rans['decode']}) "
+            f"(median of {TCM_TIMED}: {json.dumps(times)}, host rANS "
+            f"{json.dumps(rans)}) bpp={len(res['bit_stream']) * 8 / (h * w)}"
+            f" psnr={psnr01(out['x_hat'], frames[3])} | {nvidia_smi()}")
+    log(f"DCVC-TCM: every P frame bit-exact, final DPBs equal, encodes "
+        f"repeatable, no kernel launched ({time.perf_counter() - t0:.3f} s)")
+    return tuple(derived)
+
+
+def phase_family_tcm(dev, launch_log):
+    """The family entry for DCVC-TCM and the reference-checkpoint
+    converter on the card: family_main.main --model tcm (bmshj2018 at
+    HyperpriorConfig() and TCM at TCM_CONFIG, float32, seeded random
+    weights as the JAX runner draws them: P at init_scale 0.4) on a
+    seeded FM_FAMILY_W x FM_FAMILY_H YUV420 file of TCM_FAMILY_FRAMES
+    frames, gop 4, one rate: exit code 0 (every frame bit-exact), one file
+    per frame, finite PSNRs, bpp > 0, the frame types I P P P.  Then
+    --fast: exit 0, finite bpp and PSNRs, no stream written.  Then the
+    converter: the runner's own P model (FamilyRunner("tcm")'s, in
+    memory) written as a reference .pth.tar by save_reference, turned
+    into params.v1 by import_cli.main, and family_main --model_path_p on
+    it: the same .bin bytes and numbers as the first run.  Returns the
+    (S = 1, stacked, K2) launches derived for it (none)."""
+    t0 = time.perf_counter()
+    root = scratch_dir("tcm_family")
+    n = TCM_FAMILY_FRAMES
+    types = [0 if i % 4 == 0 else 1 for i in range(n)]
+    total = [0, 0, 0]
+    try:
+        cfg_path, seq = write_cli_inputs(root, dev, n, 19, 4, FM_FAMILY_H,
+                                         FM_FAMILY_W)
+        runner = family.FamilyRunner("tcm", os.path.join(root, "unused"),
+                                     device=dev)
+        pth = os.path.join(root, "tcm_p.pth.tar")
+        save_reference(pth, runner.p_codec.model)
+        del runner
+        converted = os.path.join(root, "tcm_p.bin")
+        if import_cli.main([pth, converted, "--kind", "tcm"]) != 0:
+            raise AssertionError("import_cli: non-zero exit")
+        out = {}
+        for run in ("coded", "fast", "converted"):
+            fast = run == "fast"
+            h, w = FM_FAMILY_H, FM_FAMILY_W
+            if fast:
+                h, w = -(-h // 64) * 64, -(-w // 64) * 64
+            i_enc, i_dec = compressai_launches("bmshj2018", h, w)
+            launches = p_frame_launches("TCM", h, w)
+            want = [0, 0, 0]
+            for i in range(n):
+                which = "first" if i % 4 == 1 else "later"
+                parts = ([i_enc] if fast else [i_enc, i_dec]) \
+                    if i % 4 == 0 else ([launches[f"{which} forward"]]
+                                        if fast else launches[which])
+                for part in parts:
+                    want = [a + b for a, b in zip(want, part)]
+            out_dir = os.path.join(root, run)
+            out_json = out_dir + ".json"
+            argv = ["--model", "tcm", "--test_config", cfg_path, "--gop",
+                    "4", "--rate_num", "1", "--stream_path", out_dir,
+                    "--output_path", out_json] + (["--fast"] if fast else [])
+            if run == "converted":
+                argv += ["--model_path_p", converted]
+            label = f"TCM family_main {run}"
+            code, ms, *got = counted(launch_log, label,
+                                     lambda: family_main.main(argv))
+            expect(label, tuple(got), tuple(want))
+            total = [a + b for a, b in zip(total, want)]
+            with open(out_json) as f:
+                results = json.load(f)["results"]
+            result = results["Smoke"][seq]
+            bins = {}
+            for name in sorted(os.listdir(out_dir)):
+                with open(os.path.join(out_dir, name), "rb") as f:
+                    bins[name] = f.read()
+            if len(bins) != (0 if fast else n):
+                raise AssertionError(f"{label}: wrote {sorted(bins)}")
+            for rate, r in result.items():
+                if code != 0 or not r["bitexact"] or r["frame_type"] != \
+                        types or not np.isfinite(r["avg_psnr"]) or not \
+                        np.all(np.isfinite(r["frame_bpp"])) or not \
+                        r["avg_bpp"] > 0:
+                    raise AssertionError(f"{label} {rate}: exit {code}, "
+                                         f"{r}")
+                log(f"{label} {rate}: q_index={r['q_index']} "
+                    f"bpp={r['avg_bpp']} frame_bpp={r['frame_bpp']} "
+                    f"psnr={r['avg_psnr']} (i {r['avg_psnr_i']} p "
+                    f"{r['avg_psnr_p']}) avg_frame_encoding_ms="
+                    f"{1e3 * r['avg_frame_encoding_time']} "
+                    f"avg_frame_decoding_ms="
+                    f"{1e3 * r['avg_frame_decoding_time']} ({ms} ms with "
+                    f"the codec builds)")
+            out[run] = (untimed(results), bins)
+        if out["converted"] != out["coded"]:
+            raise AssertionError("TCM family_main --model_path_p (the "
+                                 "converted reference checkpoint): the .bin "
+                                 "files or numbers differ from the model in "
+                                 "memory's")
+        log(f"TCM family_main: every frame bit-exact, one file per frame; "
+            f"--fast finite; save_reference -> import_cli -> --model_path_p "
+            f"codes the same {n} .bin files ({time.perf_counter() - t0:.3f} "
+            f"s)")
     finally:
         shutil.rmtree(root)
     return tuple(total)
@@ -2657,8 +2934,9 @@ def phase_complexity():
     HEM and DC: the eval forward of a later P frame), counted by
     FlopCounterMode on the
     meta device (shapes only, no compute): products and convolutions, not
-    elementwise work; DCVC-2021: the eval forward of a P frame; the
-    CompressAI models: the estimation forward of an image."""
+    elementwise work; DCVC-2021: the eval forward of a P frame; DCVC-TCM:
+    the training forward of a later P frame; the CompressAI models: the
+    estimation forward of an image."""
     t0 = time.perf_counter()
     parts = []
     for name, cls, cfg in (("DMCI", DMCI, DMCIConfig()),
@@ -2669,6 +2947,7 @@ def phase_complexity():
                            ("HEM", DMCHEM, HEM_CONFIG),
                            ("DC", DMCDC, DC_CONFIG),
                            ("DCVC", DCVCNet, DCVC_CONFIG),
+                           ("TCM", DMCTCM, TCM_CONFIG),
                            ("cheng2020", Cheng2020Anchor, CHENG2020_Q1_3),
                            ("bmshj2018", ScaleHyperprior, BMSHJ2018_Q1_5)):
         with torch.device("meta"):
@@ -2969,6 +3248,7 @@ def main():
     fm_p = fm_p_codec(dev)
     hem_p, dc_p = hem_p_codec(dev), dc_p_codec(dev)
     compressai, dcvc_p = compressai_codecs(dev), dcvc_p_codec(dev)
+    tcm_p = tcm_p_codec(dev)
     phase_stages(dmci)
     for name, codec in video.items():
         phase_stages_video(name, codec)
@@ -2980,6 +3260,7 @@ def main():
     phase_stages_hem(hem_p)
     phase_stages_fm(dc_p, "DC")
     phase_stages_compressai_dcvc(compressai, dcvc_p)
+    phase_stages_tcm(tcm_p)
     phase_train_parity(dev)
 
     # the main path, one part at a time, each with the counts set to 0
@@ -3002,7 +3283,10 @@ def main():
               ("DCVC-DC", lambda: phase_p_frames(
                   "DC", legacy["IntraNoAR"], dc_p, dev, launch_log)),
               ("CompressAI / DCVC-2021", lambda: phase_compressai_dcvc(
-                  dev, launch_log, compressai, dcvc_p))]
+                  dev, launch_log, compressai, dcvc_p)),
+              ("DCVC-TCM", lambda: phase_tcm(dev, launch_log,
+                                             compressai["bmshj2018"],
+                                             tcm_p))]
     parts += [("training", lambda: phase_train(dev)),
               ("trainers -> codecs",
                lambda: phase_trained_codecs(dev, launch_log, k2_log))]
@@ -3022,6 +3306,7 @@ def main():
             ("HEM / DC family", lambda: phase_family_hem_dc(dev,
                                                             launch_log)),
             ("DCVC family", lambda: phase_family_dcvc(dev, launch_log)),
+            ("TCM family", lambda: phase_family_tcm(dev, launch_log)),
             ("params.v1", lambda: phase_params_v1(dmci, video["HTS"], dev,
                                                   launch_log)),
             ("image CLI", lambda: phase_image_cli(dev, launch_log)),

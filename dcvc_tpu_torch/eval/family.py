@@ -2,7 +2,7 @@
 dcvc_tpu/eval/family.py): encode -> one NAL stream file -> decode from
 disk -> metrics, for the pre-UF models.
 
-The port runs five of the JAX runner's models:
+The port runs every model of the JAX runner:
   - DCVC-RT (`model="rt"`): its intra codec and P-frame codec, its NAL
     container (bitstream/legacy_container.py: the SPS carries the size
     and a 1-bit lane flag, each frame's IP NAL its qp), the qp_shift
@@ -30,15 +30,22 @@ The port runs five of the JAX runner's models:
     intra frames and DCVCCodec (init_scale 0.4) for the P frames, both
     fixed-rate, one file per frame: the two-string intra container and the
     four-string P container (dcvc_encode_i / _p); both codecs run their
-    masked-conv AR on the host (runtime/dcvc_codec.py HostAR).
+    masked-conv AR on the host (runtime/dcvc_codec.py HostAR);
+  - DCVC-TCM (`model="tcm"`, DCVC-TCM/test_video.py): HyperpriorCodec
+    (bmshj2018-hyperprior at HyperpriorConfig(), the JAX runner's init)
+    for the intra frames, in DCVC's two-string intra container, and
+    DMCTCMCodec (init_scale 0.4) for the P frames, one single-string
+    file per frame (tcm_encode_p), decoded at the sequence's size.
 The estimated-bits fast mode (run_sequence_fast, the reference's
 test_helper.py:134) codes the intra frames for real and takes the P
 frames' rates from the P model's forward on rounded latents (FM: on
 INDEX_MAP_FM's adaptors; HEM: at the q scales, its x_hat the clipped DPB
-frame; DCVC: DCVCNet's forward against the previous clipped recon),
-frames edge-padded to a multiple of 64, bpp over the original pixels.
-TCM is not ported yet (ROADMAP.md §1 item 7b) and raises; so does the
-fast mode for rt and dc, as in the JAX runner.
+frame; DCVC: DCVCNet's forward against the previous clipped recon; TCM:
+DMCTCM's training forward against the previous clipped recon and the
+carried feature, its bpp over the padded frame's pixels as the model
+computes it), frames edge-padded to a multiple of 64, the intra frames'
+bpp over the original pixels.  The fast mode raises for rt and dc, as in
+the JAX runner.
 
 All legacy models work on RGB in [0, 1].  The codecs run in float32 on
 every device, as dcvc_tpu's runner builds them (its RT codecs in f32 on
@@ -47,8 +54,8 @@ to f32); bfloat16 only when the caller asks for it (`dtype`,
 family_main --dtype bf16).  In float32 the RT intra trunk's
 DepthConvBlocks take the plain PyTorch block on the card too
 (layers/blocks.py kernel_path), as the reference's do; FM's, HEM's,
-DC's and DCVC's blocks are not K1's and they decode on the host, so
-their paths launch no kernel.
+DC's, DCVC's and TCM's blocks are not K1's and they decode on the host,
+so their paths launch no kernel.
 """
 
 import math
@@ -61,7 +68,7 @@ import torch
 from ..bitstream import legacy_container as lc
 from ..legacy import dcvc_hem
 from ..legacy.compressai_zoo import Cheng2020Anchor, Cheng2020Config, \
-    TINY_CHENG2020
+    HyperpriorConfig, ScaleHyperprior, TINY_CHENG2020, TINY_HYPERPRIOR
 from ..legacy.dcvc_dc import DC_CONFIG, DMCDC, DMCDCConfig, TINY_DC_CONFIG
 from ..legacy.dcvc_fm import DMCFM, DMCFMConfig, FM_CONFIG, \
     TINY_FM_CONFIG, empty_dpb
@@ -71,24 +78,26 @@ from ..legacy.dcvc_hem import DMCHEM, DMCHEMConfig, HEM_CONFIG, \
     TINY_HEM_CONFIG
 from ..legacy.dcvc_rt import DMCRT, DMCRTCodec, DMCRTConfig, \
     INDEX_MAP as RT_INDEX_MAP, TINY_RT_CONFIG, shift_qp
+from ..legacy.dcvc_tcm import DMCTCM, DMCTCMConfig, TCM_CONFIG, \
+    TINY_TCM_CONFIG
 from ..legacy.hem_intra import INTRA_NOAR_CONFIG, IntraNoAR, \
     IntraNoARConfig, TINY_INTRA_NOAR_CONFIG
 from ..legacy.rt_intra import DMCIRT, DMCIRTConfig, TINY_RT_INTRA_CONFIG
-from ..runtime.compressai_codec import Cheng2020Codec
+from ..runtime.compressai_codec import Cheng2020Codec, HyperpriorCodec
 from ..runtime.dc_codec import DMCDCCodec
 from ..runtime.dcvc_codec import DCVCCodec
 from ..runtime.evc_codec import IntraNoARCodec
 from ..runtime.fm_codec import DMCFMCodec
 from ..runtime.hem_codec import DMCHEMCodec
 from ..runtime.rt_image_codec import RTIntraCodec
+from ..runtime.tcm_codec import DMCTCMCodec
 from ..utils.jax_bridge import load_into, native_config
 from ..utils.metrics import calc_psnr
 
-MODELS = ("rt", "fm", "hem", "dc", "dcvc")
-NOT_PORTED = ("tcm",)
-# the JAX runner's fast mode covers fm, dcvc, tcm and hem; of these the
-# port runs fm, hem and dcvc
-FAST_MODELS = ("fm", "hem", "dcvc")
+MODELS = ("rt", "fm", "hem", "dc", "dcvc", "tcm")
+NOT_PORTED = ()
+# the JAX runner's fast mode covers fm, dcvc, tcm and hem
+FAST_MODELS = ("fm", "hem", "dcvc", "tcm")
 INDEX_MAP_DC = [0, 1, 0, 2]                  # DC's feature adaptors
 INDEX_MAP_FM = [0, 1, 0, 2, 0, 2, 0, 2]     # FM test_helper.py:146
 # (model file class, its default config) of each codec, by model
@@ -100,12 +109,15 @@ MODEL_FILES = {"rt": ((DMCIRT, DMCIRTConfig()), (DMCRT, DMCRTConfig())),
                "dc": ((IntraNoAR, IntraNoARConfig()),
                       (DMCDC, DMCDCConfig())),
                "dcvc": ((Cheng2020Anchor, Cheng2020Config()),
-                        (DCVCNet, DCVCConfig()))}
+                        (DCVCNet, DCVCConfig())),
+               "tcm": ((ScaleHyperprior, HyperpriorConfig()),
+                       (DMCTCM, DMCTCMConfig()))}
 # each legacy P codec: (its class, its config, its TINY config)
 P_CODECS = {"fm": (DMCFMCodec, FM_CONFIG, TINY_FM_CONFIG),
             "hem": (DMCHEMCodec, HEM_CONFIG, TINY_HEM_CONFIG),
             "dc": (DMCDCCodec, DC_CONFIG, TINY_DC_CONFIG),
-            "dcvc": (DCVCCodec, DCVC_CONFIG, TINY_DCVC_CONFIG)}
+            "dcvc": (DCVCCodec, DCVC_CONFIG, TINY_DCVC_CONFIG),
+            "tcm": (DMCTCMCodec, TCM_CONFIG, TINY_TCM_CONFIG)}
 
 
 def interpolate_log(min_val, max_val, num=64, decreasing=True):
@@ -166,10 +178,8 @@ class FamilyRunner:
                  model_path_i=None, model_path_p=None, device="cuda",
                  dtype=None):
         if model not in MODELS:
-            raise ValueError(
-                f"model {model!r}: the port runs {MODELS}; "
-                + (f"{model} is not ported yet (ROADMAP.md §1 item 7b)"
-                   if model in NOT_PORTED else "unknown model"))
+            raise ValueError(f"model {model!r}: unknown (the port runs "
+                             f"{MODELS})")
         self.model = model
         self.stream_dir = stream_dir
         self.rate_num = rate_num
@@ -207,6 +217,11 @@ class FamilyRunner:
                 self.i_codec = Cheng2020Codec.init_random(
                     gen_i, cfg=TINY_CHENG2020 if tiny else Cheng2020Config(),
                     **kw)
+            elif self.model == "tcm":
+                # bmshj2018-hyperprior, likewise
+                self.i_codec = HyperpriorCodec.init_random(
+                    gen_i, cfg=TINY_HYPERPRIOR if tiny
+                    else HyperpriorConfig(), **kw)
             else:
                 self.i_codec = IntraNoARCodec.init_random(
                     gen_i, cfg=TINY_INTRA_NOAR_CONFIG if tiny
@@ -262,13 +277,13 @@ class FamilyRunner:
     def _is_intra(i, gop):
         return i % gop == 0 if gop > 0 else i == 0
 
-    # ------------------------------------------------ DCVC-HEM, DC, DCVC
+    # ------------------------------------------- DCVC-HEM, DC, DCVC, TCM
 
     def run_sequence_files(self, frames_rgb, rate_idx, gop, seq_name="seq"):
-        """DCVC-HEM / DCVC-DC / DCVC end-to-end (dcvc_tpu's run_sequence
-        for hem, dc and dcvc): each frame into its own container file,
-        decoded back from disk, the decode held bit-exact against the
-        encode."""
+        """DCVC-HEM / DCVC-DC / DCVC / DCVC-TCM end-to-end (dcvc_tpu's
+        run_sequence for hem, dc, dcvc and tcm): each frame into its own
+        container file, decoded back from disk, the decode held bit-exact
+        against the encode."""
         h, w = frames_rgb[0].shape[1:]
         q = self._q_index(rate_idx)
         frames = self._frames01(frames_rgb)
@@ -297,7 +312,7 @@ class FamilyRunner:
         return result
 
     def _encode_file(self, i, x, q, h, w, path, is_i):
-        if self.model == "dcvc":
+        if self.model in ("dcvc", "tcm"):
             return self._encode_file_dcvc(x, h, w, path, is_i)
         if is_i:
             res = self.i_codec.compress(x, float(self.i_q_scales[q]), h, w)
@@ -317,12 +332,16 @@ class FamilyRunner:
         return _numpy(res["x_hat"])
 
     def _encode_file_dcvc(self, x, h, w, path, is_i):
-        """DCVC's fixed-rate codecs: the two-string intra container, the
-        four-string P container."""
+        """DCVC's and TCM's fixed-rate codecs: the two-string intra
+        container, DCVC's four-string P container, TCM's one-string P
+        file."""
         if is_i:
             res = self.i_codec.compress(x, h, w)
             lc.dcvc_encode_i(h, w, res["y_string"], res["z_string"], path)
             self.p_codec.set_ref_frame(res["x_hat"], h, w)
+        elif self.model == "tcm":
+            res = self.p_codec.compress(x, h, w)
+            lc.tcm_encode_p(res["bit_stream"], path)
         else:
             res = self.p_codec.compress(x, h, w)
             lc.dcvc_encode_p(h, w, res["mv_y_string"], res["mv_z_string"],
@@ -331,11 +350,14 @@ class FamilyRunner:
 
     def _decode_file(self, i, h, w, path, is_i):
         """One frame from its file; an intra frame reseeds the DPB."""
-        if self.model == "dcvc":
+        if self.model in ("dcvc", "tcm"):
             if is_i:
                 hh, ww, y_s, z_s = lc.dcvc_decode_i(path)
                 x_hat = self.i_codec.decompress(y_s, z_s, hh, ww)["x_hat"]
                 self.p_codec.set_ref_frame(x_hat, h, w)
+            elif self.model == "tcm":
+                x_hat = self.p_codec.decompress(lc.tcm_decode_p(path), h,
+                                                w)["x_hat"]
             else:
                 hh, ww, *strings = lc.dcvc_decode_p(path)
                 x_hat = self.p_codec.decompress(*strings, hh, ww)["x_hat"]
@@ -451,14 +473,16 @@ class FamilyRunner:
         model's forward on rounded latents (FM: DMCFM.forward on
         INDEX_MAP_FM's adaptors; HEM: DMCHEM.forward at the q scales, its
         x_hat the clipped DPB frame; DCVC: DCVCNet.forward against the
-        previous reconstruction, its x_hat the clipped recon_image).
-        Frames are edge-padded to a
-        multiple of 64 (the reference's replicate pad), bpp is over the
+        previous reconstruction, its x_hat the clipped recon_image; TCM:
+        DMCTCM.forward against the previous clipped recon_image and the
+        carried feature, its bpp the model's own, over the padded
+        frame's pixels).  Frames are edge-padded to a multiple of 64 (the
+        reference's replicate pad), the intra frames' bpp is over the
         original pixels and the PSNR over the cropped reconstruction."""
         if self.model not in FAST_MODELS:
             raise ValueError(f"--fast: no estimated-bits mode for "
-                             f"{self.model} (the JAX runner's covers fm, "
-                             f"dcvc, tcm, hem; the port runs {FAST_MODELS})")
+                             f"{self.model} (the JAX runner's covers "
+                             f"{FAST_MODELS})")
         del seq_name
         h, w = frames_rgb[0].shape[1:]
         ph, pw = (64 - h % 64) % 64, (64 - w % 64) % 64
@@ -474,9 +498,10 @@ class FamilyRunner:
         for i, x in enumerate(frames):
             is_i = self._is_intra(i, gop)
             result["frame_type"].append(0 if is_i else 1)
-            if is_i and self.model == "dcvc":
+            if is_i and self.model in ("dcvc", "tcm"):
                 res = self.i_codec.compress(x, hp, wp)
-                dpb = x_hat = res["x_hat"]
+                x_hat = res["x_hat"]
+                dpb = x_hat if self.model == "dcvc" else (x_hat, None)
                 bpp = (len(res["y_string"]) + len(res["z_string"])) * 8 \
                     / (h * w)
             elif is_i:
@@ -491,6 +516,10 @@ class FamilyRunner:
                 if self.model == "dcvc":
                     res = model(dpb, x_t)
                     dpb = x_hat = torch.clamp(res["recon_image"], 0.0, 1.0)
+                elif self.model == "tcm":
+                    res = model(x_t, *dpb)
+                    x_hat = torch.clamp(res["recon_image"], 0.0, 1.0)
+                    dpb = (x_hat, res["feature"])
                 elif self.model == "hem":
                     scales = [torch.tensor(float(v[q]), device=self.device)
                               for v in (self.mv_q_scales, self.y_q_scales)]

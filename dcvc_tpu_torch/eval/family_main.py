@@ -8,10 +8,11 @@ a model end to end over its own stream container, decoded from disk.
 
 The arguments and the result JSON are test_video_family.py's, with
 `--device` (default cuda) and `--dtype` (default f32, the reference's
-type on every device; bf16 on request).  The port runs `--model rt`,
-`fm`, `hem`, `dc` and `dcvc` (eval/family.py); tcm raises.  `--fast` is
-the estimated-bits mode (FamilyRunner.run_sequence_fast), for fm, hem and
-dcvc; it raises for rt and dc, as the JAX runner does.  The model files are dcvc_tpu.params.v1
+type on every device; bf16 on request).  The port runs every model of
+the JAX CLI, `--model rt`, `fm`, `hem`, `dc`, `dcvc` and `tcm`
+(eval/family.py).  `--fast` is the estimated-bits mode
+(FamilyRunner.run_sequence_fast), for fm, hem, dcvc and tcm; it raises
+for rt and dc, as the JAX runner does.  The model files are dcvc_tpu.params.v1
 files or reference .pth.tar checkpoints.  Sources are PNG folders (read
 with utils/png.py: the machine with the card has no PIL) or YUV420 files,
 converted to RGB with the BT.709 transforms of core/color.py as the JAX
@@ -49,7 +50,7 @@ def parse_args(argv=None):
                    help="tiny model configs (smoke/CI)")
     p.add_argument("--fast", action="store_true",
                    help="estimated-bits mode without entropy coding (fm, "
-                        "hem, dcvc; reference test_helper.py:134)")
+                        "hem, dcvc, tcm; reference test_helper.py:134)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model_path_i", default=None,
                    help="I-codec model file (dcvc_tpu.params.v1 or "
@@ -94,8 +95,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.fast and args.model not in FAST_MODELS:
         raise ValueError(f"--fast: no estimated-bits mode for "
-                         f"{args.model} (the JAX runner's covers fm, dcvc, "
-                         f"tcm, hem; the port runs {FAST_MODELS})")
+                         f"{args.model} (the JAX runner's covers "
+                         f"{FAST_MODELS})")
     with open(args.test_config) as f:
         cfg = json.load(f)
     root = cfg.get("root_path", "")

@@ -179,6 +179,23 @@ def init_legacy_(module, generator):
             m.reset_parameters()
 
 
+@torch.no_grad()
+def damp_legacy_(module, scale):
+    """Every conv, deconv and masked-conv kernel of `module` times `scale`
+    (the JAX codecs' init_scale on each param leaf named `kernel`)."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Deconv)):
+            m.weight.mul_(scale)
+
+
+def z_bits_sum(z, estimator):
+    """The factorized z prior's rate estimate of z (qp 0): clamp(-log2(p +
+    1e-5), 0, 50), summed per sample."""
+    probs = estimator.get_prob(z, 0)
+    bits = torch.clamp(-torch.log(probs + 1e-5) / math.log(2.0), 0, 50)
+    return torch.sum(bits, dim=(1, 2, 3))
+
+
 def _prior_encoder(cin, n):
     return seq(_conv(cin, n, 3), LReLU(), _conv(n, n, 5, 2), LReLU(),
                _conv(n, n, 5, 2))
@@ -267,9 +284,7 @@ class DCVCNet(nn.Module):
     def damp_(self, scale):
         """Every conv, deconv and masked-conv kernel times `scale` (the JAX
         codec's init_scale on each param leaf named `kernel`)."""
-        for m in self.modules():
-            if isinstance(m, (Conv, Deconv)):
-                m.weight.mul_(scale)
+        damp_legacy_(self, scale)
 
     def from_reference(self, state):
         """A reference state_dict (DCVC_net.py's module tree) -> this
@@ -288,11 +303,6 @@ class DCVCNet(nn.Module):
     def motion_compensation(self, ref, mv):
         ref_feature = self.feature_extract(ref.to(self.dtype))
         return self.context_refine(flow_warp(ref_feature, mv))
-
-    def _z_bits(self, z, estimator):
-        probs = estimator.get_prob(z, 0)
-        bits = torch.clamp(-torch.log(probs + 1e-5) / math.log(2.0), 0, 50)
-        return torch.sum(bits, dim=(1, 2, 3))
 
     # ------------------------------------------- inference stage methods
     # (the reference compress / decompress, DCVC_net.py:331-414; the
@@ -371,8 +381,8 @@ class DCVCNet(nn.Module):
             / pixel_num
         bpp_mv_y = laplace_bits_sum(torch.round(mv_feature - means_mv),
                                     scales_mv) / pixel_num
-        bpp_z = self._z_bits(z_hat, self.bit_estimator_z) / pixel_num
-        bpp_mv_z = self._z_bits(z_mv_hat, self.bit_estimator_z_mv) \
+        bpp_z = z_bits_sum(z_hat, self.bit_estimator_z) / pixel_num
+        bpp_mv_z = z_bits_sum(z_mv_hat, self.bit_estimator_z_mv) \
             / pixel_num
         return {"bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_mv_y": bpp_mv_y,
                 "bpp_mv_z": bpp_mv_z,

@@ -8,7 +8,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe tiles [--iters 50]
     python3 -m dcvc_tpu_torch.perf_probe train [--runs 1]
     python3 -m dcvc_tpu_torch.perf_probe legacy [--runs 2]
-    python3 -m dcvc_tpu_torch.perf_probe fm|hem|dc [--runs 2]
+    python3 -m dcvc_tpu_torch.perf_probe fm|hem|dc|tcm [--runs 2]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
@@ -48,13 +48,14 @@ published widths in float32 (chip_smoke.py's weights), a warm encode and
 decode at 1080p and 720p each, printing `profile`'s line per call
 (run_legacy).
 
-`fm`, `hem` and `dc` profile DCVC-FM's, DCVC-HEM's and DCVC-DC's P-frame
-codecs at their published widths in float32 (chip_smoke.py's weights:
-lifted_fm, lifted_hem, lifted_dc): a warm 1080p P frame's encode and
-decode, the DPB full, printing `profile`'s line per call (run_p_frame).
-Their blocks are not K1's and they decode on the host, so they launch no
-kernel of the port (fm_stage_launches, hem_stage_launches and
-dc_stage_launches derive that from the models on the meta device); nor
+`fm`, `hem`, `dc` and `tcm` profile DCVC-FM's, DCVC-HEM's, DCVC-DC's and
+DCVC-TCM's P-frame codecs at their published widths in float32
+(chip_smoke.py's weights: lifted_fm, lifted_hem, lifted_dc, lifted_tcm):
+a warm 1080p P frame's encode and decode, the DPB full, printing
+`profile`'s line per call (run_p_frame).  Their blocks are not K1's and
+they decode on the host, so they launch no kernel of the port
+(fm_stage_launches, hem_stage_launches, dc_stage_launches and
+tcm_stage_launches derive that from the models on the meta device); nor
 do the CompressAI intra codecs and DCVC-2021 (compressai_stage_launches,
 dcvc_stage_launches), whose weights chip_smoke.py lifts with
 lifted_compressai / lifted_dcvc.
@@ -558,6 +559,36 @@ def hem_stage_launches(cfg, h, w):
     return dict(log.calls)
 
 
+def tcm_stage_launches(cfg, h, w):
+    """The K1 launches of each stage of a DCVC-TCM P frame (DMCTCMCodec,
+    float32) on an (h, w) frame, from the model itself: its stage methods
+    on the meta device in the codec's order (frames padded to 64), and
+    the training forward of the family runner's estimated-bits mode, for
+    the first P frame after an intra frame (`first ...`, no feature in the
+    DPB) and a later one (`later ...`).  TCM's blocks are GDN / ResBlock
+    convs, not K1's, and it decodes on the host, so every Counter is
+    empty.  Returns {stage: Counter of Launch}."""
+    from .legacy.dcvc_tcm import DMCTCM
+    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
+    log = LaunchLog()
+    with torch.device("meta"), meta_launches(), log:
+        m = DMCTCM(cfg)
+        x = torch.empty(1, ph, pw, 3)
+        for which, feature in (("first", None),
+                               ("later", torch.empty(1, ph, pw, cfg.ch_n))):
+            def stage(name, fn, *args):
+                with log.call(f"{which} {name}"):
+                    return fn(*args)
+            mv_y, mv_z = stage("mv_analysis", m.mv_analysis, x, x)
+            stage("mv_prior", m.mv_prior, mv_z)
+            mv_hat = stage("mv_synthesis", m.mv_synthesis, mv_y)
+            ctx = stage("mc", m.mc, x, feature, mv_hat)
+            y, z = stage("ctx_analysis", m.ctx_analysis, x, *ctx)
+            stage("ctx_prior", m.ctx_prior, z, *ctx)
+            stage("synthesis", m.synthesis, y, *ctx)
+            stage("forward", m, x, x, feature)
+    return dict(log.calls)
+
 def dcvc_stage_launches(cfg, h, w):
     """The K1 launches of each stage of a DCVC-2021 P frame (DCVCCodec,
     float32) on an (h, w) frame, from the model itself: its stage methods
@@ -645,6 +676,49 @@ def lifted_dcvc(cfg, seed, lift=None):
         recon = m.contextual_decoder_part2.layers_3
         recon.weight.mul_(lift["recon_gain"])
         recon.bias.add_(lift["recon_bias"])
+    return m
+
+
+
+# DCVC-TCM's seeded random weights on the card: as DCVC-2021's, at the
+# JAX runner's init_scale 0.4 the GDN ladders leave mv_y and y far below
+# one and every symbol codes as 0.  The last convs of the mv and
+# contextual encoders (mv_gain, y_gain) and of the two hyper encoders
+# (mv_z_gain, z_gain) are lifted, the scale halves of the mv prior
+# decoder's and the entropy-parameter chain's last biases by scale_bias,
+# the mv decoder's last deconv (mv_hat_gain, so that the flow moves a
+# pixel or so) and the reconstruction's last conv (recon_gain,
+# recon_bias) so that x_hat spreads over [0, 1].  The gains are for
+# TCM_CONFIG (at 128x128: mv_y ~2, mv_z ~4, |mv_hat| ~0.8, y ~1.5, z ~3.7
+# on average); the tests' narrow configs take their own.
+TCM_LIFT = {"init_scale": LEGACY_INIT_SCALE, "mv_gain": 2.4e4,
+            "mv_hat_gain": 400.0, "y_gain": 1200.0, "mv_z_gain": 100.0,
+            "z_gain": 100.0, "scale_bias": 2.0, "recon_gain": 100.0,
+            "recon_bias": 0.5}
+
+
+def lifted_tcm(cfg, seed, lift=None):
+    """A float32 DMCTCM (on the CPU) with seeded random weights
+    (reset_parameters, as DMCTCMCodec.init_random draws them), lifted as
+    `lift` (TCM_LIFT when None) says."""
+    from .legacy.dcvc_tcm import DMCTCM
+    lift = TCM_LIFT if lift is None else lift
+    m = DMCTCM(cfg)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        m.damp_(lift["init_scale"])
+        m.mv_encoder.layers_12.weight.mul_(lift["mv_gain"])
+        m.ce_conv4.weight.mul_(lift["y_gain"])
+        m.mv_decoder.layers_8.weight.mul_(lift["mv_hat_gain"])
+        m.mv_prior_encoder.layers_4.weight.mul_(lift["mv_z_gain"])
+        m.contextual_hyper_prior_encoder.layers_4.weight.mul_(
+            lift["z_gain"])
+        # (scales, means) halves
+        m.mv_prior_decoder.layers_4.bias[:cfg.ch_mv] += lift["scale_bias"]
+        m.contextual_entropy_parameter.layers_4.bias[:cfg.ch_m] += \
+            lift["scale_bias"]
+        m.rg_recon_conv.weight.mul_(lift["recon_gain"])
+        m.rg_recon_conv.bias.add_(lift["recon_bias"])
     return m
 
 
@@ -1331,6 +1405,7 @@ FM_Q_INDEX = 51
 HEM_SEED = 40
 DC_SEED = 50
 DCVC_SEED = 60
+TCM_SEED = 80
 
 
 def fm_p_codec(dev):
@@ -1369,6 +1444,15 @@ def dcvc_p_codec(dev):
                      cfg=DCVC_CONFIG, device=dev)
 
 
+def tcm_p_codec(dev):
+    """DMCTCMCodec at TCM_CONFIG on the card, float32, with lifted_tcm's
+    weights (chip_smoke.py's)."""
+    from .legacy.dcvc_tcm import TCM_CONFIG
+    from .runtime.tcm_codec import DMCTCMCodec
+    return DMCTCMCodec(lifted_tcm(TCM_CONFIG, TCM_SEED).state_dict(),
+                       cfg=TCM_CONFIG, device=dev)
+
+
 def hem_q_scales(q_index):
     """HEM's (mv, y) q scales at a q index: the family runner's ladders."""
     from .eval.family import interpolate_log
@@ -1379,9 +1463,12 @@ def hem_q_scales(q_index):
 def p_frame_calls(name):
     """(codec builder, encode(codec, x, i, q), decode(codec, bits, i, q,
     h, w), seed) of a legacy P codec by name: FM (fa_idx from
-    INDEX_MAP_FM), DC (from INDEX_MAP_DC) or HEM (the q scales of the
-    family runner's ladders)."""
+    INDEX_MAP_FM), DC (from INDEX_MAP_DC), HEM (the q scales of the
+    family runner's ladders) or TCM (fixed-rate: no q)."""
     from .eval.family import INDEX_MAP_DC, INDEX_MAP_FM
+    if name == "TCM":
+        return (tcm_p_codec, lambda c, x, i, q: c.compress(x),
+                lambda c, b, i, q, h, w: c.decompress(b, h, w), TCM_SEED)
     if name == "HEM":
         return (hem_p_codec,
                 lambda c, x, i, q: c.compress(x, *hem_q_scales(q)),
@@ -1398,7 +1485,7 @@ def p_frame_calls(name):
 
 def run_p_frame(name, dev, runs):
     """`profile`'s lines for a warm legacy P frame at 1080p (`name`: FM,
-    HEM or DC at its published config, float32, chip_smoke.py's lifted
+    HEM, DC or TCM at its published config, float32, chip_smoke.py's lifted
     weights, q index FM_Q_INDEX): the DPB seeded with a frame and filled
     by one P frame, then the third frame's encode and decode, the DPB put
     back before each call, `runs` profiled calls each."""
@@ -1745,7 +1832,8 @@ def run_k2(dev, symbols, lanes, clocks=False):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles",
-                                     "train", "legacy", "fm", "hem", "dc"))
+                                     "train", "legacy", "fm", "hem", "dc",
+                                     "tcm"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
@@ -1774,7 +1862,7 @@ def main():
         run_train(dev, args.runs)
     elif args.mode == "legacy":
         run_legacy(dev, args.runs)
-    elif args.mode in ("fm", "hem", "dc"):
+    elif args.mode in ("fm", "hem", "dc", "tcm"):
         run_p_frame(args.mode.upper(), dev, args.runs)
     else:
         run_profile(dev, args.runs)

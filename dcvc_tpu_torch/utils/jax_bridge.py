@@ -35,8 +35,9 @@ by '.').  Their leaves convert by name: a conv
 `kernel` as above, a Dense `kernel` (I, O) to nn.Linear's (O, I), and
 q_basic (1, 1, 1, N), FM's q anchors (2, 1, 1, 1) and its grouped fusion
 kernel (g, I, O) keep their shapes.  DCVC-2021's and the CompressAI
-codecs' modules mirror the flax tree too (dcvc_params_from_jax / _to_jax,
-compressai_params_from_jax / _to_jax), with one more leaf kind: a flax
+codecs' and DCVC-TCM's modules mirror the flax tree too
+(dcvc_params_from_jax / _to_jax, compressai_params_from_jax / _to_jax,
+tcm_params_from_jax / _to_jax), with one more leaf kind: a flax
 ConvTranspose kernel (kh, kw, I, O) is ConvTranspose2d's weight (I, O,
 kh, kw) flipped in space, where the reference key map tags the leaf
 "deconv"; a CompressAI codec's file is the JAX codec's {"params",
@@ -51,7 +52,7 @@ from .checkpoint import PARAMS_V1, checkpoint_format, config_from_header, \
     load_header, load_params, load_reference_into, save_params
 from .keys import _LD_SEQ_TOPS, _STACKED_SUB, _stacked_leaf, \
     key_fn_cheng2020, key_fn_dcvc, key_fn_dmc_ht, key_fn_dmc_ld, \
-    key_fn_dmci, key_fn_evc, key_fn_hyperprior, key_fn_rt
+    key_fn_dmci, key_fn_evc, key_fn_hyperprior, key_fn_rt, key_fn_tcm
 
 
 def _leaves(tree, path=()):
@@ -527,6 +528,20 @@ def dcvc_params_to_jax(state):
     return _mirror_to_jax(state, key_fn_dcvc)
 
 
+def tcm_params_from_jax(flax_params):
+    """flax DMCTCM params (both adaptor branches merged, feature_adaptor_I
+    and _P, as the JAX codec holds them) -> the state_dict of
+    dcvc_tpu_torch.legacy.dcvc_tcm.DMCTCM (the deconvs' kernels flipped
+    into ConvTranspose2d's layout where key_fn_tcm tags them)."""
+    return _mirror_from_jax(flax_params, key_fn_tcm)
+
+
+def tcm_params_to_jax(state):
+    """The state_dict of a port DMCTCM -> the flax DMCTCM params (both
+    adaptor branches), the inverse of tcm_params_from_jax."""
+    return _mirror_to_jax(state, key_fn_tcm)
+
+
 _EB = "entropy_bottleneck."
 
 
@@ -561,6 +576,7 @@ def _converters(model):
     from ..legacy.dcvc_fm import DMCFM
     from ..legacy.dcvc_hem import DMCHEM
     from ..legacy.dcvc_rt import DMCRT
+    from ..legacy.dcvc_tcm import DMCTCM
     from ..legacy.evc import EVC
     from ..legacy.hem_intra import IntraNoAR
     from ..legacy.rt_intra import DMCIRT
@@ -583,6 +599,8 @@ def _converters(model):
         return hem_params_from_jax, hem_params_to_jax
     if isinstance(model, DCVCNet):
         return dcvc_params_from_jax, dcvc_params_to_jax
+    if isinstance(model, DMCTCM):
+        return tcm_params_from_jax, tcm_params_to_jax
     if isinstance(model, (ScaleHyperprior, Cheng2020Anchor)):
         key_fn = key_fn_hyperprior if isinstance(model, ScaleHyperprior) \
             else key_fn_cheng2020
@@ -599,7 +617,7 @@ def _converters(model):
 
 def load_native_into(model, path):
     """Fill `model` (a port DMCI, DMCHT, DMCLD, DMCIRT, DMCRT, EVC,
-    IntraNoAR, DMCFM, DMCDC, DMCHEM, DCVCNet, ScaleHyperprior or
+    IntraNoAR, DMCFM, DMCDC, DMCHEM, DCVCNet, DMCTCM, ScaleHyperprior or
     Cheng2020Anchor at the file's config: config_from_header of its
     header) from the dcvc_tpu.params.v1 file at `path`.  Raises KeyError on a parameter
     the file lacks or one the model does not use; load_state_dict raises on

@@ -9,11 +9,13 @@ key_fn_hem: the reference names of DCVC-FM's, DCVC-DC's and DCVC-HEM's
 keys, which their models' from_reference reads, legacy/dcvc_fm.py
 state_from_reference; key_fn_dcvc, key_fn_hyperprior, key_fn_cheng2020
 and import_entropy_bottleneck: DCVC-2021's and the CompressAI codecs',
-legacy/dcvc_net.py and legacy/compressai_zoo.py).  They are verbatim
+legacy/dcvc_net.py and legacy/compressai_zoo.py; key_fn_tcm: DCVC-TCM's,
+legacy/dcvc_tcm.py).  They are verbatim
 copies (pinned by tests/test_torch_core.py and, for DCVC-FM's, DC's and
 HEM's, tests/test_torch_fm_weights.py and
-tests/test_torch_hem_dc_weights.py, for the last four
-tests/test_torch_compressai.py and tests/test_torch_dcvc_net.py),
+tests/test_torch_hem_dc_weights.py, for the next four
+tests/test_torch_compressai.py and tests/test_torch_dcvc_net.py, for
+TCM's tests/test_torch_dcvc_tcm.py),
 because the port imports nothing of the JAX package.
 """
 
@@ -601,6 +603,92 @@ def key_fn_dcvc(path):
             out.append("conv.0" if s == "conv1" else "conv.2")
             continue
         out.append(s)
+    key = ".".join(out + [leaf])
+    return ("deconv", key) if deconv and leaf == "weight" else key
+
+
+# ---------------------------------------------------------------- DCVC-TCM
+
+_TCM_DECONV = {"mv_prior_decoder", "contextual_hyper_prior_decoder"}
+
+
+def _tcm_top(s):
+    """Our scope prefix -> torch module path
+    (DCVC-TCM/src/models/video_net_dmc.py module tree)."""
+    m = re.fullmatch(r"ce_(\w+)", s)
+    if m:
+        return f"contextual_encoder.{m.group(1)}"
+    m = re.fullmatch(r"cd_(\w+)", s)
+    if m:
+        return f"contextual_decoder.{m.group(1)}"
+    m = re.fullmatch(r"tp_(\w+)", s)
+    if m:
+        return f"temporal_prior_encoder.{m.group(1)}"
+    m = re.fullmatch(r"fx_conv(\d)", s)
+    if m:
+        return f"feature_extractor.conv{m.group(1)}"
+    m = re.fullmatch(r"fx_res(\d)", s)
+    if m:
+        return f"feature_extractor.res_block{m.group(1)}"
+    m = re.fullmatch(r"cf_res(\d)_(up|out)", s)
+    if m:
+        return f"context_fusion_net.res_block{m.group(1)}_{m.group(2)}"
+    m = re.fullmatch(r"cf_(conv\d_(?:up|out))", s)
+    if m:
+        return f"context_fusion_net.{m.group(1)}"
+    if s == "rg_conv":
+        return "recon_generation_net.feature_conv.0"
+    m = re.fullmatch(r"rg_res(\d)", s)
+    if m:
+        return f"recon_generation_net.feature_conv.{m.group(1)}"
+    if s == "rg_recon_conv":
+        return "recon_generation_net.recon_conv"
+    return s
+
+
+def key_fn_tcm(path):
+    """DCVC-TCM checkpoint map (video_net_dmc.py:17-147)."""
+    segs = list(path)
+    leaf = {"kernel": "weight"}.get(segs[-1], segs[-1])
+    top = segs[0]
+    if top in ("bit_estimator_z", "bit_estimator_z_mv"):
+        n = 3 if segs[-1] == "a" else 4
+        return ("stack_last", [f"{top}.f{i + 1}.{segs[-1]}"
+                               for i in range(n)])
+    out = [_tcm_top(top)]
+    deconv = False
+    rest = segs[1:-1]
+    i = 0
+    while i < len(rest):
+        s = rest[i]
+        nxt = rest[i + 1] if i + 1 < len(rest) else None
+        m = re.fullmatch(r"layers_(\d+)", s)
+        if m:
+            out.append(m.group(1))
+            if top in _TCM_DECONV:
+                deconv = True
+            i += 1
+            continue
+        m = re.fullmatch(r"moduleBasic_(\d+)", s)
+        if m:
+            out.append(f"moduleBasic.{m.group(1)}")
+            i += 1
+            continue
+        if s == "conv" and nxt == "conv":    # SubpelConv wrapper
+            out.append("0")
+            i += 2
+            continue
+        if s in ("conv1", "conv2") and nxt == "conv":  # HEMResBlock ConvK
+            out.append(s)
+            i += 2
+            continue
+        if s == "conv" and nxt is None:      # bare ConvK wrapper
+            i += 1
+            continue
+        out.append(s)
+        i += 1
+    if top == "mv_decoder" and out[-1] in ("0", "4", "6", "8"):
+        deconv = True
     key = ".".join(out + [leaf])
     return ("deconv", key) if deconv and leaf == "weight" else key
 

@@ -60,6 +60,7 @@ def _inputs(model, h, w, device):
     from ..legacy.dcvc_fm import DMCFM
     from ..legacy.dcvc_hem import DMCHEM
     from ..legacy.dcvc_net import DCVCNet
+    from ..legacy.dcvc_tcm import DMCTCM
     if isinstance(model, DMCFM):        # DMCDC too: the same arguments
         return _fm_inputs(model, h, w, device)
     if isinstance(model, DMCHEM):
@@ -67,6 +68,9 @@ def _inputs(model, h, w, device):
     frame = torch.zeros(1, h, w, 3, device=device)
     if isinstance(model, DCVCNet):      # (reference, current frame)
         return (frame, frame)
+    if isinstance(model, DMCTCM):       # a later P frame: its feature given
+        return (frame, frame, torch.zeros(1, h, w, model.cfg.ch_n,
+                                          device=device))
     if isinstance(model, (ScaleHyperprior, Cheng2020Anchor)):
         return (frame,)
     cfg = model.cfg
@@ -87,7 +91,8 @@ def model_macs_per_pixel(model, h=256, w=256):
     chunk codes frame_delay of them).  DCVC-FM's, DCVC-DC's and
     DCVC-HEM's (DMCFM, DMCDC, DMCHEM): the eval forward of a later P
     frame, one frame; DCVC-2021's (DCVCNet) its eval forward of a P frame,
-    the CompressAI models' (ScaleHyperprior, Cheng2020Anchor) their
+    DCVC-TCM's (DMCTCM) its training forward of a later P frame, the
+    CompressAI models' (ScaleHyperprior, Cheng2020Anchor) their
     estimation forward of an image."""
     h, w = -(-h // 64) * 64, -(-w // 64) * 64
     device = next(model.parameters()).device

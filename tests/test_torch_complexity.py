@@ -23,6 +23,7 @@ from dcvc_tpu_torch.legacy.dcvc_dc import DMCDC, TINY_DC_CONFIG
 from dcvc_tpu_torch.legacy.dcvc_net import DCVCNet, TINY_DCVC_CONFIG
 from dcvc_tpu_torch.legacy.dcvc_fm import DMCFM, TINY_FM_CONFIG
 from dcvc_tpu_torch.legacy.dcvc_hem import DMCHEM, TINY_HEM_CONFIG
+from dcvc_tpu_torch.legacy.dcvc_tcm import DMCTCM, TINY_TCM_CONFIG
 from dcvc_tpu_torch.models.dmc_ht import DMCHT, TINY_HT_CONFIG, \
     TINY_HTL_CONFIG
 from dcvc_tpu_torch.models.dmc_ld import DMCLD, TINY_LD_CONFIG
@@ -49,9 +50,10 @@ def test_conv_macs():
     lambda: DMCFM(TINY_FM_CONFIG), lambda: DMCHEM(TINY_HEM_CONFIG),
     lambda: DMCDC(TINY_DC_CONFIG), lambda: DCVCNet(TINY_DCVC_CONFIG),
     lambda: Cheng2020Anchor(TINY_CHENG2020),
-    lambda: ScaleHyperprior(TINY_HYPERPRIOR)],
+    lambda: ScaleHyperprior(TINY_HYPERPRIOR),
+    lambda: DMCTCM(TINY_TCM_CONFIG)],
     ids=["dmci", "hts", "htl", "ld", "fm", "hem", "dc", "dcvc", "cheng2020",
-         "bmshj2018"])
+         "bmshj2018", "tcm"])
 def test_model_complexity_runs(model):
     model = model()
     kmacs = model_macs_per_pixel(model, 64, 64)

@@ -176,8 +176,8 @@ def test_yuv_reader_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("model", ["dc", "hem", "tcm", "dcvc"])
 def test_models_not_ported_raise(model, tmp_path):
-    """TCM is not ported and raises; HEM, DC and DCVC, once on this list,
-    build their codecs."""
+    """HEM, DC, DCVC and TCM, once on this list, build their codecs; a
+    model still in NOT_PORTED (none now) raises."""
     if model in family.NOT_PORTED:
         with pytest.raises(ValueError, match="ROADMAP.md"):
             family.FamilyRunner(model, str(tmp_path), tiny=True,

@@ -170,7 +170,7 @@ def test_cli_and_fast_match_jax(model_files, png_seq, jax_run,  # noqa: F811
 
 
 def test_dcvc_ported():
-    assert family.NOT_PORTED == ("tcm",)
+    assert family.NOT_PORTED == ()
     assert "dcvc" in family.MODELS and "dcvc" in family.FAST_MODELS
     assert image_main.NOT_PORTED == ()
 

@@ -195,7 +195,7 @@ def test_fast_matches_jax(model_files, png_seq, jax_runner,  # noqa: F811
 
 def test_models_ported():
     assert set(family.MODELS) >= {"hem", "dc"}
-    assert family.FAST_MODELS == ("fm", "hem", "dcvc")
+    assert family.FAST_MODELS == ("fm", "hem", "dcvc", "tcm")
     assert family.INDEX_MAP_DC == jfamily.INDEX_MAP_DC
     for model in family.NOT_PORTED:
         with pytest.raises(ValueError, match="not ported yet"):
