@@ -143,6 +143,28 @@ every K2 launch's inputs:
     bit-exact).  Their K2 calls are counted, not replayed.  Then each
     full-width model's kMACs per pixel at 1080p (FlopCounterMode on the
     meta device).
+  - the spatial split of DMCI (parallel/spatial.py): DMCICodec with
+    spatial_devices=[cuda:0] * tiles at DMCIConfig(), bf16, the DMCI
+    part's weights, on a 1080p and a 2160p frame at qp 0 and 32 in 2
+    tiles and a 1080p frame at qp 32 in 4: encode -> host decode and K2
+    decode bit-exact, two encodes equal, the split stream decoded by the
+    unsplit codec and the unsplit one by the split codec with the
+    decoders' symbols the encoders', K1 launches per call as derived on
+    the meta device for the tile shapes (perf_probe.spatial_dmci_launches),
+    warm wall ms split and unsplit;
+  - the training surface of PR 16 (f32, no kernel): the data scripts
+    (yuv_to_png on a seeded 1080p YUV420 file of 2 frames, make_synth's
+    corpus; their PNGs read back), the trainers' CLIs as rank 0 of a
+    one-rank NCCL job (WORLD_SIZE=1) on that corpus, one DMCI and one LD
+    step with the NCCL all-reduce against the plain step (bit-exact, ms
+    per step), dryrun_multichip(2) on cuda:0 over gloo against one
+    process (smooth pictures and uniform noise); a JAX-layout status at
+    DMCIConfig() written and resumed (the next step bit-exact with the
+    uninterrupted run's), status_to_ckpt's params.v1 coding a 720p frame
+    to the same bytes; EVC_LL mask decay (exact folds on the card, gates
+    decaying, ms per step).
+Before the main path, parallel/dryrun.entry() (the DMCI forward at
+256x256 in bf16) runs once and is timed.
 Every device decode of the parts before the evaluation entry runs under
 torch.cuda.set_sync_debug_mode("error") once its lanes are uploaded: a
 host sync fails it.  Last, both forms of K1 are held against their plain
@@ -217,9 +239,9 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     lifted_compressai, \
     make_sequence, max_sm_clock_mhz, nvidia_smi, p_frame_calls, \
     profile_launches, run_k2_case, \
-    rt_stage_launches, sass_counts, smooth_frame, TRAIN_CELLS, \
-    TRAIN_INIT_SCALE, damped_model, tcm_p_codec, tcm_stage_launches, \
-    train_setup
+    rt_stage_launches, sass_counts, smooth_frame, spatial_dmci_launches, \
+    TRAIN_CELLS, TRAIN_INIT_SCALE, TRAIN_LAMBDAS, TRAIN_LR, damped_model, \
+    tcm_p_codec, tcm_stage_launches, train_setup
 from dcvc_tpu_torch.runtime.compressai_codec import Cheng2020Codec, \
     HyperpriorCodec
 from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
@@ -3197,6 +3219,489 @@ def phase_trained_codecs(dev, launch_log, k2_log):
     return tuple(a + b for a, b in zip(derived, video_derived))
 
 
+# ---------------------------------------------- the spatial split of DMCI
+# (h, w, qp, tiles, frame seed): 1080p and 2160p in 2 row tiles, 1080p in
+# 4, each tile on cuda:0 (parallel/spatial.py)
+SPATIAL_CASES = [(1080, 1920, 0, 2, 90), (1080, 1920, 32, 2, 90),
+                 (2160, 3840, 0, 2, 91), (2160, 3840, 32, 2, 91),
+                 (1080, 1920, 32, 4, 90)]
+SPATIAL_TIMED = 11  # warm calls of each codec, their median printed
+DDP_STEPS = 4       # steps per side of the DDP vs plain step timing
+MASK_STEPS = 4      # mask-decay steps
+STATUS_QP = 32      # the qp of the status checkpoint's codec check
+
+
+def spatial_launches(h, w, tiles):
+    """(encode, decode) K1 launches of a split DMCI call, derived from the
+    model on the meta device over the tile shapes
+    (perf_probe.spatial_dmci_launches)."""
+    stages = spatial_dmci_launches(DMCIConfig(), h, w, tiles)
+    n = {k: sum(v.values()) for k, v in stages.items()}
+    return sum(n.values()), sum(n.values()) - n["analysis"]
+
+
+def same_symbols(tag, enc, dec):
+    """The decoder's collect_symbols entry equals the encoder's."""
+    if not (np.array_equal(enc["z"], dec["z"])
+            and all(np.array_equal(a, b) for k in ("y", "idx")
+                    for a, b in zip(enc[k], dec[k]))):
+        raise AssertionError(f"{tag}: the decoder's symbols differ from "
+                             f"the encoder's")
+
+
+def collected(codec, fn):
+    """fn() with codec.collect_symbols on; returns (result, its entry)."""
+    codec.collect_symbols = []
+    try:
+        out = fn()
+        return out, codec.collect_symbols[0]
+    finally:
+        codec.collect_symbols = None
+
+
+def phase_spatial(dev, launch_log, k2_log):
+    """DMCICodec(spatial_devices=[cuda:0] * tiles) at DMCIConfig(), bf16,
+    skip 0.15, the smoke's DMCI weights (seed 0), on SPATIAL_CASES: its
+    encode -> host decode bit-exact with the decoder's symbols the
+    encoder's, every encode the same bytes, and its K2 device decode
+    bit-exact; the split stream decoded by the unsplit codec and the
+    unsplit stream by the split codec, the symbols exact (the
+    reconstructions' max |diff| printed: the synthesis runs on other
+    shapes); K1 launches per call as spatial_launches derives; the
+    medians of SPATIAL_TIMED warm encodes and decodes of both codecs.
+    Returns the (S = 1, stacked, K2) launches derived for it."""
+    kw = {"cfg": DMCIConfig(), "skip_thres": 0.15, "dtype": torch.bfloat16,
+          "device": dev}
+    whole = DMCICodec.init_random(torch.Generator().manual_seed(0), **kw)
+    splits = {n: DMCICodec.init_random(torch.Generator().manual_seed(0),
+                                       spatial_devices=[dev] * n, **kw)
+              for n in sorted({c[3] for c in SPATIAL_CASES})}
+    derived = [0, 0, 0]
+    for h, w, qp, tiles, seed in SPATIAL_CASES:
+        split = splits[tiles]
+        enc_n, dec_n = spatial_launches(h, w, tiles)
+        x = smooth_frame(h, w, seed, dev)
+        tag = f"spatial DMCI {w}x{h} qp={qp} tiles={tiles}"
+        ms = {}
+        for name, codec, n_enc, n_dec in (
+                ("split", split, enc_n, dec_n),
+                ("unsplit", whole, ENCODE_LAUNCHES, DECODE_LAUNCHES)):
+            def encode(run):
+                return counted(launch_log, f"{tag} {name} {run} encode",
+                               lambda: codec.compress(x, qp))
+
+            def decode(run, res):
+                return counted(launch_log, f"{tag} {name} {run} decode",
+                               lambda: codec.decompress(
+                                   bytes(res["bit_stream"]), qp, h, w,
+                                   res["ec_parallel"])["x_hat"])
+            (res, _, *e), enc_sym = collected(codec,
+                                              lambda: encode("cold"))
+            (x_dec, _, *d), dec_sym = collected(codec, lambda: decode(
+                "cold", res))
+            same_symbols(f"{tag} {name} round trip", enc_sym, dec_sym)
+            stream = bytes(res["bit_stream"])
+            times = []
+            for run in range(1 + SPATIAL_TIMED):
+                if run:
+                    res, e_ms, *e = encode(f"warm {run}")
+                    x_dec, d_ms, *d = decode(f"warm {run}", res)
+                    times.append((e_ms, d_ms))
+                if not torch.equal(res["x_hat"], x_dec) or \
+                        not bool(torch.isfinite(x_dec).all()) or \
+                        bytes(res["bit_stream"]) != stream:
+                    raise AssertionError(f"{tag} {name}: not bit-exact or "
+                                         f"not repeatable")
+                expect(f"{tag} {name} encode", tuple(e), (n_enc, 0, 0))
+                expect(f"{tag} {name} decode", tuple(d), (n_dec, 0, 0))
+                derived[0] += n_enc + n_dec
+            ms[name] = [statistics.median(t[i] for t in times)
+                        for i in (0, 1)]
+            if name == "split":
+                x_dev, v_ms, *v = device_decode(
+                    split, k2_log, f"{tag} device decode", launch_log,
+                    stream, res["ec_parallel"], qp, h, w,
+                    res["ec_parallel"])
+                if not torch.equal(x_dev, res["x_hat"]):
+                    raise AssertionError(f"{tag}: the K2 decode's x_hat "
+                                         f"differs")
+                expect(f"{tag} device decode", tuple(v),
+                       (dec_n, 0, DMCI_K2_LAUNCHES))
+                derived[0] += dec_n
+                derived[2] += DMCI_K2_LAUNCHES
+                split_stream, split_res = stream, res
+            else:
+                whole_stream, whole_res = stream, res
+        diffs = {}
+        for name, enc_codec, dec_codec, enc_res, n_enc, n_dec in (
+                ("split -> unsplit", split, whole, split_res, enc_n,
+                 DECODE_LAUNCHES),
+                ("unsplit -> split", whole, split, whole_res,
+                 ENCODE_LAUNCHES, dec_n)):
+            (_, _, *e), enc_sym = collected(enc_codec, lambda: counted(
+                launch_log, f"{tag} {name} encode",
+                lambda: enc_codec.compress(x, qp)))
+            (xc, _, *c), dec_sym = collected(dec_codec, lambda: counted(
+                launch_log, f"{tag} {name} decode", lambda: dec_codec
+                .decompress(bytes(enc_res["bit_stream"]), qp, h, w,
+                            enc_res["ec_parallel"])["x_hat"]))
+            same_symbols(f"{tag} {name}", enc_sym, dec_sym)
+            expect(f"{tag} {name} encode", tuple(e), (n_enc, 0, 0))
+            expect(f"{tag} {name} decode", tuple(c), (n_dec, 0, 0))
+            derived[0] += n_enc + n_dec
+            if not bool(torch.isfinite(xc).all()):
+                raise AssertionError(f"{tag} {name}: non-finite x_hat")
+            diffs[name] = float((xc - enc_res["x_hat"]).abs().max())
+        log("spatial " + json.dumps({
+            "case": tag, "bytes_split": len(split_stream),
+            "bytes_unsplit": len(whole_stream),
+            "same_bytes_as_unsplit": split_stream == whole_stream,
+            "k1_per_call_enc_dec": [enc_n, dec_n],
+            "warm_ms_split_enc_dec": ms["split"],
+            "warm_ms_unsplit_enc_dec": ms["unsplit"],
+            "device_decode_ms_split": v_ms,
+            "ratio_enc_dec": [ms["split"][0] / ms["unsplit"][0],
+                              ms["split"][1] / ms["unsplit"][1]],
+            "cross_decode_max_abs_diff": diffs}))
+    del whole, splits
+    torch.cuda.empty_cache()
+    return tuple(derived)
+
+
+# ------------------------------------- the data scripts, DDP, status files
+
+
+def phase_data_scripts(dev, root):
+    """dcvc_tpu_torch.data.yuv_to_png on a seeded 1080p YUV420 file of 2
+    frames (its PNGs, read back by utils/png.py, within one level of the
+    port's ycbcr2rgb on the card), and dcvc_tpu_torch.data.make_synth on
+    a corpus of 4 images and 4 sequences of 3 frames at TRAIN_SIDE (its
+    PNGs read back, its description.json files complete).  Returns the
+    corpus' (images, videos) folders; launches nothing."""
+    from dcvc_tpu_torch.core.color import ycbcr2rgb
+    from dcvc_tpu_torch.data import make_synth, yuv_to_png
+    t0 = time.perf_counter()
+    h, w = 1080, 1920
+    raw = np.random.default_rng(17).integers(
+        0, 256, 2 * h * w * 3 // 2, np.uint8)
+    src = os.path.join(root, "seq.yuv")
+    raw.tofile(src)
+    dst = os.path.join(root, "png")
+    if yuv_to_png.main(["--src", src, "--width", str(w), "--height",
+                        str(h), "--dst", dst]) != 2:
+        raise AssertionError("yuv_to_png: not 2 frames")
+    worst = 0
+    for n in range(2):
+        frame = raw[n * h * w * 3 // 2:(n + 1) * h * w * 3 // 2]
+        y = torch.from_numpy(frame[:h * w].reshape(h, w).copy())
+        uv = torch.from_numpy(frame[h * w:].reshape(2, h // 2, w // 2)
+                              .copy())
+        uv = uv.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        yuv = torch.cat([y[None], uv]).to(dev).float().permute(1, 2, 0) / 255
+        want = torch.round(ycbcr2rgb(yuv) * 255).clamp(0, 255).cpu()
+        got = torch.from_numpy(load_rgb(os.path.join(
+            dst, f"im{n + 1:05d}.png"))).float()
+        worst = max(worst, float((got - want).abs().max()))
+    if worst > 1:
+        raise AssertionError(f"yuv_to_png: PNG pixels {worst} levels off "
+                             f"the card's conversion")
+    synth = os.path.join(root, "synth")
+    images, videos = make_synth.main(["--root", synth, "--images", "4",
+                                      "--seqs", "4", "--frames", "3",
+                                      "--size", str(TRAIN_SIDE)])
+    with open(os.path.join(videos, "description.json")) as f:
+        desc = json.load(f)
+    for seq in desc["seqs"]:
+        for name in desc["frames"]:
+            if load_rgb(os.path.join(videos, seq["path"], name)).shape != \
+                    (TRAIN_SIDE, TRAIN_SIDE, 3):
+                raise AssertionError("make_synth: a frame of another size")
+    with open(os.path.join(images, "description.json")) as f:
+        if len(json.load(f)) != 4:
+            raise AssertionError("make_synth: not 4 images")
+    log(f"data scripts: yuv_to_png 2 1080p frames (PNG vs the card's "
+        f"ycbcr2rgb, max |diff| {worst} levels), make_synth 4 images + 4 x "
+        f"3 frames at {TRAIN_SIDE}^2, read back, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return images, videos
+
+
+class TorchrunEnv:
+    """Inside, the environment of rank 0 of a torchrun job of one rank on
+    a free local port (WORLD_SIZE=1): the trainers join a NCCL group."""
+
+    def __enter__(self):
+        from dcvc_tpu_torch.parallel.ddp import free_port
+        env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+        self.saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_ddp(dev, root, images, videos):
+    """Data-parallel training (parallel/ddp.py), f32 at the published
+    widths: train.image_main and train.video_main --model_structure ld
+    through their CLIs as rank 0 of a one-rank NCCL job (TorchrunEnv), 2
+    steps each on make_synth's corpus at perf_probe.TRAIN_CELLS' batch 4
+    (video_main from damped checkpoints: neither step skipped); one
+    step of the DMCI and LD cells with the NCCL all-reduce against the
+    plain step (the same parameters after it, bit for bit; ms per step,
+    medians of DDP_STEPS alternating); and dryrun_multichip(2) on cuda:0
+    over gloo against one process, on its smooth pictures and on uniform
+    noise (the TINY LD near overflow).  Launches no kernel."""
+    import torch.distributed as dist
+    from dcvc_tpu_torch.parallel import ddp, dryrun
+    common = ["--device", dev.type, "--batch_size", "4", "-e", "1",
+              "--max_steps_per_epoch", "2", "--data_repeat", "2", "-n", "1",
+              "--lambdas", "8", "256"]
+    out_i, out_p = os.path.join(root, "ddp_i"), os.path.join(root, "ddp_p")
+    i_init = os.path.join(root, "i_init.pth.tar")
+    ld_init = os.path.join(root, "ld_init.pth.tar")
+    save_reference(i_init, damped_model(DMCI, DMCIConfig(), 10,
+                                        TRAIN_INIT_SCALE))
+    save_reference(ld_init, damped_model(DMCLD, LD_CONFIG, 0,
+                                         TRAIN_INIT_SCALE))
+    t0 = time.perf_counter()
+    with TorchrunEnv():
+        train_image_main.main(common + ["--train_dataset", images,
+                                        "--save_dir", out_i,
+                                        "--max_patch", str(TRAIN_SIDE)])
+    with TorchrunEnv():
+        train_video_main.main(common + [
+            "--train_dataset", videos, "--save_dir", out_p,
+            "--model_structure", "ld", "--model_path_i", i_init,
+            "--pretrain_path", ld_init, "--max_patch", str(TRAIN_SIDE)])
+    if dist.is_initialized():
+        raise AssertionError("a trainer left its process group")
+    taken = {}
+    for name, out in (("image_main", out_i), ("video_main", out_p)):
+        status = load_latest_status(out)
+        taken[name] = min(int(s["step"]) for s in
+                          status["optimizer"]["state"].values()) \
+            if status["optimizer"]["state"] else 0
+    if taken["video_main"] != 2 or status["step"] != 2:
+        raise AssertionError(f"video_main under WORLD_SIZE=1: {taken}")
+    log(f"DDP trainers (WORLD_SIZE=1, NCCL): image_main and video_main "
+        f"--model_structure ld, 2 steps each at batch 4, in "
+        f"{time.perf_counter() - t0:.3f} s with their setup; AdamW steps "
+        f"taken: {json.dumps(taken)}")
+    with TorchrunEnv():
+        rank = ddp.from_env(str(dev))
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            for cell in TRAIN_CELLS[:2]:
+                sides = {}
+                for dp_on in (False, True, True, False):
+                    torch.cuda.empty_cache()
+                    model, step = train_setup(cell, dev,
+                                              data_parallel=dp_on)
+                    step()
+                    torch.cuda.synchronize()
+                    first = [p.detach().clone() for p in model.parameters()]
+                    times = []
+                    for _ in range(DDP_STEPS):
+                        t1 = time.perf_counter()
+                        m = step()
+                        torch.cuda.synchronize()
+                        times.append(1e3 * (time.perf_counter() - t1))
+                    sides.setdefault(dp_on, []).append((first, times, m))
+                    del model, step
+                for a, b in zip(sides[False][0][0], sides[True][0][0]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"DDP {cell.label}: the step "
+                                             f"differs from the plain one")
+                log("DDP step " + json.dumps({
+                    "cell": cell.label, "world_size": rank.world,
+                    "ms_plain": [t for _, t, _ in sides[False]],
+                    "ms_ddp_nccl": [t for _, t, _ in sides[True]],
+                    "median_plain": statistics.median(
+                        sum((t for _, t, _ in sides[False]), [])),
+                    "median_ddp": statistics.median(
+                        sum((t for _, t, _ in sides[True]), [])),
+                    "same_parameters_after_a_step": True}))
+        finally:
+            ddp.shutdown(rank)
+    for inputs in ("smooth", "noise"):
+        t0 = time.perf_counter()
+        result = dryrun.dryrun_multichip(2, str(dev), inputs=inputs)
+        log(f"dryrun_multichip(2) on {dev} over gloo, {inputs} inputs: "
+            + json.dumps(result) + f", {time.perf_counter() - t0:.3f} s "
+            f"with the spawns")
+    return (0, 0, 0)
+
+
+def phase_entry(dev):
+    """parallel/dryrun.entry(): the DMCI training forward at 256x256 in
+    bf16 on the card, finite, timed (warm, median of 5).  Runs before
+    the main path's counts (its DCBs go through K1)."""
+    from dcvc_tpu_torch.parallel.dryrun import entry
+    fn, args = entry(str(dev))
+    with torch.no_grad():
+        fn(*args)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x_hat, bpp, mse = fn(*args)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    if x_hat.shape != (1, 256, 256, 3) or not all(
+            bool(torch.isfinite(t.float()).all()) for t in (x_hat, bpp, mse)):
+        raise AssertionError("entry(): a non-finite or misshapen output")
+    log(f"entry(): DMCI forward 256x256 bf16, bpp {float(bpp)}, "
+        f"ms {statistics.median(ms)} (median of 5)")
+
+
+def phase_status(dev, root, launch_log):
+    """The JAX trainers' status files at the published DMCI width (f32):
+    after one step (perf_probe.TRAIN_CELLS[0]'s batch) the model and its
+    AdamW state are written as a JAX status (utils/jax_status.py), read
+    back into a fresh model, and its next step equals the next step of
+    the run that did not stop, bit for bit (parameters, moments,
+    metrics); status_to_ckpt turns the file into params.v1, and the DMCI
+    codec from it (bf16) codes a 720p frame to the bytes of the codec
+    from the in-memory weights.  Launches nothing but the codecs' K1
+    (counted outside the main path's parts: returns the launches it
+    derives)."""
+    from dcvc_tpu_torch.utils import jax_status, status_to_ckpt
+    cfg = DMCIConfig()
+    cell = TRAIN_CELLS[0]
+    b, side = cell.batch, cell.patch
+    gen = torch.Generator(device=dev).manual_seed(43)
+    x = torch.round((torch.cat([smooth_frame(side, side, 60 + i, dev)
+                                for i in range(b)]) + 0.5) * 255) \
+        .to(torch.uint8)
+    qp = torch.arange(b, device=dev) * 17 % cfg.qp_num
+    lambdas = torch.tensor(get_training_lambdas(TRAIN_LAMBDAS, cfg.qp_num),
+                           dtype=torch.float32, device=dev)
+    noise = [draw_noise(cfg, b, side, side, gen, dev) for _ in range(2)]
+    a = damped_model(DMCI, cfg, 0, TRAIN_INIT_SCALE).to(dev)
+    opt_a = Optimizer(a, TRAIN_LR, 0.1)
+    image_train_step(a, opt_a, x, qp, lambdas, noise[0])
+    snapshot = {k: v.detach().cpu().clone() for k, v in
+                a.state_dict().items()}
+    status_dir = os.path.join(root, "status")
+    t0 = time.perf_counter()
+    jax_status.save_status(status_dir, a, opt_a, 0, cfg)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(jax_status.status_path(status_dir, 0))
+    m_a = image_train_step(a, opt_a, x, qp, lambdas, noise[1])
+    b_model = DMCI(cfg).to(dev)
+    opt_b = Optimizer(b_model, TRAIN_LR, 0.1)
+    t0 = time.perf_counter()
+    epoch = jax_status.load_into(b_model, opt_b,
+                                 jax_status.load_latest_status(status_dir))
+    read_s = time.perf_counter() - t0
+    m_b = image_train_step(b_model, opt_b, x, qp, lambdas, noise[1])
+    same = epoch == 0 and all(
+        float(m_a[k]) == float(m_b[k]) for k in ("loss", "grad_norm")) \
+        and all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                   b_model.parameters())) \
+        and all(torch.equal(opt_a.adamw.state[p][k],
+                            opt_b.adamw.state[q][k])
+                for p, q in zip(a.parameters(), b_model.parameters())
+                for k in ("exp_avg", "exp_avg_sq"))
+    if not same:
+        raise AssertionError("the step resumed from the JAX status differs "
+                             "from the uninterrupted run's")
+    del a, b_model, opt_a, opt_b
+    ckpt = os.path.join(root, "status_ckpt.bin")
+    if status_to_ckpt.main([status_dir, ckpt]) != 0:
+        raise AssertionError("status_to_ckpt failed")
+    kw = {"cfg": cfg, "skip_thres": 0.15, "dtype": torch.bfloat16,
+          "device": dev}
+    frame = smooth_frame(720, 1280, 61, dev)
+    streams = []
+    for state in (snapshot, load_native_into(DMCI(cfg), ckpt).state_dict()):
+        codec = DMCICodec(state, **kw)
+        res, _, *n = counted(launch_log, "status -> params.v1 encode",
+                             lambda: codec.compress(frame, STATUS_QP))
+        expect("status -> params.v1 encode", tuple(n),
+               (ENCODE_LAUNCHES, 0, 0))
+        streams.append(bytes(res["bit_stream"]))
+        del codec
+    if streams[0] != streams[1]:
+        raise AssertionError("status_to_ckpt's params.v1 codes other bytes")
+    log(f"JAX status at DMCIConfig(): {size} bytes, written in {write_s:.3f}"
+        f" s, read in {read_s:.3f} s; the resumed step equals the "
+        f"uninterrupted one bit for bit (loss {float(m_b['loss'])}); "
+        f"status_to_ckpt -> params.v1 codes a 720p frame to the same "
+        f"{len(streams[0])} bytes")
+    torch.cuda.empty_cache()
+    return (2 * ENCODE_LAUNCHES, 0, 0)
+
+
+def phase_mask_decay(dev):
+    """EVC's mask decay (train/mask_decay.py) at EVC_LL_CONFIG, f32, TF32
+    off, random kernels x TRAIN_INIT_SCALE: all-ones gates fold to the
+    model itself and a zero gate equals the hard-pruned channel, both bit
+    for bit on the card; then MASK_STEPS steps (lam 0.1, decay 3.0) on a
+    batch of 2 256x256 uint8 images: every loss finite, no step skipped,
+    the gates' total |m| falling; ms per step.  Launches nothing."""
+    from dcvc_tpu_torch.legacy.evc import EVC, EVC_LL_CONFIG
+    from dcvc_tpu_torch.train import mask_decay as md
+    model = damped_model(EVC, EVC_LL_CONFIG, 3, TRAIN_INIT_SCALE).to(dev)
+    x = torch.round((torch.cat([smooth_frame(256, 256, 70 + i, dev)
+                                for i in range(2)]) + 0.5) * 255) \
+        .to(torch.uint8)
+    x01 = x.float() / 255
+    masks = md.init_masks(model)
+    keys = md.conv1_keys(model)
+    zeroed = sorted(masks)[:3]
+    gated = {k: m.clone() for k, m in masks.items()}
+    pruned = copy.deepcopy(model)
+    with torch.no_grad():
+        for site in zeroed:
+            gated[site][[0, 3]] = 0.0
+            for key in keys[site]:
+                if key is not None:
+                    pruned.get_parameter(key)[[0, 3]] = 0.0
+        ones = md.folded_forward(model, masks, x01)
+        plain = model(x01)
+        got = md.folded_forward(model, gated, x01)
+        want = pruned(x01)
+    if not all(torch.equal(ones[k], plain[k]) and torch.equal(got[k],
+                                                              want[k])
+               for k in ("x_hat", "bpp")):
+        raise AssertionError("mask decay: a fold is not exact on the card")
+    del pruned
+    opt = md.create_mask_decay_state(model, TRAIN_LR, 0.1)
+    step = md.make_mask_decay_step(model, opt, 0.1, 3.0)
+    total = [sum(float(m.abs().sum()) for m in masks.values())]
+    ms, losses = [], []
+    for _ in range(MASK_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, m = step(masks, x)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if m["skipped"] or not bool(torch.isfinite(m["loss"])):
+            raise AssertionError(f"mask decay: loss {float(m['loss'])}, "
+                                 f"skipped {m['skipped']}")
+        losses.append(float(m["loss"]))
+        total.append(sum(float(g.abs().sum()) for g in masks.values()))
+    if not all(b < a for a, b in zip(total, total[1:])):
+        raise AssertionError(f"mask decay: the gates did not decay {total}")
+    rep = md.sparsity_report(masks, thresh=0.9)
+    log("mask decay " + json.dumps({
+        "config": "EVC_LL", "batch": "2x256x256", "sites": len(masks),
+        "gates": rep["total_gates"], "ms_per_step": ms,
+        "median_ms_after_first": statistics.median(ms[1:]),
+        "losses": losses, "gate_abs_sum": total,
+        "share_below_0.9": rep["overall"]}))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return (0, 0, 0)
+
+
 def launch_counts():
     return (K1.fused_dcb.launches, K1.fused_dcb_stacked.launches,
             K2.rans_decode.launches)
@@ -3262,6 +3767,7 @@ def main():
     phase_stages_compressai_dcvc(compressai, dcvc_p)
     phase_stages_tcm(tcm_p)
     phase_train_parity(dev)
+    phase_entry(dev)
 
     # the main path, one part at a time, each with the counts set to 0
     # just before it and read just after; K2's calls are recorded for
@@ -3289,7 +3795,23 @@ def main():
                                              tcm_p))]
     parts += [("training", lambda: phase_train(dev)),
               ("trainers -> codecs",
-               lambda: phase_trained_codecs(dev, launch_log, k2_log))]
+               lambda: phase_trained_codecs(dev, launch_log, k2_log)),
+              ("spatial DMCI", lambda: phase_spatial(dev, launch_log,
+                                                     k2_log))]
+    # the training surface of PR 16, in a temporary directory of the
+    # checkout: the data scripts' corpus feeds the DDP trainers
+    surface = scratch_dir("surface")
+    corpus = {}
+
+    def data_scripts():
+        corpus["images"], corpus["videos"] = phase_data_scripts(dev, surface)
+        return (0, 0, 0)
+    parts += [("data scripts", data_scripts),
+              ("data-parallel training", lambda: phase_ddp(
+                  dev, surface, corpus["images"], corpus["videos"])),
+              ("JAX status files", lambda: phase_status(dev, surface,
+                                                        launch_log)),
+              ("mask decay", lambda: phase_mask_decay(dev))]
     got, want = {}, {}
     with launch_log:
         with k2_log:
@@ -3318,6 +3840,7 @@ def main():
             zero_launch_counts()
             want[part] = run()
             got[part] = launch_counts()
+    shutil.rmtree(surface)
     phase_complexity()
     log("main path launches (fused_dcb, fused_dcb_stacked, rans_decode): "
         + "; ".join(f"{part} {got[part]}, derived {want[part]}"

@@ -9,6 +9,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe train [--runs 1]
     python3 -m dcvc_tpu_torch.perf_probe legacy [--runs 2]
     python3 -m dcvc_tpu_torch.perf_probe fm|hem|dc|tcm [--runs 2]
+    python3 -m dcvc_tpu_torch.perf_probe mask [--runs 2]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
@@ -65,6 +66,10 @@ HTS, HTL at their published widths in float32, TF32 off), takes one warm
 step and then profiles `runs` steps, printing per step the JSON line of
 `profile` (wall, device busy, idle share, top device operations).
 chip_smoke.py times the same cells without the profiler.
+
+`mask` profiles `runs` warm steps of EVC's mask decay at EVC_LL_CONFIG
+(chip_smoke.py's weights and batch of 2 256x256 images, float32, TF32
+off), printing `profile`'s line per step (run_mask_decay).
 
 Needs one CUDA device; prints the card's name and power limit first.
 """
@@ -223,6 +228,37 @@ def ld_stage_launches(cfg, h, w):
                         ctx, 0)
         stage("reset_feature", m.reset_feature, feature)
         stage("recon_frames", m.recon_frames, feature, 0, h, w)
+    return dict(log.calls)
+
+
+def spatial_dmci_launches(cfg, h, w, tiles):
+    """The K1 launches of each stage of a DMCICodec split into `tiles` row
+    tiles (parallel/spatial.SpatialSplit) on an (h, w) frame in bfloat16,
+    from the model itself: the split analysis and synthesis over their
+    tile shapes and the whole prior0 / prior_step 1-3, on the meta device.
+    Returns {stage: Counter of Launch}; an encode runs every stage, a
+    decode all but the analysis."""
+    from .core.padding import get_padding_size
+    from .models.dmci import DMCI
+    from .parallel.spatial import SpatialSplit
+    pad_r, pad_b = get_padding_size(h, w, 16)
+    ph, pw = h + pad_b, w + pad_r
+    yh, yw = ph // 16, pw // 16
+    log = LaunchLog()
+
+    def stage(name, fn, *args):
+        with log.call(name):
+            return fn(*args)
+    with torch.device("meta"), meta_launches(), log:
+        m = DMCI(cfg).to(torch.bfloat16)
+        split = SpatialSplit(m, ["meta"] * tiles)
+        x = torch.empty(1, ph, pw, 3, dtype=torch.bfloat16)
+        _, z = stage("analysis", split.analysis, x, 0)
+        ctx = stage("prior0", m.prior0, z, yh, yw)[2]
+        y_hat = torch.empty(1, yh, yw, cfg.ch_y)
+        for k in (1, 2, 3):
+            stage(f"prior_step {k}", m.prior_step, ctx, y_hat, k)
+        stage("synthesis", split.synthesis, y_hat, 0, h, w)
     return dict(log.calls)
 
 
@@ -1556,10 +1592,12 @@ def damped_model(cls, cfg, seed, scale):
     return model
 
 
-def train_setup(cell, dev, scale=TRAIN_INIT_SCALE):
+def train_setup(cell, dev, scale=TRAIN_INIT_SCALE, data_parallel=False):
     """A cell's model, optimizer and batch on the card.  Returns (model,
     step): step() takes one training step (the trainers' step functions,
-    fresh noise from a seeded generator) and returns its metrics."""
+    fresh noise from a seeded generator) and returns its metrics.
+    data_parallel: the optimizer averages the gradient over the process
+    group's ranks (parallel/ddp.py; the group must exist)."""
     from .models.common import draw_noise, get_training_lambdas
     from .models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG
     from .models.dmc_ld import DMCLD, LD_CONFIG
@@ -1593,7 +1631,7 @@ def train_setup(cell, dev, scale=TRAIN_INIT_SCALE):
             for u in range(cell.units)]) for s in samples]))
     lambdas = torch.tensor(get_training_lambdas(TRAIN_LAMBDAS, cfg.qp_num),
                            dtype=torch.float32, device=dev)
-    opt = Optimizer(model, TRAIN_LR, clip)
+    opt = Optimizer(model, TRAIN_LR, clip, data_parallel=data_parallel)
 
     def step():
         if cell.structure == "dmci":
@@ -1614,6 +1652,29 @@ def run_train(dev, runs):
         torch.cuda.synchronize()
         for r in range(runs):
             profile_call(f"train {cell.label}", None, step, r)
+
+
+def run_mask_decay(dev, runs):
+    """EVC's mask decay at EVC_LL_CONFIG, f32 with TF32 off, on a batch of
+    2 256x256 images (chip_smoke.py's phase): the warm step profiled."""
+    from .legacy.evc import EVC, EVC_LL_CONFIG
+    from .train import mask_decay as md
+    from .train.step import training_device
+    training_device(str(dev))
+    model = damped_model(EVC, EVC_LL_CONFIG, 3, TRAIN_INIT_SCALE).to(dev)
+    x = torch.round((torch.cat([smooth_frame(256, 256, 70 + i, dev)
+                                for i in range(2)]) + 0.5) * 255) \
+        .to(torch.uint8)
+    opt = md.create_mask_decay_state(model, TRAIN_LR, 0.1)
+    step = md.make_mask_decay_step(model, opt, 0.1, 3.0)
+    masks = [md.init_masks(model)]
+
+    def one():
+        masks[0], _ = step(masks[0], x)
+    one()
+    torch.cuda.synchronize()
+    for r in range(runs):
+        profile_call("mask decay EVC_LL 2x256x256", None, one, r, top=15)
 
 
 # the heaviest K1 shapes of chip_smoke.py's main path (launches x device
@@ -1833,7 +1894,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles",
                                      "train", "legacy", "fm", "hem", "dc",
-                                     "tcm"))
+                                     "tcm", "mask"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
@@ -1862,6 +1923,8 @@ def main():
         run_train(dev, args.runs)
     elif args.mode == "legacy":
         run_legacy(dev, args.runs)
+    elif args.mode == "mask":
+        run_mask_decay(dev, args.runs)
     elif args.mode in ("fm", "hem", "dc", "tcm"):
         run_p_frame(args.mode.upper(), dev, args.runs)
     else:

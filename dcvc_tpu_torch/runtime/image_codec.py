@@ -182,14 +182,19 @@ class DMCICodec(EntropyDecoder):
     the host coder: same symbols, same x_hat, and no host sync after the
     stream's upload.  Off by default, as in the JAX codec.  force_ec (None
     by default) pins the stream's lane count, as a container with a
-    sequence-level lane flag does (DCVC-RT)."""
+    sequence-level lane flag does (DCVC-RT).  spatial_devices (a list of
+    devices, None by default): the analysis and the synthesis run in that
+    many row tiles, tile i on spatial_devices[i]
+    (parallel/spatial.SpatialSplit; dcvc_tpu's spatial_mesh); the priors,
+    the decisions and the entropy coding stay whole on `device`."""
 
     MODEL_CLS = DMCI
     CONFIG_CLS = DMCIConfig
     MAX_EC = 8
 
     def __init__(self, params, cfg=None, skip_thres=0.0,
-                 dtype=torch.bfloat16, device="cuda", device_ec=False):
+                 dtype=torch.bfloat16, device="cuda", device_ec=False,
+                 spatial_devices=None):
         set_deterministic()
         self.cfg = cfg or self.CONFIG_CLS()
         self.device = torch.device(device)
@@ -206,6 +211,10 @@ class DMCICodec(EntropyDecoder):
         self.force_ec = None
         self._k2_banks = device_banks(banks, self.device)
         self.model = model.to(self.device, dtype).eval()
+        self.spatial = None
+        if spatial_devices:
+            from ..parallel.spatial import SpatialSplit
+            self.spatial = SpatialSplit(self.model, spatial_devices)
         self._plans = {}
         # diagnostic symbol capture (cross-platform conformance, as
         # dcvc_tpu's scripts/cross_platform_conformance.py uses it): when
@@ -250,7 +259,9 @@ class DMCICodec(EntropyDecoder):
         its per-QP q_scale_y_enc)."""
         pad_b, pad_r = p["pad"]
         x = pad_replicate_nhwc(x, pad_b, pad_r).to(self.dtype)
-        y_scaled, z_int8 = self.model.analysis(x, qp)
+        analysis = self.spatial.analysis if self.spatial else \
+            self.model.analysis
+        y_scaled, z_int8 = analysis(x, qp)
         return y_scaled.float(), z_int8
 
     def _prior0(self, p, z_int8, sync_free=False):
@@ -297,7 +308,9 @@ class DMCICodec(EntropyDecoder):
 
     def _synthesis(self, y_hat_so_far, q, qp, h, w):
         """Shared enc+dec reconstruction (q: _prior0's)."""
-        return self.model.synthesis(y_hat_so_far, qp, h, w)
+        synthesis = self.spatial.synthesis if self.spatial else \
+            self.model.synthesis
+        return synthesis(y_hat_so_far, qp, h, w)
 
     # -------------------------------------------------------------- encode
 

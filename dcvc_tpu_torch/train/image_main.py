@@ -16,7 +16,12 @@ format and `ckpt.bin` in the JAX package's dcvc_tpu.params.v1 (as
 train_image.py writes it, the config in its header); DMCICodec takes
 either through utils/jax_bridge.load_into, the JAX package's CLIs the
 latter.
-One card: the JAX trainer's data-parallel mesh is not ported.
+Data parallelism as the JAX trainer's `data` mesh (parallel/ddp.py): under
+torchrun (`torchrun --nproc_per_node N -m dcvc_tpu_torch.train.image_main
+...`, NCCL on cards, gloo with --device cpu) --batch_size is the global
+batch, each rank trains on its rows and averages the gradient, and rank 0
+alone writes the status files, checkpoints and log.  Without WORLD_SIZE
+it runs in one process.
 """
 
 import argparse
@@ -28,8 +33,9 @@ import torch
 from ..data.datasets import BatchLoader, ImageFolder
 from ..models.common import draw_noise, get_training_lambdas
 from ..models.dmci import DMCI, DMCIConfig, SMALL_CONFIG, TINY_CONFIG
-from ..utils.checkpoint import load_latest_status, save_reference, \
-    save_status
+from ..parallel import ddp
+from ..utils.checkpoint import save_reference, save_status
+from ..utils.jax_status import resume
 from ..utils.jax_bridge import save_native
 from .step import Optimizer, image_train_step, training_device
 
@@ -78,7 +84,19 @@ def parse_args(argv):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = training_device(args.device)
+    dp = ddp.from_env(args.device)
+    try:
+        return train(args, dp)
+    finally:
+        ddp.shutdown(dp)
+
+
+def train(args, dp):
+    """The training run of main; dp: this process's data-parallel Rank,
+    or None."""
+    device = training_device(str(dp.device) if dp else args.device)
+    rows = ddp.rows(dp, args.batch_size)
+    main_rank = ddp.is_main(dp)
     size = args.model_size or ("tiny" if args.tiny_model else "full")
     cfg = {"tiny": TINY_CONFIG, "small": SMALL_CONFIG,
            "full": DMCIConfig()}[size]
@@ -93,14 +111,13 @@ def main(argv=None):
     # raw_rgb: uint8 batches, converted on the device
     dataset = ImageFolder(args.train_dataset, ph, pw, cfg.qp_num, lambdas_np,
                           raw_rgb=True)
-    opt = Optimizer(model, lr0, CLIP_NORM)
+    opt = Optimizer(model, lr0, CLIP_NORM, data_parallel=dp is not None)
     begin_epoch, step = 0, 0
-    status = load_latest_status(args.save_dir)
-    if status is not None:
-        model.load_state_dict(status["model"])
-        opt.load_state_dict(status["optimizer"])
-        begin_epoch, step = status["epoch"] + 1, status["step"]
-        print(f"resumed from epoch {begin_epoch}", flush=True)
+    resumed = resume(args.save_dir, model, opt)
+    if resumed is not None:
+        begin_epoch, step = resumed
+        if main_rank:
+            print(f"resumed from epoch {begin_epoch}", flush=True)
 
     noise_gen = torch.Generator(device=device).manual_seed(42)
     for epoch in range(begin_epoch, args.epochs):
@@ -118,24 +135,30 @@ def main(argv=None):
         for i, batch in enumerate(loader):
             if 0 <= args.max_steps_per_epoch <= i:
                 break
-            x = batch["x"].to(device, non_blocking=True)
-            qp = batch["qp"].to(device, non_blocking=True).long()
-            noise = draw_noise(cfg, *x.shape[:3], noise_gen, device)
-            m = image_train_step(model, opt, x, qp, lambdas, noise)
+            x = batch["x"][rows].to(device, non_blocking=True)
+            qp = batch["qp"][rows].to(device, non_blocking=True).long()
+            noise = draw_noise(cfg, args.batch_size, *x.shape[1:3],
+                               noise_gen, device)
+            m = image_train_step(model, opt, x, qp, lambdas,
+                                 {k: v[rows] for k, v in noise.items()})
             step += 1
             if i % 200 == 0:
+                m = ddp.mean_metrics(m)
+            if i % 200 == 0 and main_rank:
                 print(f"Time: {time.time() - t0:.1f}s, epoch {epoch} step "
                       f"{i}: loss {float(m['loss']):.4f} mse "
                       f"{float(m['mse']):.5f} bpp {float(m['bpp']):.4f} "
                       f"gnorm {float(m['grad_norm']):.3f} lr {lr:.1e}"
                       + (" (skipped)" if m["skipped"] else ""), flush=True)
                 t0 = time.time()
-        save_status(args.save_dir, model, opt, epoch, step, cfg)
+        if main_rank:
+            save_status(args.save_dir, model, opt, epoch, step, cfg)
 
-    save_reference(f"{args.save_dir}/ckpt.pth.tar", model)
-    save_native(model, f"{args.save_dir}/ckpt.bin", cfg)
-    print(f"saved final checkpoint to {args.save_dir}/ckpt.pth.tar and "
-          f"ckpt.bin", flush=True)
+    if main_rank:
+        save_reference(f"{args.save_dir}/ckpt.pth.tar", model)
+        save_native(model, f"{args.save_dir}/ckpt.bin", cfg)
+        print(f"saved final checkpoint to {args.save_dir}/ckpt.pth.tar and "
+              f"ckpt.bin", flush=True)
     return model
 
 

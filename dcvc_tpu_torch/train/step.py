@@ -14,6 +14,7 @@ as they were.
 import torch
 
 from ..core.color import rgb2ycbcr
+from ..parallel.ddp import all_reduce_mean_
 from ..runtime.image_codec import set_deterministic
 
 
@@ -47,11 +48,14 @@ def global_norm(grads):
 
 class Optimizer:
     """clip_by_global_norm(clip_norm) then AdamW(lr), with the non-finite
-    skip, over the parameters of `model`."""
+    skip, over the parameters of `model`.  data_parallel: the gradients
+    are first averaged over the process group's ranks (parallel/ddp.py),
+    so that the clip and the skip see the global batch's gradient."""
 
-    def __init__(self, model, lr, clip_norm):
+    def __init__(self, model, lr, clip_norm, data_parallel=False):
         self.params = list(model.parameters())
         self.clip_norm = float(clip_norm)
+        self.data_parallel = data_parallel
         self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999),
                                        eps=1e-8, weight_decay=1e-4)
 
@@ -72,6 +76,8 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if self.data_parallel:
+            all_reduce_mean_(grads)
         norm = global_norm(grads)
         skipped = not bool(torch.isfinite(norm))
         if not skipped:
@@ -89,19 +95,24 @@ class Optimizer:
         self.adamw.load_state_dict(state)
 
 
-def image_train_step(model, opt, x, qp, lambdas, noise):
-    """One DMCI step.  x: (B, H, W, 3) uint8 RGB or YCbCr - 0.5 on the
-    model's device; qp: (B,) int64; lambdas: (qp_num,) float32 tensor;
-    noise: the rate terms' noise (models.common.rate_terms).  Returns the
-    metrics (0-d tensors; skipped a bool)."""
-    x = to_model_domain(x)
-    out = model(x, qp, noise)
+def image_loss(model, x, qp, lambdas, noise):
+    """The DMCI RD loss and its metrics.  x: (B, H, W, 3) uint8 RGB or
+    YCbCr - 0.5 on the model's device; qp: (B,) int64; lambdas: (qp_num,)
+    float32 tensor; noise: the rate terms' noise
+    (models.common.rate_terms)."""
+    out = model(to_model_domain(x), qp, noise)
     loss = (lambdas[qp] * out["mse"] + out["bpp"]).mean()
+    return loss, {"loss": loss, "mse": out["mse"].mean(),
+                  "bpp": out["bpp"].mean(), "bits_y": out["bits_y"].mean(),
+                  "bits_z": out["bits_z"].mean()}
+
+
+def image_train_step(model, opt, x, qp, lambdas, noise):
+    """One step of image_loss and opt.  Returns the metrics (0-d tensors;
+    skipped a bool)."""
+    loss, metrics = image_loss(model, x, qp, lambdas, noise)
     loss.backward()
     grad_norm, skipped = opt.step()
-    metrics = {"loss": loss, "mse": out["mse"].mean(),
-               "bpp": out["bpp"].mean(), "bits_y": out["bits_y"].mean(),
-               "bits_z": out["bits_z"].mean()}
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics.update(grad_norm=grad_norm, skipped=skipped)
     return metrics

@@ -20,7 +20,9 @@ of file, at the config of --model_structure / --model_size.  The models
 run in float32 with TF32 off.  At the end it writes `ckpt.pth.tar` in
 the reference format and `ckpt.bin` in dcvc_tpu.params.v1 (as
 train_video.py writes it); DMCLDCodec / DMCHTCodec take either through
-utils/jax_bridge.load_into.  One card.
+utils/jax_bridge.load_into.  Data parallelism as image_main's
+(parallel/ddp.py): under torchrun --batch_size is the global batch, each
+rank trains on its rows, and rank 0 alone writes files and logs.
 """
 
 import argparse
@@ -35,8 +37,9 @@ from ..models.dmc_ht import DMCHT, HTL_CONFIG, HTS_CONFIG, \
     SMALL_HT_CONFIG, TINY_HT_CONFIG, TINY_HTL_CONFIG
 from ..models.dmc_ld import DMCLD, LD_CONFIG, TINY_LD_CONFIG
 from ..models.dmci import DMCI, DMCIConfig, TINY_CONFIG
-from ..utils.checkpoint import load_latest_status, save_reference, \
-    save_status
+from ..parallel import ddp
+from ..utils.checkpoint import save_reference, save_status
+from ..utils.jax_status import resume
 from ..utils.jax_bridge import load_into, native_config, save_native
 from .step import Optimizer, training_device
 from .video_step import intra_seed, video_train_step
@@ -141,7 +144,19 @@ def p_model_spec(structure, size):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = training_device(args.device)
+    dp = ddp.from_env(args.device)
+    try:
+        return train(args, dp)
+    finally:
+        ddp.shutdown(dp)
+
+
+def train(args, dp):
+    """The training run of main; dp: this process's data-parallel Rank,
+    or None."""
+    device = training_device(str(dp.device) if dp else args.device)
+    rows = ddp.rows(dp, args.batch_size)
+    main_rank = ddp.is_main(dp)
     size = args.model_size or ("tiny" if args.tiny_model else "full")
     p_cls, p_cfg = p_model_spec(args.model_structure, size)
     gop = p_cfg.frame_delay
@@ -176,14 +191,13 @@ def main(argv=None):
     dataset = VideoFolder(args.train_dataset, ph, pw, p_cfg.qp_num,
                           lambdas_np, frame_num=frame_num0,
                           group_of_pictures=gop, raw_rgb=True, cache=True)
-    opt = Optimizer(p_model, lr0, CLIP_NORM)
+    opt = Optimizer(p_model, lr0, CLIP_NORM, data_parallel=dp is not None)
     begin_epoch, step = 0, 0
-    status = load_latest_status(args.save_dir)
-    if status is not None:
-        p_model.load_state_dict(status["model"])
-        opt.load_state_dict(status["optimizer"])
-        begin_epoch, step = status["epoch"] + 1, status["step"]
-        print(f"resumed from epoch {begin_epoch}", flush=True)
+    resumed = resume(args.save_dir, p_model, opt)
+    if resumed is not None:
+        begin_epoch, step = resumed
+        if main_rank:
+            print(f"resumed from epoch {begin_epoch}", flush=True)
 
     noise_gen = torch.Generator(device=device).manual_seed(42)
     for epoch in range(begin_epoch, args.epochs):
@@ -208,30 +222,39 @@ def main(argv=None):
         for i, batch in enumerate(loader):
             if 0 <= args.max_steps_per_epoch <= i:
                 break
-            frames = [f.to(device, non_blocking=True)
+            frames = [f[rows].to(device, non_blocking=True)
                       for f in batch["frames"]]
-            qp = batch["qp"].to(device, non_blocking=True).long()
-            intra = frames[0]                          # (B, H, W, 3)
-            chunks = torch.stack(frames[1:], 1)        # (B, n, H, W, 3 gop)
-            seed = intra_seed(i_model, intra, qp, draw_noise(
-                i_cfg, *intra.shape[:3], noise_gen, device))
+            qp = batch["qp"][rows].to(device, non_blocking=True).long()
+            intra = frames[0]                          # (b, H, W, 3)
+            chunks = torch.stack(frames[1:], 1)        # (b, n, H, W, 3 gop)
+            # the global batch's noise, intra then chunk by chunk, this
+            # rank's rows of it
+            specs = [i_cfg] + [p_cfg] * chunks.shape[1]
+            noise = [{k: v[rows] for k, v in draw_noise(
+                cfg, args.batch_size, *intra.shape[1:3], noise_gen,
+                device).items()} for cfg in specs]
+            seed = intra_seed(i_model, intra, qp, noise[0])
             m = video_train_step(p_model, opt, seed, chunks, qp, lambdas,
-                                 noise_gen, cascaded=cascaded,
+                                 noise[1:], cascaded=cascaded,
                                  use_remat=use_remat)
             step += 1
             if i % 50 == 0:
+                m = ddp.mean_metrics(m)
+            if i % 50 == 0 and main_rank:
                 print(f"Time: {time.time() - t0:.1f}s, epoch {epoch} step "
                       f"{i}: loss {float(m['loss']):.4f} mse "
                       f"{float(m['mse']):.5f} bpp {float(m['bpp']):.4f} "
                       f"gnorm {float(m['grad_norm']):.3f} lr {lr:.1e}"
                       + (" (skipped)" if m["skipped"] else ""), flush=True)
                 t0 = time.time()
-        save_status(args.save_dir, p_model, opt, epoch, step, p_cfg)
+        if main_rank:
+            save_status(args.save_dir, p_model, opt, epoch, step, p_cfg)
 
-    save_reference(f"{args.save_dir}/ckpt.pth.tar", p_model)
-    save_native(p_model, f"{args.save_dir}/ckpt.bin", p_cfg)
-    print(f"saved final checkpoint to {args.save_dir}/ckpt.pth.tar and "
-          f"ckpt.bin", flush=True)
+    if main_rank:
+        save_reference(f"{args.save_dir}/ckpt.pth.tar", p_model)
+        save_native(p_model, f"{args.save_dir}/ckpt.bin", p_cfg)
+        print(f"saved final checkpoint to {args.save_dir}/ckpt.pth.tar and "
+              f"ckpt.bin", flush=True)
     return p_model
 
 

@@ -263,12 +263,76 @@ def test_port_sources_import_no_jax():
                 "legacy/dcvc_hem.py", "legacy/hem_intra.py", "legacy/evc.py",
                 "runtime/fm_codec.py", "runtime/evc_codec.py",
                 "utils/png_frames.py", "legacy/ops.py", "legacy/spynet.py",
-                "legacy/dcvc_fm.py"):
+                "legacy/dcvc_fm.py", "train/mask_decay.py",
+                "utils/jax_status.py", "utils/status_to_ckpt.py",
+                "data/yuv_to_png.py", "data/make_synth.py",
+                "parallel/ddp.py", "parallel/spatial.py",
+                "parallel/dryrun.py"):
         assert f"dcvc_tpu_torch/{sub}" in scanned, sub
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in _FORBIDDEN]
     assert not bad, bad
+
+
+def _device_defaults(path):
+    """(line, where, default) of every `--device` flag's default and every
+    string default of a function parameter named `device` in a source
+    file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", None) == "add_argument" and node.args \
+                and isinstance(node.args[0], ast.Constant) and \
+                node.args[0].value == "--device":
+            for kw in node.keywords:
+                if kw.arg == "default" and isinstance(kw.value,
+                                                      ast.Constant):
+                    yield node.lineno, "--device", kw.value.value
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            a = node.args
+            pos = a.posonlyargs + a.args
+            pairs = list(zip(pos[len(pos) - len(a.defaults):], a.defaults))
+            pairs += [(k, d) for k, d in zip(a.kwonlyargs, a.kw_defaults)
+                      if d is not None]
+            for arg, d in pairs:
+                if arg.arg == "device" and isinstance(d, ast.Constant) and \
+                        isinstance(d.value, str):
+                    yield node.lineno, node.name, d.value
+
+
+def test_port_entry_points_default_to_the_card():
+    """Every entry point of the port runs on the card unless the caller
+    asks for the CPU: each CLI's --device and each function's `device`
+    parameter that has a string default defaults to cuda."""
+    files = sorted(glob.glob(os.path.join(REPO, "dcvc_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    found = {(os.path.relpath(f, REPO), where, line, default)
+             for f in files for line, where, default in _device_defaults(f)}
+    where = {(f, w) for f, w, _, _ in found}
+    for want in (("dcvc_tpu_torch/parallel/dryrun.py", "--device"),
+                 ("dcvc_tpu_torch/parallel/dryrun.py", "dryrun_multichip"),
+                 ("dcvc_tpu_torch/parallel/dryrun.py", "entry"),
+                 ("dcvc_tpu_torch/train/image_main.py", "--device"),
+                 ("dcvc_tpu_torch/train/video_main.py", "--device"),
+                 ("dcvc_tpu_torch/eval/video_main.py", "--device"),
+                 ("dcvc_tpu_torch/eval/image_main.py", "--device"),
+                 ("dcvc_tpu_torch/eval/family_main.py", "--device"),
+                 ("dcvc_tpu_torch/eval/bd_gate.py", "--device")):
+        assert want in where, want
+    bad = sorted(f"{f}:{line} {w} defaults to {d!r}" for f, w, line, d
+                 in found if d != "cuda")
+    assert not bad, bad
+
+
+def test_device_default_scan_sees_flags_and_parameters(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("def f(n, device='cpu'):\n    pass\n\n"
+                   "def g(*, device='cuda:1'):\n    pass\n\n"
+                   "ap.add_argument('--device', default='cpu')\n")
+    assert sorted((w, d) for _, w, d in _device_defaults(str(src))) == \
+        [("--device", "cpu"), ("f", "cpu"), ("g", "cuda:1")]
 
 
 def test_import_scan_sees_function_local_imports(tmp_path):
