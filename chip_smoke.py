@@ -162,7 +162,19 @@ every K2 launch's inputs:
     DMCIConfig() written and resumed (the next step bit-exact with the
     uninterrupted run's), status_to_ckpt's params.v1 coding a 720p frame
     to the same bytes; EVC_LL mask decay (exact folds on the card, gates
-    decaying, ms per step).
+    decaying, ms per step);
+  - the pipelined calls (phase_pipeline; perf_probe's
+    pipeline_cases and time_pipeline) on the main path's codecs at
+    1080p, qp 32: DMCI compress_many over 8 images and decompress_many
+    through the host coder and K2, RT intra's over 4, HTS
+    compress_sequence / decompress_sequence (host coder and K2) over a
+    DMCI frame + 6 chunks of 8 frames, HTL over 3 chunks and LD over 8
+    frames, a reset in each: every run the serial calls' bytes, frames
+    and final DPB bit for bit, every compress_async and every K2 decode
+    under torch.cuda.set_sync_debug_mode("error"), K1 and K2 launched as
+    derived per unit; the warm walls per unit, serial and pipelined, and
+    each form's idle share (torch.profiler) printed.  Its K2 calls are
+    counted, not replayed.
 Before the main path, parallel/dryrun.entry() (the DMCI forward at
 256x256 in bf16) runs once and is timed.
 Every device decode of the parts before the evaluation entry runs under
@@ -237,8 +249,9 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     hem_p_codec, hem_q_scales, hem_stage_launches, lifted_legacy_intra, \
     compressai_stage_launches, dcvc_p_codec, dcvc_stage_launches, \
     lifted_compressai, \
-    make_sequence, max_sm_clock_mhz, nvidia_smi, p_frame_calls, \
-    profile_launches, run_k2_case, \
+    launch_counts, make_sequence, max_sm_clock_mhz, no_sync, nvidia_smi, \
+    p_frame_calls, pipeline_cases, profile_launches, run_k2_case, \
+    sync_free_halves, time_pipeline, warm_profiler, \
     rt_stage_launches, sass_counts, smooth_frame, spatial_dmci_launches, \
     TRAIN_CELLS, TRAIN_INIT_SCALE, TRAIN_LAMBDAS, TRAIN_LR, damped_model, \
     tcm_p_codec, tcm_stage_launches, train_setup
@@ -808,15 +821,6 @@ def counted(launch_log, label, fn):
             K1.fused_dcb_stacked.launches - ns, K2.rans_decode.launches - n2)
 
 
-def no_sync(fn):
-    """fn() with every host sync an error (set_sync_debug_mode)."""
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        return fn()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-
-
 def expect(tag, got, want):
     if got != want:
         raise AssertionError(f"{tag}: (S=1, stacked, K2) launches {got}, "
@@ -1044,6 +1048,93 @@ def phase_video(name, dmci, codec, dev, launch_log, k2_log, cases=None):
                                  f"host decode, device decode)")
         log(f"{label}: final DPB equal on the encoder, the host decode and "
             f"the device decode {tuple(dpb1.shape)}")
+    return tuple(derived)
+
+
+# the pipelined calls: perf_probe.pipeline_cases at 1080p, qp 32, on the
+# main path's codecs; PIPELINE_RUNS timed runs of each form per job, then
+# one profiled run of each
+PIPELINE_RUNS = 1
+
+
+def pipeline_unit_launches(case, rt):
+    """(S = 1, stacked, K2) launches of each unit of one call of a
+    PipelineCase: DMCI's from ENCODE_LAUNCHES / DECODE_LAUNCHES, RT
+    intra's from rt (rt_spec), a video unit's from VIDEO
+    (expected_launches: a decode runs the recon heads, an encode does
+    not); a device decode adds each unit's K2 calls."""
+    encode, k2 = case.kind == "encode", case.kind == "device decode"
+    if case.name == "DMCI":
+        n = ENCODE_LAUNCHES if encode else DECODE_LAUNCHES
+        return [(n, 0, DMCI_K2_LAUNCHES if k2 else 0)] * len(case.resets)
+    if case.name == "RT intra":
+        return [(rt["encode" if encode else "decode"], 0, 0)] \
+            * len(case.resets)
+    spec = VIDEO[case.name]
+    return [expected_launches(spec, case.resets, u, encode, not encode)[:2]
+            + (spec["k2"] if k2 else 0,) for u in range(len(case.resets))]
+
+
+def phase_pipeline(dev, launch_log, codecs, rt):
+    """The pipelined calls against the serial ones (perf_probe's
+    pipeline_cases, time_pipeline): DMCI compress_many / decompress_many
+    over 8 1080p images (host coder and K2), RT intra's over 4, and
+    compress_sequence / decompress_sequence (host coder and K2) of HTS over
+    a DMCI frame + 6 chunks of 8 frames, HTL over 3 chunks and LD over 8
+    frames, a reset in each.  Every run must give the serial run's bytes,
+    frames and final DPB bit for bit, and the encoder's; every
+    compress_async and every K2 decode runs under no_sync; each
+    compress_async launches K1 and K2 as derived for its unit, and each job
+    as derived for its units.  Prints each job's warm walls per unit,
+    serial and pipelined, with the device's idle share.  Returns the
+    (S = 1, stacked, K2) launches derived for it."""
+    derived = [0, 0, 0]
+
+    def tally(tag, got, want):
+        expect(tag, got, want)
+        for i in range(3):
+            derived[i] += want[i]
+
+    with sync_free_halves(codecs) as halves:
+        with launch_log.call("pipeline inputs"):
+            before = launch_counts()
+            cases = pipeline_cases(codecs, dev)
+            got = tuple(a - b for a, b in zip(launch_counts(), before))
+        # the inputs' calls: each job's serial call once, and each
+        # sequence's DMCI frame
+        want = [0, 0, 0]
+        for case in cases:
+            for unit in pipeline_unit_launches(case, rt):
+                for i in range(3):
+                    want[i] += unit[i]
+            if case.kind == "encode" and case.name in VIDEO:
+                want[0] += ENCODE_LAUNCHES
+        tally("pipeline inputs", got, tuple(want))
+        warm_profiler(dev)
+        calls = 2 * PIPELINE_RUNS + 2
+        for case in cases:
+            label = f"pipeline {case.name} {case.kind}"
+            units = pipeline_unit_launches(case, rt)
+            for log_ in halves.values():
+                log_.clear()
+            with launch_log.call(label):
+                before = launch_counts()
+                line = time_pipeline(case, PIPELINE_RUNS)
+                got = tuple(a - b for a, b in zip(launch_counts(), before))
+            tally(label, got, tuple(calls * sum(u[i] for u in units)
+                                    for i in range(3)))
+            if case.kind == "encode" and halves[case.name] != units * calls:
+                raise AssertionError(f"{label}: compress_async launches "
+                                     f"{halves[case.name]}, derived "
+                                     f"{units * calls}")
+            log(f"{label}: {len(units)} units, serial and pipelined "
+                f"bit-exact (bytes, frames, final DPB), every device half "
+                f"sync-free; ms per unit serial "
+                f"{line['serial_median_ms_per_unit']} pipelined "
+                f"{line['pipelined_median_ms_per_unit']} (x"
+                f"{line['serial_over_pipelined']}), idle share serial "
+                f"{line['serial_idle_share']} pipelined "
+                f"{line['pipelined_idle_share']}; launches {got}")
     return tuple(derived)
 
 
@@ -3702,11 +3793,6 @@ def phase_mask_decay(dev):
     return (0, 0, 0)
 
 
-def launch_counts():
-    return (K1.fused_dcb.launches, K1.fused_dcb_stacked.launches,
-            K2.rans_decode.launches)
-
-
 def zero_launch_counts():
     K1.fused_dcb.launches = K1.fused_dcb_stacked.launches = 0
     K2.rans_decode.launches = 0
@@ -3834,7 +3920,10 @@ def main():
             ("image CLI", lambda: phase_image_cli(dev, launch_log)),
             ("workers", lambda: phase_workers(dev, launch_log)),
             ("BD gate", lambda: phase_bd_gate(dev, launch_log)),
-            ("symbols", lambda: phase_symbols(dev, launch_log))]
+            ("symbols", lambda: phase_symbols(dev, launch_log)),
+            ("pipeline", lambda: phase_pipeline(
+                dev, launch_log, {"DMCI": dmci, "RT intra": rt_intra,
+                                  **{n: video[n] for n in VIDEO}}, rt))]
         for part, run in counted_only:
             parts.append((part, None))
             zero_launch_counts()

@@ -10,6 +10,7 @@ shares with them.
     python3 -m dcvc_tpu_torch.perf_probe legacy [--runs 2]
     python3 -m dcvc_tpu_torch.perf_probe fm|hem|dc|tcm [--runs 2]
     python3 -m dcvc_tpu_torch.perf_probe mask [--runs 2]
+    python3 -m dcvc_tpu_torch.perf_probe pipeline [--runs 2]
 
 `shapes` codes a warm 1080p DMCI frame (encode, decode) and, for each
 video codec the checkout has (HTS, HTL, LD), a warm later 1080p chunk
@@ -66,6 +67,18 @@ HTS, HTL at their published widths in float32, TF32 off), takes one warm
 step and then profiles `runs` steps, printing per step the JSON line of
 `profile` (wall, device busy, idle share, top device operations).
 chip_smoke.py times the same cells without the profiler.
+
+`pipeline` times the codecs' pipelined calls against their serial
+ones at 1080p, qp 32, in bf16 (pipeline_codecs: chip_smoke.py's seeded
+weights): DMCI compress_many / decompress_many (host coder and K2) over
+8 images, RT intra's over 4, and compress_sequence / decompress_sequence
+(host coder and K2) of HTS over a DMCI frame + 6 chunks of 8 frames, HTL
+over 3 chunks and LD over 8 frames, a reset in each (pipeline_cases).
+Every compress_async and every K2 decode runs with host syncs an error,
+and every run must give the encoder's bytes, frames and DPB.  Per job it
+prints a JSON line (time_pipeline): the warm wall per unit of each form
+(`runs` runs each, in turns), their ratio, and from one torch.profiler
+run of each the device busy time and idle share.
 
 `mask` profiles `runs` warm steps of EVC's mask decay at EVC_LL_CONFIG
 (chip_smoke.py's weights and batch of 2 256x256 images, float32, TF32
@@ -1371,25 +1384,33 @@ def busy_ms(intervals):
     return total / 1e3
 
 
-def profile_call(label, codec, fn, run, top=10):
-    """One profiled call of fn (codec: its host coder is timed apart; None
-    for a call without one)."""
+def profiled(fn):
+    """fn() under torch.profiler on a synchronised card: (its result, wall
+    ms on the host clock, device busy ms (the union of the intervals of
+    every kernel, copy and memset on the card), the device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    timer = host_coder_timer(codec) if codec is not None \
-        else contextlib.nullcontext([0.0])
-    with timer as coder_s, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         raise SystemExit("torch.profiler recorded no device events")
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in events])
+    return out, wall, busy, events
+
+
+def profile_call(label, codec, fn, run, top=10):
+    """One profiled call of fn (codec: its host coder is timed apart; None
+    for a call without one)."""
+    timer = host_coder_timer(codec) if codec is not None \
+        else contextlib.nullcontext([0.0])
+    with timer as coder_s:
+        _, wall, busy, events = profiled(fn)
     kernels = collections.defaultdict(lambda: [0.0, 0])
     for e in events:
         name = e.name.removeprefix("void ").replace(
@@ -1407,6 +1428,308 @@ def run_profile(dev, runs):
     for label, codec, fn in warm_calls(dev):
         for r in range(runs):
             profile_call(label, codec, fn, r)
+
+
+# --------------------------------------------------------- the pipeline
+
+# `pipeline`: DMCI images, RT intra images, and per video codec the reset
+# flag of each coding unit of its sequence (bench.py's 6 chunks of 8 frames
+# for HTS, 3 chunks for HTL, 8 frames for LD), each after a DMCI frame
+PIPELINE_IMAGES = {"DMCI": 8, "RT intra": 4}
+PIPELINE_RESETS = {"HTS": (False, False, True, False, False, False),
+                   "HTL": (False, True, False),
+                   "LD": (False, False, False, False, True, False, False,
+                          False)}
+
+
+class PipelineCase(NamedTuple):
+    """One coding job run serially and pipelined.  name: the codec
+    ("DMCI", "RT intra", "HTS", "HTL", "LD"); kind: "encode", "decode"
+    (host coder) or "device decode" (K2); resets: the reset flag of each
+    unit (all False for images).  serial() and pipelined() return what the
+    two must agree on: per image (bytes, ec_parallel, x_hat) or x_hat; per
+    video unit (bytes, ec_parallel) or x_hat, then the final DPB.
+    expect(out) says whether a result is the one the encoder's calls
+    made before gave (the same bytes; the host decode's frames, and the
+    encoder's DPB, bit for bit)."""
+    name: str
+    kind: str
+    resets: tuple
+    serial: object
+    pipelined: object
+    expect: object
+
+
+def same(a, b):
+    """Exact equality of nested lists / tuples of tensors, bytes, numbers
+    and None."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+            and a.shape == b.shape and a.dtype == b.dtype \
+            and torch.equal(a, b)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def launch_counts():
+    """(K1 S = 1, K1 stacked, K2) launches so far."""
+    from .kernels import rans_decode as K2
+    return (K1.fused_dcb.launches, K1.fused_dcb_stacked.launches,
+            K2.rans_decode.launches)
+
+
+def no_sync(fn):
+    """fn() with every host sync an error (set_sync_debug_mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def sync_free_halves(codecs):
+    """Inside, every compress_async of the codecs ({name: codec}) runs
+    under no_sync, and the (S = 1, stacked, K2) launches of each call are
+    appended to the yielded {name: [launches]}."""
+    log = {name: [] for name in codecs}
+    for name, codec in codecs.items():
+        def guarded(*args, _half=codec.compress_async, _log=log[name],
+                    **kwargs):
+            before = launch_counts()
+            out = no_sync(lambda: _half(*args, **kwargs))
+            _log.append(tuple(a - b for a, b in zip(launch_counts(),
+                                                     before)))
+            return out
+        codec.compress_async = guarded
+    try:
+        yield log
+    finally:
+        for codec in codecs.values():
+            del codec.compress_async
+
+
+def _results(res):
+    return [(bytes(r["bit_stream"]), r["ec_parallel"], r["x_hat"])
+            for r in res]
+
+
+def image_pipeline(name, codec, images, qp, device_ec):
+    """PipelineCases of an image codec on `images` (tensors on the card):
+    compress vs compress_many; decompress vs decompress_many through the
+    host coder and, with device_ec, through K2 (each stream's lanes
+    uploaded once, every call under no_sync).  Runs each serially once
+    first (the streams; every decode must give the encoder's frames),
+    which also warms the codec up."""
+    h, w = images[0].shape[1:3]
+    qps = [qp] * len(images)
+    enc = _results([codec.compress(x, qp) for x in images])
+    streams, ecs = [r[0] for r in enc], [r[1] for r in enc]
+    x_hats = [r[2] for r in enc]
+    resets = (False,) * len(images)
+
+    def decodes(bits):
+        return [codec.decompress(b, qp, h, w, ec)["x_hat"]
+                for b, ec in zip(bits, ecs)]
+
+    def decode_many(bits):
+        return [o["x_hat"] for o in codec.decompress_many(bits, qps, h, w,
+                                                           ecs)]
+
+    def device(fn):
+        return no_sync(lambda: _device_ec(codec, fn))
+    lanes = [codec.upload_stream(b, ec) for b, ec in zip(streams, ecs)] \
+        if device_ec else None
+    for kind, out in [("decode", decodes(streams))] + (
+            [("device decode", device(lambda: decodes(lanes)))]
+            if device_ec else []):
+        if not same(out, x_hats):
+            raise AssertionError(f"{name}: a {kind} differs from the "
+                                 f"encoder's x_hat")
+    cases = [PipelineCase(
+        name, "encode", resets,
+        lambda: _results([codec.compress(x, qp) for x in images]),
+        lambda: _results(codec.compress_many(images, qps)),
+        lambda out: same(out, enc)),
+        PipelineCase(name, "decode", resets, lambda: decodes(streams),
+                     lambda: decode_many(streams),
+                     lambda out: same(out, x_hats))]
+    if device_ec:
+        cases.append(PipelineCase(
+            name, "device decode", resets,
+            lambda: device(lambda: decodes(lanes)),
+            lambda: device(lambda: decode_many(lanes)),
+            lambda out: same(out, x_hats)))
+    return cases
+
+
+def video_pipeline(name, codec, dmci, frames, resets, qp):
+    """PipelineCases of a video codec on `frames` (tensors on the card),
+    coded in units of frame_delay frames with these reset flags after the
+    DMCI reconstruction of frames[0] (the intra frame): compress vs
+    compress_sequence; decompress vs decompress_sequence through the host
+    coder and through K2 (lanes uploaded once, under no_sync).  Runs each
+    serially once first (the streams, frames and DPBs: the decoders' DPB
+    must be the encoder's, the device decode's frames the host decode's),
+    which also warms the codec up."""
+    fd = codec.cfg.frame_delay
+    h, w = frames[0].shape[1:3]
+    units = [torch.cat(frames[fd * u:fd * u + fd], dim=-1)
+             for u in range(len(resets))]
+    qps = [qp] * len(units)
+    intra = dmci.compress(frames[0], qp)["x_hat"]
+
+    def seeded(fn):
+        codec.clear_dpb()
+        codec.add_ref_feature_from_frame(intra)
+        out = fn()
+        return out, codec.ref_feature, codec.memory
+
+    def streams(res):
+        return [(bytes(r["bit_stream"]), r["ec_parallel"]) for r in res]
+
+    def encodes():
+        return streams([codec.compress(x, qp, rs)
+                        for x, rs in zip(units, resets)])
+
+    enc = seeded(encodes)
+    bits, ecs = [b for b, _ in enc[0]], [ec for _, ec in enc[0]]
+
+    def decodes(data):
+        return [codec.decompress(b, qp, h, w, ec, rs)["x_hat"]
+                for b, ec, rs in zip(data, ecs, resets)]
+
+    def decode_seq(data):
+        return codec.decompress_sequence(data, qps, h, w, ecs, resets)
+
+    lanes = [codec.upload_stream(b, ec) for b, ec in zip(bits, ecs)]
+
+    def device(fn):
+        return no_sync(lambda: _device_ec(codec, lambda: seeded(fn)))
+    dec = seeded(lambda: decodes(bits))
+    if not (same(dec[1:], enc[1:])
+            and same(device(lambda: decodes(lanes)), dec)):
+        raise AssertionError(f"{name}: the decoder's final DPB differs from "
+                             f"the encoder's, or the device decode from the "
+                             f"host decode")
+
+    def same_dpb(out):
+        return same(out, dec)
+    return [
+        PipelineCase(name, "encode", resets, lambda: seeded(encodes),
+                     lambda: seeded(lambda: streams(codec.compress_sequence(
+                         units, qps, resets))),
+                     lambda out: same(out, enc)),
+        PipelineCase(name, "decode", resets,
+                     lambda: seeded(lambda: decodes(bits)),
+                     lambda: seeded(lambda: decode_seq(bits)), same_dpb),
+        PipelineCase(name, "device decode", resets,
+                     lambda: device(lambda: decodes(lanes)),
+                     lambda: device(lambda: decode_seq(lanes)), same_dpb)]
+
+
+def pipeline_codecs(dev):
+    """The codecs of `pipeline` at their published widths in bf16, skip
+    0.15 (chip_smoke.py's): DMCI, RT intra, and HTS / HTL / LD at
+    init_scale 0.5."""
+    from .legacy.rt_intra import DMCIRTConfig
+    from .runtime.rt_image_codec import RTIntraCodec
+    codecs = {"DMCI": DMCICodec.init_random(
+        torch.Generator().manual_seed(0), cfg=DMCIConfig(), skip_thres=0.15,
+        dtype=torch.bfloat16, device=dev),
+        "RT intra": RTIntraCodec.init_random(
+            torch.Generator().manual_seed(0), cfg=DMCIRTConfig(),
+            skip_thres=0.15, dtype=torch.bfloat16, device=dev)}
+    for name, model, codec_name in (("HTS", "dmc_ht", "DMCHTCodec"),
+                                    ("HTL", "dmc_ht", "DMCHTCodec"),
+                                    ("LD", "dmc_ld", "DMCLDCodec")):
+        codecs[name] = _video_codec(dev, model, f"{name}_CONFIG", codec_name)
+    return codecs
+
+
+def pipeline_cases(codecs, dev, qp=QP, h=H, w=W):
+    """Every PipelineCase of `pipeline` at (h, w) and qp, from seeded
+    inputs: PIPELINE_IMAGES smooth frames for each image codec (RT intra:
+    in [0, 1], and no device decode: its JAX codec has none), and for
+    each video codec the DMCI-seeded sequence of PIPELINE_RESETS
+    (bench.py's drifting picture)."""
+    cases = []
+    for name, n in PIPELINE_IMAGES.items():
+        shift = 0.5 if name == "RT intra" else 0.0
+        images = [smooth_frame(h, w, 100 + i, dev) + shift for i in range(n)]
+        cases += image_pipeline(name, codecs[name], images, qp,
+                                device_ec=name == "DMCI")
+    for seed, (name, resets) in enumerate(PIPELINE_RESETS.items()):
+        codec = codecs[name]
+        frames = make_sequence(h, w, codec.cfg.frame_delay * len(resets),
+                               200 + seed, dev)
+        cases += video_pipeline(name, codec, codecs["DMCI"], frames, resets,
+                                qp)
+    return cases
+
+
+def time_pipeline(case, runs):
+    """Runs case.serial and case.pipelined `runs` times each in turns
+    (serial first on even turns, pipelined first on odd ones), on the
+    host clock around synchronised calls, then once each under
+    torch.profiler; every result must pass case.expect and equal the
+    first serial run's, bit for bit.  Prints and
+    returns a JSON line: per unit, the walls of every run, the medians
+    and their ratio, and the profiled run's wall, device busy time and
+    idle share (1 - busy / wall)."""
+    fns = {"serial": case.serial, "pipelined": case.pipelined}
+    walls = {k: [] for k in fns}
+    units = len(case.resets)
+    first = []
+
+    def check(mode, out):
+        if not first:
+            first.append(out)
+        if not (case.expect(out) and same(out, first[0])):
+            raise AssertionError(f"{case.name} {case.kind}: a {mode} run "
+                                 f"differs from the encoder's or the serial "
+                                 f"run's result")
+    for r in range(runs):
+        for mode in (("serial", "pipelined") if r % 2 == 0
+                     else ("pipelined", "serial")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fns[mode]()
+            torch.cuda.synchronize()
+            walls[mode].append(1e3 * (time.perf_counter() - t0) / units)
+            check(mode, out)
+    line = {"call": f"{case.name} {case.kind}", "units": units}
+    for mode, fn in fns.items():
+        out, wall, busy, _ = profiled(fn)
+        check(mode, out)
+        line[f"{mode}_ms_per_unit"] = walls[mode]
+        line[f"{mode}_median_ms_per_unit"] = statistics.median(walls[mode])
+        line[f"{mode}_profiled_ms_per_unit"] = wall / units
+        line[f"{mode}_busy_ms_per_unit"] = busy / units
+        line[f"{mode}_idle_share"] = 1 - busy / wall
+    line["serial_over_pipelined"] = (line["serial_median_ms_per_unit"]
+                                     / line["pipelined_median_ms_per_unit"])
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def warm_profiler(dev):
+    """One throwaway torch.profiler trace (the tracer may drop the events
+    of its first one)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+
+
+def run_pipeline(dev, runs):
+    codecs = pipeline_codecs(dev)
+    cases = pipeline_cases(codecs, dev)     # the codecs' warm-up too
+    warm_profiler(dev)
+    with sync_free_halves(codecs):
+        for case in cases:
+            time_pipeline(case, runs)
 
 
 LEGACY_SIZES = ((1080, 1920), (720, 1280))
@@ -1894,11 +2217,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("shapes", "profile", "k2", "tiles",
                                      "train", "legacy", "fm", "hem", "dc",
-                                     "tcm", "mask"))
+                                     "tcm", "mask", "pipeline"))
     ap.add_argument("--iters", type=int, default=50,
                     help="timed launches per shape (shapes)")
     ap.add_argument("--runs", type=int, default=2,
-                    help="profiled runs per call (profile, train)")
+                    help="profiled runs per call (profile, train); timed "
+                    "runs of each form (pipeline)")
     ap.add_argument("--symbols", type=int, default=2_000_000,
                     help="symbols of the synthetic stream (k2)")
     ap.add_argument("--lanes", type=int, default=8,
@@ -1927,6 +2251,8 @@ def main():
         run_mask_decay(dev, args.runs)
     elif args.mode in ("fm", "hem", "dc", "tcm"):
         run_p_frame(args.mode.upper(), dev, args.runs)
+    elif args.mode == "pipeline":
+        run_pipeline(dev, args.runs)
     else:
         run_profile(dev, args.runs)
 

@@ -74,6 +74,8 @@ def upload_lanes(stream, n_lanes, device):
     """The host half of a device decode: split `stream` into its n_lanes
     lanes and copy them to `device` (the only host-to-device copy of the
     decode).  Each lane is zero-padded to a multiple of 16 bytes, the
-    chunk K2 reads its bytes in."""
+    chunk K2 reads its bytes in.  To a CUDA device the copy goes through
+    pinned memory and does not block the host."""
+    from ..runtime.host_copy import to_device   # (runtime imports this)
     lanes, _ = split_streams(stream, n_lanes, pad_to=16)
-    return torch.from_numpy(lanes).to(device)
+    return to_device(lanes, torch.device(device))

@@ -23,7 +23,8 @@ from .image_codec import DMCICodec
 class RTIntraCodec(DMCICodec):
     """params: a state_dict of legacy.rt_intra.DMCIRT.  Decodes through the
     host coder only: the JAX codec's decode has no device path, so
-    device_ec=True raises."""
+    device_ec=True raises.  The two halves of compress, compress_many and
+    decompress_many are DMCICodec's, through the hooks below."""
 
     MODEL_CLS = DMCIRT
     CONFIG_CLS = DMCIRTConfig
@@ -37,9 +38,9 @@ class RTIntraCodec(DMCICodec):
                              "decode through the host coder")
         super().__init__(params, cfg, skip_thres, dtype, device)
 
-    def _prior0(self, p, z_int8, sync_free=False):
+    def _prior0(self, p, z_int8):
         scales, means, ctx, q_enc, q_dec = self.model.prior0(z_int8, *p["y"])
-        return (means, ctx) + self._build_idx(p, scales, 0, sync_free) \
+        return (means, ctx) + self._build_idx(p, scales, 0) \
             + ((q_enc, q_dec),)
 
     def _enc_y(self, y, q):

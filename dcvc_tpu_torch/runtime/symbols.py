@@ -2,12 +2,14 @@
 dcvc_tpu/runtime/symbols.py).
 
 Compaction puts the coded candidates first, in candidate order, then the
-skipped ones.  That order is the stream's symbol order.  The host-coder
-paths compact with a boolean-mask `nonzero`, which waits for the device
-(they wait for the count anyway).  The device-entropy decode must not
-wait, so it compacts with a stable sort keyed on the skip flag, as the
-JAX package does (`compact_idx_sorted`): the same result without a sync.
-Expansion is a scatter by the carried positions.
+skipped ones.  That order is the stream's symbol order.  The runtimes
+compact without waiting for the device, as the JAX package does: the
+indexes with one stable sort keyed on the skip flag (`compact_idx_sorted`),
+the values by gathering them at the positions that sort returns
+(`compact_vals_sorted`).  `compact_idx` and `compact_vals` give the same
+results through a boolean-mask `nonzero` and boolean indexing, which wait
+for the device; they are the plain forms the tests hold the sorted ones
+against.  Expansion is a scatter by the carried positions.
 """
 
 import torch
@@ -37,6 +39,17 @@ def compact_idx_sorted(idx_u8, cond):
 def compact_vals(vals, cond):
     """Compact a value buffer (same stable order as compact_idx)."""
     return torch.cat([vals[cond], vals[~cond]])
+
+
+def compact_vals_sorted(vals, packed_pos):
+    """compact_vals without a host sync: vals gathered at the positions
+    compact_idx_sorted returned for the same cond.  Same result."""
+    return vals.index_select(0, packed_pos)
+
+
+def pack_symbols(y_q16, packed_idx):
+    """The host coder's symbols: (y_q << 8) | CDF index, int16."""
+    return (y_q16 << 8) | (packed_idx.to(torch.int16) & 0xFF)
 
 
 def expand_from_pos(packed_pos, padded, n):

@@ -148,3 +148,59 @@ def test_zero_count_rung_decodes_to_zeros():
                            res["ec_parallel"])["x_hat"]
     assert torch.equal(out, res["x_hat"])
     assert np.isfinite(out.numpy()).all()
+
+
+def test_dmci_decompress_many_device_ec_is_exact(dmci, k2_calls):
+    """decompress_many (depth 3, 4 images) with device_ec: each image's
+    coroutine runs K2 and yields after each rung; the frames are the host
+    coder's serial decodes' and the encoder's, with 5 K2 calls an
+    image."""
+    h, w = 64, 64
+    qps = [0, 5, 2, 5]
+    enc = [dmci.compress(_image(h, w, 40 + i), qp)
+           for i, qp in enumerate(qps)]
+    streams = [r["bit_stream"] for r in enc]
+    ecs = [r["ec_parallel"] for r in enc]
+    host = [dmci.decompress(bs, qp, h, w, ec)["x_hat"]
+            for bs, qp, ec in zip(streams, qps, ecs)]
+    dmci.device_ec = True
+    try:
+        lanes = [dmci.upload_stream(bs, ec) for bs, ec in zip(streams, ecs)]
+        outs = dmci.decompress_many(lanes, qps, h, w, ecs, depth=3)
+    finally:
+        dmci.device_ec = False
+    assert k2_calls[0] == K2_CALLS["dmci"] * len(qps)
+    for r, o, want in zip(enc, outs, host):
+        assert torch.equal(o["x_hat"], want)
+        assert torch.equal(o["x_hat"], r["x_hat"])
+
+
+@pytest.mark.parametrize("variant", ["hts", "htl"])
+def test_video_decompress_sequence_device_ec_is_exact(video, k2_calls,
+                                                      variant):
+    """compress_sequence's streams decoded by decompress_sequence with
+    device_ec: the host coder's serial frames and final DPB, bit for bit,
+    with K2_CALLS per chunk."""
+    codec = video[variant]
+    h, w, qp = VIDEO_CASES[0]
+    intra, chunks = _chunks(h, w, qp)
+    qps = [qp] * len(chunks)
+    codec.clear_dpb()
+    codec.add_ref_feature_from_frame(intra)
+    res = codec.compress_sequence(chunks, qps, RESETS)
+    enc_dpb = codec.ref_feature
+    host, host_dpb = _decode_all(codec, intra, res, qp, h, w)
+    codec.clear_dpb()
+    codec.add_ref_feature_from_frame(intra)
+    codec.device_ec = True
+    try:
+        dev = codec.decompress_sequence(
+            [r["bit_stream"] for r in res], qps, h, w,
+            [r["ec_parallel"] for r in res], RESETS)
+    finally:
+        codec.device_ec = False
+    assert k2_calls[0] == K2_CALLS[variant] * len(RESETS)
+    for u, (d, x_hat) in enumerate(zip(dev, host)):
+        assert torch.equal(d, x_hat), f"chunk {u}"
+    assert torch.equal(codec.ref_feature, enc_dpb)
+    assert torch.equal(host_dpb, enc_dpb)

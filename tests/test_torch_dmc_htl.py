@@ -29,7 +29,7 @@ from dcvc_tpu_torch.models.dmc_ht import DMCHT, TINY_HTL_CONFIG
 from dcvc_tpu_torch.runtime.video_codec import DMCHTCodec
 from dcvc_tpu_torch.utils.jax_bridge import dmc_ht_params_from_jax
 
-from test_torch_video_codec import RESETS, _chunks
+from test_torch_video_codec import RESETS, _chunks, check_sequence_calls
 
 REL = 1e-5
 X_HAT_ATOL = 1e-4
@@ -261,3 +261,14 @@ def test_random_init_is_seeded():
     assert a.decoder.up.conv[0].weight.shape[2:] == (3, 3)
     dw = a.recon_head.conv[0][0].dc[2].weight.detach()
     assert 0 < float(dw.std()) < 0.05          # N(0, 0.02), as in the JAX
+
+
+def test_sequence_calls_match_jax_pipelined(codecs):
+    """HTL (the ladder: one index copy per rung): compress_sequence /
+    decompress_sequence against the JAX codec's and the serial calls, a
+    reset on the second chunk (check_sequence_calls)."""
+    jcodec, tcodec = codecs
+    h, w, qp = CASES[1]
+    intra, chunks = _chunks(h, w, qp)
+    check_sequence_calls(jcodec, tcodec, intra, chunks, [qp, qp, qp - 2],
+                         RESETS, h, w)

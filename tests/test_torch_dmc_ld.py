@@ -41,6 +41,8 @@ from dcvc_tpu_torch.runtime import image_codec
 from dcvc_tpu_torch.runtime.video_codec import DMCLDCodec
 from dcvc_tpu_torch.utils.jax_bridge import dmc_ld_params_from_jax
 
+from test_torch_video_codec import check_sequence_calls
+
 REL = 1e-5
 X_HAT_ATOL = 1e-4
 QP = 3
@@ -320,3 +322,13 @@ def test_roundtrip_and_device_decode_bit_exact(tcodec, monkeypatch, h, w,
         assert torch.equal(dev[u], host[u]), f"frame {u}"
     assert torch.equal(host_dpb, enc_dpb)
     assert torch.equal(tcodec.ref_feature, enc_dpb)
+
+
+def test_sequence_calls_match_jax_pipelined(jax_codec, tcodec):
+    """LD (frames, the checkerboard's single pass): compress_sequence /
+    decompress_sequence against the JAX codec's and the serial calls, a
+    reset on the third frame (check_sequence_calls)."""
+    h, w, qp = CASES[0]
+    intra, frames = _frames(h, w, qp)
+    check_sequence_calls(jax_codec, tcodec, intra, frames,
+                         [qp, qp + 1, qp, qp], RESETS, h, w)

@@ -216,3 +216,21 @@ def test_halo_covers_the_receptive_field(codecs):
         b = model.synthesis(bumped, 1, 16 * yh, W)
     assert torch.equal(a[:, :16 * hi], b[:, :16 * hi])
     assert not torch.equal(a, b)
+
+
+def test_split_pipelined_calls_match_serial(codecs):
+    """The split codec's compress_many / decompress_many give its own
+    serial calls' streams and frames, bit for bit."""
+    _, split, _ = codecs
+    qps = [0, 5, 3]
+    images = [image(20 + i) for i in range(len(qps))]
+    many = split.compress_many(images, qps, depth=1)
+    serial = [split.compress(x, qp) for x, qp in zip(images, qps)]
+    for r, s in zip(many, serial):
+        assert r["bit_stream"] == s["bit_stream"]
+        assert r["ec_parallel"] == s["ec_parallel"]
+        assert torch.equal(r["x_hat"], s["x_hat"])
+    outs = split.decompress_many([r["bit_stream"] for r in many], qps, H, W,
+                                 [r["ec_parallel"] for r in many], depth=2)
+    for o, s in zip(outs, serial):
+        assert torch.equal(o["x_hat"], s["x_hat"])

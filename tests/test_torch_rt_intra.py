@@ -288,3 +288,27 @@ def test_params_v1_files_both_ways(jax_codec, tmp_path):
     save_native(model, again)
     with open(path, "rb") as a, open(again, "rb") as b:
         assert a.read() == b.read()
+
+
+def test_pipelined_calls_match_jax_and_serial(jax_codec, tcodec):
+    """RTIntraCodec's compress_many (DMCICodec's, through RT's hooks)
+    gives the JAX codec's compress_many streams and the serial calls'
+    streams and x_hat; decompress_many (depth 2) the serial decodes'."""
+    h, w = 64, 64
+    qps = [0, 5, 2]
+    images = [_img(h, w, 50 + i) for i in range(len(qps))]
+    jres = jax_codec.compress_many(images, qps, depth=1)
+    many = tcodec.compress_many(images, qps, depth=1)
+    serial = [tcodec.compress(x, qp) for x, qp in zip(images, qps)]
+    for r, j, s in zip(many, jres, serial):
+        assert len(r["bit_stream"]) > 40
+        assert r["bit_stream"] == j["bit_stream"] == s["bit_stream"]
+        assert r["ec_parallel"] == j["ec_parallel"] == s["ec_parallel"]
+        assert torch.equal(r["x_hat"], s["x_hat"])
+    streams = [r["bit_stream"] for r in many]
+    ecs = [r["ec_parallel"] for r in many]
+    outs = tcodec.decompress_many(streams, qps, h, w, ecs, depth=2)
+    for o, s, bs, qp, ec in zip(outs, serial, streams, qps, ecs):
+        assert torch.equal(o["x_hat"], s["x_hat"])
+        assert torch.equal(
+            o["x_hat"], tcodec.decompress(bs, qp, h, w, ec)["x_hat"])

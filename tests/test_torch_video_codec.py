@@ -171,3 +171,55 @@ def test_dpb_must_be_seeded(codecs):
     tcodec.clear_dpb()
     with pytest.raises(ValueError, match="DPB empty"):
         tcodec.compress(np.zeros((1, 64, 64, 24), np.float32), 0)
+
+
+def check_sequence_calls(jcodec, tcodec, intra, units, qps, resets, h, w,
+                         depth=2):
+    """The pipelined calls of a video codec against the JAX codec's and
+    its own serial ones on the same units, from a DPB seeded with `intra`:
+    compress_sequence gives the JAX compress_sequence's streams byte for
+    byte and the serial compress's, with the serial final DPB;
+    decompress_sequence gives the serial decodes' frames and final DPB bit
+    for bit, and the JAX decompress_sequence's frames within X_HAT_ATOL."""
+    def seeded(codec):
+        codec.clear_dpb()
+        codec.add_ref_feature_from_frame(intra)
+        return codec
+    jseq = seeded(jcodec).compress_sequence(units, qps, resets, depth=depth)
+    seq = seeded(tcodec).compress_sequence(units, qps, resets, depth=depth)
+    enc_dpb = tcodec.ref_feature
+    seeded(tcodec)
+    serial = [tcodec.compress(x, q, rs) for x, q, rs in
+              zip(units, qps, resets)]
+    assert torch.equal(tcodec.ref_feature, enc_dpb)
+    for u, (r, j, s) in enumerate(zip(seq, jseq, serial)):
+        assert len(r["bit_stream"]) > 40, "the unit codes no y symbol"
+        assert r["bit_stream"] == j["bit_stream"] == s["bit_stream"], u
+        assert r["ec_parallel"] == j["ec_parallel"] == s["ec_parallel"], u
+
+    streams = [r["bit_stream"] for r in seq]
+    ecs = [r["ec_parallel"] for r in seq]
+    jout = seeded(jcodec).decompress_sequence(streams, qps, h, w, ecs,
+                                              resets)
+    out = seeded(tcodec).decompress_sequence(streams, qps, h, w, ecs, resets)
+    assert torch.equal(tcodec.ref_feature, enc_dpb)
+    assert (tcodec.memory is None) == resets[-1]
+    seeded(tcodec)
+    for u, (x_hat, bs, q, ec, rs) in enumerate(zip(out, streams, qps, ecs,
+                                                   resets)):
+        want = tcodec.decompress(bs, q, h, w, ec, rs)["x_hat"]
+        assert torch.equal(x_hat, want), f"unit {u}"
+        np.testing.assert_allclose(
+            x_hat.numpy(), np.asarray(jout[u]).reshape(x_hat.shape), rtol=0,
+            atol=X_HAT_ATOL, err_msg=f"unit {u}")
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_sequence_calls_match_jax_pipelined(codecs, depth):
+    """HTS: compress_sequence with its host halves `depth` units behind,
+    a reset on the second chunk (check_sequence_calls)."""
+    jcodec, tcodec = codecs
+    h, w, qp = CASES[0]
+    intra, chunks = _chunks(h, w, qp)
+    check_sequence_calls(jcodec, tcodec, intra, chunks, [qp, qp - 1, qp],
+                         RESETS, h, w, depth)
