@@ -174,7 +174,23 @@ every K2 launch's inputs:
     under torch.cuda.set_sync_debug_mode("error"), K1 and K2 launched as
     derived per unit; the warm walls per unit, serial and pipelined, and
     each form's idle share (torch.profiler) printed.  Its K2 calls are
-    counted, not replayed.
+    counted, not replayed;
+  - the envelope's K2 (phase_envelope_k2): an HTS chunk at 240p and at
+    2160p from a DMCI frame, encoded and decoded on the card, its K2
+    calls recorded for the replay;
+  - the speed and conformance entry points (phase_entry_points): python3
+    -m dcvc_tpu_torch.bench in its own process at bench.py's protocol
+    (its JSON line, value > 0); eval/bench_variants.py for DMCI, HTL and
+    HTS at 1080p with the host coder and with device_ec, HTS at 240p,
+    480p and 2160p and DMCI at 240p, in this process on frames made on
+    the card, each JSON line printed, its K1 / K2 launches as derived
+    from the models (perf_probe.uf_call_launches), its zero-symbol
+    decode chains run with host syncs an error; eval/compress_time.py
+    (LD) on a synthetic 1080p HEVC_B sequence; eval/cross_platform run
+    (both same-platform legs identical, the card <-> CPU legs printed);
+    utils/download_checkpoints --import_native on a reference file it
+    synthesises, no network touched.  Its K2 calls are counted, not
+    replayed.
 Before the main path, parallel/dryrun.entry() (the DMCI forward at
 256x256 in bf16) runs once and is timed.
 Every device decode of the parts before the evaluation entry runs under
@@ -210,6 +226,7 @@ import json
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -217,8 +234,8 @@ import time
 import numpy as np
 import torch
 
-from dcvc_tpu_torch.eval import bd_gate, family, family_main, image_main, \
-    video_main
+from dcvc_tpu_torch.eval import bd_gate, bench_variants, compress_time, \
+    cross_platform, family, family_main, image_main, video_main
 from dcvc_tpu_torch.eval.harness import run_one_point_with_stream
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
@@ -254,7 +271,7 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     sync_free_halves, time_pipeline, warm_profiler, \
     rt_stage_launches, sass_counts, smooth_frame, spatial_dmci_launches, \
     TRAIN_CELLS, TRAIN_INIT_SCALE, TRAIN_LAMBDAS, TRAIN_LR, damped_model, \
-    tcm_p_codec, tcm_stage_launches, train_setup
+    tcm_p_codec, tcm_stage_launches, train_setup, uf_call_launches
 from dcvc_tpu_torch.runtime.compressai_codec import Cheng2020Codec, \
     HyperpriorCodec
 from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
@@ -265,7 +282,7 @@ from dcvc_tpu_torch.train import image_main as train_image_main
 from dcvc_tpu_torch.train import video_main as train_video_main
 from dcvc_tpu_torch.train.step import Optimizer, image_train_step
 from dcvc_tpu_torch.train.video_step import video_train_step
-from dcvc_tpu_torch.utils import import_cli
+from dcvc_tpu_torch.utils import download_checkpoints, import_cli
 from dcvc_tpu_torch.utils.checkpoint import load_latest_status, \
     load_reference_into, save_reference
 from dcvc_tpu_torch.utils.jax_bridge import load_native_into, \
@@ -3793,6 +3810,237 @@ def phase_mask_decay(dev):
     return (0, 0, 0)
 
 
+# ---------------------------------- the speed and conformance entry points
+
+# bench_variants runs of phase_entry_points, (variant, resolution,
+# device_ec), each at the JAX script's protocol
+ENTRY_VARIANTS = ([(v, "1080p", ec) for ec in (False, True)
+                   for v in ("dmci", "htl", "hts")]
+                  + [("dmci", "240p", False)]
+                  + [("hts", r, False) for r in ("240p", "480p", "2160p")])
+ENTRY_SEED = 90
+# compress_time: LD (a unit is a frame) on a seeded 1080p HEVC_B sequence
+# of ENTRY_CT_FRAMES frames, one past the harness's 4 warm-up units
+ENTRY_CT_FRAMES = 5
+ENTRY_TIMEOUT = 900      # seconds, for each process the phase starts
+# the HTS chunks whose device decodes are replayed (phase_envelope_k2)
+ENVELOPE_K2 = ("240p", "2160p")
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+VARIANT_KEYS = BENCH_KEYS + ["enc_fps", "dec_fps", "dec_device_fps", "bpp"]
+
+
+def variant_launches(variant, res, device_ec):
+    """(S = 1, stacked, K2) launches of one bench_variants run at its
+    protocol, from perf_probe.uf_call_launches at its size: DMCI 4 passes
+    of 8 encodes and 8 decodes, then 4 zero-symbol decode chains; HT 5
+    passes of 6 chunks, encoded (the first after the seed, no recon) and
+    decoded (recon heads), then 4 chains (adaptor_m, the decode trunk and
+    the recon heads); a device decode adds its K2 calls."""
+    cfg = {"dmci": DMCIConfig(), "hts": HTS_CONFIG,
+           "htl": HTL_CONFIG}[variant]
+    n = uf_call_launches(variant, cfg, *bench_variants.RESOLUTIONS[res])
+    chains = 4
+    if variant == "dmci":
+        passes, images = 4, 8
+        return (passes * images * (n["encode"] + n["decode"])
+                + chains * n["decode"], 0,
+                passes * images * DMCI_K2_LAUNCHES if device_ec else 0)
+    passes, chunks = 5, 6
+    r1, rs = n["recon"]
+    s1 = passes * (n["first_encode"] + n["first_decode"]
+                   + (chunks - 1) * (n["encode"] + n["decode"])
+                   + chunks * r1) + chains * (n["decode"] + r1)
+    k2 = VIDEO[variant.upper()]["k2"]
+    return (s1, (passes * chunks + chains) * rs,
+            passes * chunks * k2 if device_ec else 0)
+
+
+def phase_envelope_k2(dmci, hts, dev, launch_log, k2_log):
+    """One HTS chunk at each size of ENVELOPE_K2 (its DPB seeded by a DMCI
+    frame) encoded with recon and decoded on the card: the device decode's
+    K2 calls are recorded for the replay against the plain version, and
+    its frames equal the encoder's.  Returns the (S = 1, stacked, K2)
+    launches derived for it."""
+    spec = VIDEO["HTS"]
+    derived = [0, 0, 0]
+
+    def tally(tag, got, want):
+        expect(tag, got, want)
+        for i in range(3):
+            derived[i] += want[i]
+
+    for res in ENVELOPE_K2:
+        h, w = bench_variants.RESOLUTIONS[res]
+        frames = make_sequence(h, w, 9, ENTRY_SEED + 5, dev)
+        label = f"envelope HTS {w}x{h} qp={STAGE_QP}"
+        intra, _, *n = counted(launch_log, f"{label} intra frame (DMCI "
+                               f"encode)", lambda: dmci.compress(
+                                   frames[0], STAGE_QP)["x_hat"])
+        tally(f"{label} intra frame", tuple(n), (ENCODE_LAUNCHES, 0, 0))
+        chunk = torch.cat(frames[1:], dim=-1)
+        hts.clear_dpb()
+        hts.add_ref_feature_from_frame(intra)
+        res_, _, *n = counted(launch_log, f"{label} chunk encode (recon)",
+                              lambda: hts.compress(chunk, STAGE_QP,
+                                                   recon=True))
+        tally(f"{label} encode", tuple(n),
+              expected_launches(spec, (False,), 0, True, True))
+        hts.clear_dpb()
+        hts.add_ref_feature_from_frame(intra)
+        ec = res_["ec_parallel"]
+        x_dev, ms, *n = device_decode(hts, k2_log, f"{label} device decode",
+                                      launch_log, bytes(res_["bit_stream"]),
+                                      ec, STAGE_QP, h, w, ec)
+        s1, st, _ = expected_launches(spec, (False,), 0, False, True)
+        tally(f"{label} device decode", tuple(n), (s1, st, spec["k2"]))
+        if not torch.equal(x_dev, res_["x_hat"]):
+            raise AssertionError(f"{label}: the device decode's frames "
+                                 f"differ from the encoder's")
+        log(f"{label}: {len(res_['bit_stream'])} bytes, device decode "
+            f"bit-exact ({ms} ms cold), its {spec['k2']} K2 calls recorded")
+    hts.clear_dpb()
+    torch.cuda.empty_cache()
+    return tuple(derived)
+
+
+def _refuse_download(url, target):
+    raise AssertionError(f"download_checkpoints tried the network: {url}")
+
+
+def phase_entry_points(dev, launch_log):
+    """The JAX repo's speed and conformance entry points, ported:
+    `python3 -m dcvc_tpu_torch.bench` in its own process at its protocol
+    (the last line bench.py's four keys, value > 0, no error);
+    eval/bench_variants.py's runs of ENTRY_VARIANTS in this process, on a
+    seeded sequence made on the card per size (perf_probe.make_sequence,
+    48 frames; DMCI codes the first 8), each JSON line with the script's
+    fields, value > 0, its K1 / K2 launches as derived (variant_launches)
+    and every zero-symbol chain run with host syncs an error;
+    eval/compress_time.py (LD, its own process for the entry) on a seeded
+    1080p HEVC_B sequence of ENTRY_CT_FRAMES frames; eval/cross_platform
+    run (its six processes: SMALL configs in float32, encoded on the card
+    and on the CPU, each decoded on both): both same-platform legs
+    identical, the card <-> CPU legs printed; utils/download_checkpoints
+    --import_native on the DCVC-UF family with cvpr2026_image.pth.tar in
+    place (a seeded DMCIConfig() model saved as a reference file; the
+    other files are share folders, MANUAL, exit code 2; a download
+    attempt fails the phase), its params.v1 equal to the model.  Prints
+    nvidia-smi beside the numbers.  Returns the (S = 1, stacked, K2)
+    launches derived for the in-process runs (the other processes'
+    launches are their own)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    smi = nvidia_smi()
+    derived = [0, 0, 0]
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dcvc_tpu_torch.bench"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=ENTRY_TIMEOUT)
+    lines = res.stdout.strip().splitlines()
+    rec = json.loads(lines[-1]) if res.returncode == 0 and lines else {}
+    if list(rec) != BENCH_KEYS or not rec["value"] > 0:
+        raise AssertionError(f"bench: rc {res.returncode}\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    for line in res.stderr.splitlines():
+        if line.startswith("#"):
+            log(f"  bench {line}")
+    log(lines[-1])
+    log(f"bench (python3 -m dcvc_tpu_torch.bench, HTS 1080p, its protocol;"
+        f" {time.perf_counter() - t0:.3f} s with its start; {smi}): "
+        f"{lines[-1]}")
+
+    for size in ("1080p", "240p", "480p", "2160p"):
+        h, w = bench_variants.RESOLUTIONS[size]
+        seq = make_sequence(h, w, 48, ENTRY_SEED, dev)
+        for variant, r, ec in ENTRY_VARIANTS:
+            if r != size:
+                continue
+            label = (f"bench_variants {variant} {size}"
+                     + (" device_ec" if ec else ""))
+            t0 = time.perf_counter()
+            with launch_log.call(label):
+                before = launch_counts()
+                if variant == "dmci":
+                    rec = bench_variants.bench_dmci(h, w, size, device_ec=ec,
+                                                    device=dev, frames=seq)
+                else:
+                    rec = bench_variants.bench_ht(h, w, variant, size,
+                                                  device_ec=ec, device=dev,
+                                                  frames=seq)
+                torch.cuda.synchronize()
+                got = tuple(a - b for a, b in zip(launch_counts(), before))
+            want = variant_launches(variant, size, ec)
+            expect(label, got, want)
+            for i in range(3):
+                derived[i] += want[i]
+            if list(rec) != VARIANT_KEYS or not rec["value"] > 0:
+                raise AssertionError(f"{label}: {rec}")
+            log(f"{label}: {json.dumps(rec)} ({time.perf_counter() - t0:.3f}"
+                f" s with its codec's set-up; launches {got} as derived; "
+                f"{smi})")
+        del seq
+        torch.cuda.empty_cache()
+
+    d = scratch_dir("entry")
+    t0 = time.perf_counter()
+    cfg = compress_time.write_sequence(d, 1080, 1920, ENTRY_CT_FRAMES)
+    avg_enc, avg_dec = compress_time.main([
+        "--model_structure", "ld", "--test_config", cfg,
+        "--output_path", os.path.join(d, "runtime_out.json"),
+        "--stream_path", os.path.join(d, "bins")])
+    log(f"compress_time LD, 1080p HEVC_B, {ENTRY_CT_FRAMES} frames x 4 "
+        f"rates: encode {avg_enc * 1e3} ms, decode {avg_dec * 1e3} ms a "
+        f"frame after the 4 warm-up units ({time.perf_counter() - t0:.3f} s"
+        f" with its sequence and process; {smi})")
+
+    t0 = time.perf_counter()
+    art = cross_platform.main(["run", "--dir", os.path.join(d, "xplat"),
+                               "--artifact",
+                               os.path.join(d, "CROSS_PLATFORM.json")])
+    for leg, rep in art["results"].items():
+        if "error" in rep:
+            log(f"cross_platform {leg}: {rep['error']}")
+            continue
+        log(f"cross_platform {leg}: image " + "; ".join(
+            f"qp {e['qp']} symbols_identical={e['symbols_identical']} "
+            f"bitexact={e['recon_bitexact']} psnr={e['recon_psnr_vs_encoder']}"
+            for e in rep["image"]) + "; video " + "; ".join(
+            f"chunk {e['chunk']} bitexact={e['recon_bitexact']} "
+            f"psnr={e['recon_psnr_vs_encoder']}" for e in rep["video"]))
+    log(f"cross_platform run: same-platform legs identical "
+        f"{art['same_platform_identical']} "
+        f"({time.perf_counter() - t0:.3f} s, six processes)")
+
+    t0 = time.perf_counter()
+    ck = os.path.join(d, "checkpoints")
+    os.makedirs(os.path.join(ck, "uf"))
+    model = DMCI(DMCIConfig())
+    model.reset_parameters(torch.Generator().manual_seed(ENTRY_SEED + 1))
+    src = os.path.join(ck, "uf", "cvpr2026_image.pth.tar")
+    save_reference(src, model)
+    saved = download_checkpoints.urlretrieve
+    download_checkpoints.urlretrieve = _refuse_download
+    try:
+        rc = download_checkpoints.main(["uf", "--root", ck,
+                                        "--import_native"])
+    finally:
+        download_checkpoints.urlretrieve = saved
+    native = os.path.join(ck, "uf", "cvpr2026_image.native.bin")
+    back = load_native_into(DMCI(DMCIConfig()), native).state_dict()
+    if rc != 2 or not all(torch.equal(back[k], v)
+                          for k, v in model.state_dict().items()):
+        raise AssertionError(f"download_checkpoints --import_native: rc {rc}"
+                             f" or its params.v1 differs from the model")
+    log(f"download_checkpoints uf --import_native: the reference file in "
+        f"place converted to {os.path.getsize(native)} bytes of params.v1, "
+        f"equal to the model; 3 share-folder files MANUAL (rc 2); no "
+        f"download tried ({time.perf_counter() - t0:.3f} s)")
+    shutil.rmtree(d)
+    log(f"entry points: {time.perf_counter() - t_phase:.3f} s")
+    return tuple(derived)
+
+
 def zero_launch_counts():
     K1.fused_dcb.launches = K1.fused_dcb_stacked.launches = 0
     K2.rans_decode.launches = 0
@@ -3883,7 +4131,9 @@ def main():
               ("trainers -> codecs",
                lambda: phase_trained_codecs(dev, launch_log, k2_log)),
               ("spatial DMCI", lambda: phase_spatial(dev, launch_log,
-                                                     k2_log))]
+                                                     k2_log)),
+              ("envelope K2", lambda: phase_envelope_k2(
+                  dmci, video["HTS"], dev, launch_log, k2_log))]
     # the training surface of PR 16, in a temporary directory of the
     # checkout: the data scripts' corpus feeds the DDP trainers
     surface = scratch_dir("surface")
@@ -3923,7 +4173,8 @@ def main():
             ("symbols", lambda: phase_symbols(dev, launch_log)),
             ("pipeline", lambda: phase_pipeline(
                 dev, launch_log, {"DMCI": dmci, "RT intra": rt_intra,
-                                  **{n: video[n] for n in VIDEO}}, rt))]
+                                  **{n: video[n] for n in VIDEO}}, rt)),
+            ("entry points", lambda: phase_entry_points(dev, launch_log))]
         for part, run in counted_only:
             parts.append((part, None))
             zero_launch_counts()

@@ -244,6 +244,75 @@ def ld_stage_launches(cfg, h, w):
     return dict(log.calls)
 
 
+def ht_stage_launches(cfg, h, w):
+    """The K1 launches of each stage of a DMCHTCodec (HTS or HTL) call on
+    an (h, w) chunk in bfloat16, from the model itself (its stage methods
+    on the meta device, in the codec's order): adaptor_i, analysis,
+    prior0, prior_step 1-3, synthesis_feature, adaptor_m, reset_feature,
+    recon_frames.  Returns {stage: Counter of Launch}."""
+    from .core.padding import get_padding_size
+    from .models.dmc_ht import DMCHT
+    pad_r, pad_b = get_padding_size(h, w, 16)
+    ph, pw = h + pad_b, w + pad_r
+    yh, yw = ph // 16, pw // 16
+    log = LaunchLog()
+    bf = torch.bfloat16
+
+    def stage(name, fn, *args):
+        with log.call(name):
+            return fn(*args)
+    with torch.device("meta"), meta_launches(), log:
+        m = DMCHT(cfg).to(bf)
+        seed = torch.empty(1, ph // 8, pw // 8, cfg.ch_src_intra, dtype=bf)
+        memory, ctx = stage("adaptor_i", m.adaptor_i, seed)
+        x = torch.empty(1, ph, pw, 3 * cfg.frame_delay, dtype=bf)
+        _, z = stage("analysis", m.analysis, x, ctx, 0)
+        spctx = stage("prior0", m.prior0, z, memory, 0, yh, yw)[4]
+        y_hat = torch.empty(1, yh, yw, cfg.ch_y)
+        for k in (1, 2, 3):
+            stage(f"prior_step {k}", m.prior_step, spctx, y_hat, k)
+        feature = stage("synthesis_feature", m.synthesis_feature, y_hat,
+                        ctx, 0)
+        stage("adaptor_m", m.adaptor_m, memory, feature)
+        stage("reset_feature", m.reset_feature, feature)
+        stage("recon_frames", m.recon_frames, feature, 0, h, w)
+    return dict(log.calls)
+
+
+def uf_call_launches(name, cfg, h, w):
+    """K1 launches per codec call of a DCVC-UF codec at (h, w), from
+    spatial_dmci_launches in one tile (the unsplit codec's) /
+    ht_stage_launches: {"encode", "decode"} (S = 1) for DMCI ("dmci"); for
+    HT ("hts" / "htl") also "first_encode" /
+    "first_decode" (right after the intra frame or a reset: adaptor_i in
+    adaptor_m's place) and "recon", the recon heads' (S = 1, stacked).
+    Each entry is an int but recon's; "shapes" is the set of their
+    Launches."""
+    if name == "dmci":
+        stages = spatial_dmci_launches(cfg, h, w, 1)
+    else:
+        stages = ht_stage_launches(cfg, h, w)
+    n = {k: sum(v.values()) for k, v in stages.items()}
+    shapes = set()
+    for v in stages.values():
+        shapes.update(v)
+    steps = sum(n[f"prior_step {k}"] for k in (1, 2, 3))
+    if name == "dmci":
+        decode = n["prior0"] + steps + n["synthesis"]
+        return {"encode": n["analysis"] + decode, "decode": decode,
+                "shapes": shapes}
+    trunk = n["prior0"] + steps + n["synthesis_feature"]
+    recon = collections.Counter()
+    for key, k in stages["recon_frames"].items():
+        recon[key.kind] += k
+    return {"encode": n["adaptor_m"] + n["analysis"] + trunk,
+            "decode": n["adaptor_m"] + trunk,
+            "first_encode": n["adaptor_i"] + n["analysis"] + trunk,
+            "first_decode": n["adaptor_i"] + trunk,
+            "recon": (recon["fused_dcb"], recon["fused_dcb_stacked"]),
+            "shapes": shapes}
+
+
 def spatial_dmci_launches(cfg, h, w, tiles):
     """The K1 launches of each stage of a DMCICodec split into `tiles` row
     tiles (parallel/spatial.SpatialSplit) on an (h, w) frame in bfloat16,

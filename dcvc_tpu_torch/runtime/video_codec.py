@@ -255,11 +255,15 @@ class VideoCodecBase(EntropyDecoder):
         return (y_hat_so_far, means_next) + compact_idx_sorted(idx, cond) \
             + (cond,)
 
+    def _feature(self, y_hat_so_far, q_dec, ctx, qp):
+        """Shared enc+dec: q_dec scale + decoder trunk -> feature."""
+        return self.model.synthesis_feature(y_hat_so_far * q_dec, ctx, qp)
+
     def _final(self, y_hat_so_far, q_dec, ctx, memory, qp, reset):
-        """Shared enc+dec: q_dec scale + decoder trunk -> feature, and the
-        DPB update (on a reset the new reference is the recon head's
-        output for the last frame and the memory starts over)."""
-        feature = self.model.synthesis_feature(y_hat_so_far * q_dec, ctx, qp)
+        """Shared enc+dec: _feature, and the DPB update (on a reset the new
+        reference is the recon head's output for the last frame and the
+        memory starts over)."""
+        feature = self._feature(y_hat_so_far, q_dec, ctx, qp)
         self.ref_feature = (self.model.reset_feature(feature) if reset
                             else feature)
         self.memory = None if reset else memory
