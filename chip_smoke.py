@@ -1,6 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase traced]
+
+`--phase traced` builds the kernels and runs the traced sync-free
+decodes alone (phase_traced, below).
 
 Builds the port's two CUDA kernels from their sources, with K2's
 cycle-counting build (-DK2_CLOCKS), the three nvcc runs started together
@@ -175,6 +178,15 @@ every K2 launch's inputs:
     derived per unit; the warm walls per unit, serial and pipelined, and
     each form's idle share (torch.profiler) printed.  Its K2 calls are
     counted, not replayed;
+  - the sync-free device decodes traced (phase_traced): DMCI
+    compress_many / decompress_many over 2 1080p images and HTS
+    compress_sequence / decompress_sequence over 2 chunks, qp 32, inside a
+    torch.profiler window with the program's recorder on
+    (utils/profiling.py), every compress_async and every K2 decode under
+    torch.cuda.set_sync_debug_mode("error"), the decoded frames and final
+    DPB the encoder's bit for bit; the window must record every codec span
+    name and the symbol counter, each span a FUNCTION-scope host event,
+    and no device event may bear a span's name;
   - the envelope's K2 (phase_envelope_k2): an HTS chunk at 240p and at
     2160p from a DMCI frame, encoded and decoded on the card, its K2
     calls recorded for the replay;
@@ -269,7 +281,8 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     launch_counts, make_sequence, max_sm_clock_mhz, no_sync, nvidia_smi, \
     p_frame_calls, pipeline_cases, profile_launches, run_k2_case, \
     sync_free_halves, time_pipeline, warm_profiler, \
-    rt_stage_launches, sass_counts, smooth_frame, spatial_dmci_launches, \
+    rt_stage_launches, same, sass_counts, smooth_frame, \
+    spatial_dmci_launches, \
     TRAIN_CELLS, TRAIN_INIT_SCALE, TRAIN_LAMBDAS, TRAIN_LR, damped_model, \
     tcm_p_codec, tcm_stage_launches, train_setup, uf_call_launches
 from dcvc_tpu_torch.runtime.compressai_codec import Cheng2020Codec, \
@@ -282,7 +295,8 @@ from dcvc_tpu_torch.train import image_main as train_image_main
 from dcvc_tpu_torch.train import video_main as train_video_main
 from dcvc_tpu_torch.train.step import Optimizer, image_train_step
 from dcvc_tpu_torch.train.video_step import video_train_step
-from dcvc_tpu_torch.utils import download_checkpoints, import_cli
+from dcvc_tpu_torch.utils import download_checkpoints, import_cli, \
+    profiling
 from dcvc_tpu_torch.utils.checkpoint import load_latest_status, \
     load_reference_into, save_reference
 from dcvc_tpu_torch.utils.jax_bridge import load_native_into, \
@@ -1153,6 +1167,92 @@ def phase_pipeline(dev, launch_log, codecs, rt):
                 f"{line['serial_idle_share']} pipelined "
                 f"{line['pipelined_idle_share']}; launches {got}")
     return tuple(derived)
+
+
+TRACED_SPANS = {
+    "codec.compress_many", "codec.compress_async", "stage.analysis",
+    "copy.start", "stage.prior", "stage.quant", "stage.step",
+    "stage.synthesis", "codec.compress_finish", "wait.copy",
+    "entropy.encode", "entropy.upload", "codec.decompress_many",
+    "codec.decode_unit", "entropy.decode_z", "entropy.decode_y",
+    "k1.launch", "k2.launch", "codec.dpb_seed", "stage.seed",
+    "stage.adaptor", "stage.final", "codec.compress_sequence",
+    "codec.decompress_sequence", "stage.recon"}
+
+
+def phase_traced(dmci, hts, dev, h=1080, w=1920, qp=32):
+    """The sync-free device decodes once more with the program's recorder
+    on (module docstring): DMCI over 2 images, HTS over 2 chunks seeded
+    with a DMCI frame, all inside one torch.profiler window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    images = [smooth_frame(h, w, seed, dev) for seed in (40, 41)]
+    frames = make_sequence(h, w, 16, 42, dev)
+    chunks = [torch.cat(frames[8 * u:8 * u + 8], dim=-1) for u in range(2)]
+    intra = dmci.compress(frames[0], qp)["x_hat"]
+    qps = [qp, qp]
+
+    def device_decode(codec, decode, res):
+        lanes = [codec.upload_stream(bytes(r["bit_stream"]),
+                                     r["ec_parallel"]) for r in res]
+        codec.device_ec = True
+        try:
+            return no_sync(lambda: decode(
+                lanes, qps, h, w, [r["ec_parallel"] for r in res]))
+        finally:
+            codec.device_ec = False
+
+    def seed():
+        hts.clear_dpb()
+        hts.add_ref_feature_from_frame(intra)
+
+    def run():
+        res = dmci.compress_many(images, qps)
+        outs = device_decode(dmci, dmci.decompress_many, res)
+        for r, o in zip(res, outs):
+            if not torch.equal(r["x_hat"], o["x_hat"]):
+                raise AssertionError("traced DMCI: the device decode's x_hat "
+                                     "differs from the encoder's")
+        seed()
+        seq = hts.compress_sequence(chunks, qps)
+        dpb = (hts.ref_feature, hts.memory)
+        seed()
+        device_decode(hts, hts.decompress_sequence, seq)
+        if not same(dpb, (hts.ref_feature, hts.memory)):
+            raise AssertionError("traced HTS: the device decode's DPB "
+                                 "differs from the encoder's")
+        torch.cuda.synchronize()
+
+    run()                              # warm, the recorder off
+    profiling.reset()
+    with sync_free_halves({"DMCI": dmci, "HTS": hts}):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t0
+    rec = profiling.records()
+    profiling.reset()
+    names = collections.Counter(s[0] for s in rec["spans"])
+    if set(names) != TRACED_SPANS or rec["dropped"]:
+        raise AssertionError(f"traced: spans {dict(names)} (dropped "
+                             f"{rec['dropped']}), expected "
+                             f"{sorted(TRACED_SPANS)}")
+    if rec["counters"].get("entropy.symbols", 0) <= 0:
+        raise AssertionError(f"traced: counters {rec['counters']}")
+    mirrored = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA and e.name in names]
+    scopes = {int(e.scope) for e in prof.events()
+              if e.device_type != DeviceType.CUDA and e.name in names}
+    if mirrored or scopes != {0}:
+        raise AssertionError(f"traced: device events named as spans "
+                             f"{mirrored[:5]}, host scopes {scopes}")
+    log(f"traced sync-free decodes: DMCI 2 images, HTS 2 chunks at "
+        f"{w}x{h} qp={qp} bit-exact, every compress_async and device "
+        f"decode sync-free with the recorder on; {len(rec['spans'])} spans "
+        f"({dict(names)}), counters {rec['counters']}, no device event "
+        f"named as a span, host events FUNCTION-scope; {wall:.3f} s")
 
 
 def rt_spec(dtype=torch.bfloat16):
@@ -4046,7 +4146,11 @@ def zero_launch_counts():
     K2.rans_decode.launches = 0
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", choices=("all", "traced"), default="all")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -4062,6 +4166,18 @@ def main():
             build.result()
     log(f"build: fused_dcb.cu, rans_decode.cu (and -DK2_CLOCKS) -> sm_90a "
         f"in {time.perf_counter() - t0:.3f} s")
+    if args.phase == "traced":
+        spec = VIDEO["HTS"]
+        phase_traced(
+            DMCICodec.init_random(torch.Generator().manual_seed(0),
+                                  cfg=DMCIConfig(), skip_thres=0.15,
+                                  dtype=torch.bfloat16, device=dev),
+            spec["codec"].init_random(
+                torch.Generator().manual_seed(0), cfg=spec["cfg"],
+                init_scale=0.5, skip_thres=0.15, dtype=torch.bfloat16,
+                device=dev), dev)
+        log(f"smoke total: {time.perf_counter() - t0:.3f} s")
+        return 0
     phase_sass()
     with torch.inference_mode():
         phase_edge_shapes(dev)
@@ -4181,6 +4297,7 @@ def main():
             want[part] = run()
             got[part] = launch_counts()
     shutil.rmtree(surface)
+    phase_traced(dmci, video["HTS"], dev)
     phase_complexity()
     log("main path launches (fused_dcb, fused_dcb_stacked, rans_decode): "
         + "; ".join(f"{part} {got[part]}, derived {want[part]}"

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import spanned
 from ._build import load_library
 
 
@@ -359,6 +360,7 @@ def _check_operands(ops, sig):
     return ptrs
 
 
+@spanned("k1.launch")
 def fused_dcb_launch(x, ops, shortcut=False):
     """Launch the CUDA kernel on x (1, H, W, Cin) bf16 with operands from
     prepare_operands.  Returns (1, H, W, C) bf16.  Counts the launch in
@@ -371,6 +373,7 @@ def fused_dcb_launch(x, ops, shortcut=False):
     return out
 
 
+@spanned("k1.launch")
 def fused_dcb_stacked_launch(x, ops):
     """Launch the stacked CUDA kernel on x (S, 1, H, W, Cin) bf16 with
     operands from prepare_operands_stacked.  x's entries may all be one

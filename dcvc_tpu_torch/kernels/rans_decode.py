@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from ._build import load_library
 
 K_SCALE_BITS = 16
@@ -422,6 +423,7 @@ def _operands(state, idx, count, bank):
     return tensors
 
 
+@spanned("k2.launch")
 def rans_decode_launch(state, idx, count, bank):
     """Launch the CUDA kernel (every tensor on the card).  Counts the launch
     in rans_decode.launches."""

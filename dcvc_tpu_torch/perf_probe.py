@@ -42,8 +42,11 @@ per call (run_tiles).
 each.  Per call it prints the wall time (host clock around the call,
 synchronised, profiler on), the device busy time (the union of the
 intervals of every kernel, copy and memset the profiler saw on the card),
-the device idle share (1 - busy / wall), the host rANS coder's time
-(inside its methods), and the kernels with the most device time.
+the device idle share (1 - busy / wall), the host time of the program's
+entropy.* spans (utils/profiling.py: the host rANS coder, the lanes'
+upload, K2's dispatch; null for a call that records no program span, as
+the legacy codecs' and training's), and the kernels with the most device
+time.
 
 `legacy` profiles the legacy intra codecs, EVC and IntraNoAR at their
 published widths in float32 (chip_smoke.py's weights), a warm encode and
@@ -102,6 +105,7 @@ import torch.nn.functional as F
 from .kernels import fused_dcb as K1
 from .models.dmci import DMCIConfig
 from .runtime.image_codec import DMCICodec
+from .utils import profiling
 
 QP = 32
 H, W = 1080, 1920
@@ -1414,35 +1418,6 @@ def run_shapes(dev, iters):
                       "calls": sums}))
 
 
-@contextlib.contextmanager
-def host_coder_timer(codec):
-    """Adds the host time spent inside the codec's rANS coder methods to
-    the yielded one-element list (seconds)."""
-    spent = [0.0]
-    patched = []
-    for coder in (codec.encoder, codec.decoder):
-        for name in ("encode_y", "encode_z", "flush", "get_encoded_stream",
-                     "set_stream", "decode_y", "decode_z", "get_decoded",
-                     "encode_with_indexes", "decode_stream"):
-            fn = getattr(coder, name, None)
-            if fn is None:
-                continue
-
-            def timed(*args, _fn=fn, **kwargs):
-                t0 = time.perf_counter()
-                try:
-                    return _fn(*args, **kwargs)
-                finally:
-                    spent[0] += time.perf_counter() - t0
-            setattr(coder, name, timed)
-            patched.append((coder, name))
-    try:
-        yield spent
-    finally:
-        for coder, name in patched:
-            delattr(coder, name)
-
-
 def busy_ms(intervals):
     """Length of the union of (start, end) intervals (us), in ms."""
     total, end = 0.0, float("-inf")
@@ -1473,13 +1448,14 @@ def profiled(fn):
     return out, wall, busy, events
 
 
-def profile_call(label, codec, fn, run, top=10):
-    """One profiled call of fn (codec: its host coder is timed apart; None
-    for a call without one)."""
-    timer = host_coder_timer(codec) if codec is not None \
-        else contextlib.nullcontext([0.0])
-    with timer as coder_s:
-        _, wall, busy, events = profiled(fn)
+def profile_call(label, fn, run, top=10):
+    """One profiled call of fn; its host entropy time is the summed
+    duration of the entropy.* spans it records."""
+    profiling.reset()
+    _, wall, busy, events = profiled(fn)
+    spans = profiling.records()["spans"]
+    entropy = sum(e - s for name, _, _, s, e in spans
+                  if name.startswith("entropy."))
     kernels = collections.defaultdict(lambda: [0.0, 0])
     for e in events:
         name = e.name.removeprefix("void ").replace(
@@ -1489,14 +1465,14 @@ def profile_call(label, codec, fn, run, top=10):
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
     print(json.dumps({"call": label, "run": run, "wall_ms": wall,
                       "device_busy_ms": busy, "idle_share": 1 - busy / wall,
-                      "host_rans_ms": 1e3 * coder_s[0],
+                      "host_entropy_ms": 1e-6 * entropy if spans else None,
                       "kernels_ms_count": dict(ranked)}), flush=True)
 
 
 def run_profile(dev, runs):
-    for label, codec, fn in warm_calls(dev):
+    for label, _, fn in warm_calls(dev):
         for r in range(runs):
-            profile_call(label, codec, fn, r)
+            profile_call(label, fn, r)
 
 
 # --------------------------------------------------------- the pipeline
@@ -1825,7 +1801,7 @@ def run_legacy(dev, runs):
             for kind, fn in calls:
                 fn()
                 for r in range(runs):
-                    profile_call(f"{name} {w}x{h} {kind}", codec, fn, r)
+                    profile_call(f"{name} {w}x{h} {kind}", fn, r)
 
 
 FM_SEED = 30
@@ -1936,7 +1912,7 @@ def run_p_frame(name, dev, runs):
     for kind, fn in (("encode", enc), ("decode", dec)):
         fn()
         for r in range(runs):
-            profile_call(f"{name} {w}x{h} {kind}", codec, fn, r)
+            profile_call(f"{name} {w}x{h} {kind}", fn, r)
 
 
 # ------------------------------------------------------------ training
@@ -2043,7 +2019,7 @@ def run_train(dev, runs):
         step()
         torch.cuda.synchronize()
         for r in range(runs):
-            profile_call(f"train {cell.label}", None, step, r)
+            profile_call(f"train {cell.label}", step, r)
 
 
 def run_mask_decay(dev, runs):
@@ -2066,7 +2042,7 @@ def run_mask_decay(dev, runs):
     one()
     torch.cuda.synchronize()
     for r in range(runs):
-        profile_call("mask decay EVC_LL 2x256x256", None, one, r, top=15)
+        profile_call("mask decay EVC_LL 2x256x256", one, r, top=15)
 
 
 # the heaviest K1 shapes of chip_smoke.py's main path (launches x device

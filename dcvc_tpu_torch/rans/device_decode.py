@@ -14,6 +14,8 @@ the original's module imports jax, which the port never does.
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
+
 
 def split_streams(stream, n_lanes, pad_to=None):
     """Split the merged wire stream into per-lane byte arrays (reversed
@@ -70,6 +72,7 @@ def init_state(lanes):
     return {"streams": lanes, "st": st, "ptr": ptr}
 
 
+@spanned("entropy.upload")
 def upload_lanes(stream, n_lanes, device):
     """The host half of a device decode: split `stream` into its n_lanes
     lanes and copy them to `device` (the only host-to-device copy of the

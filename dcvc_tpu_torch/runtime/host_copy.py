@@ -24,10 +24,14 @@ host rANS coder's lane threads, which share the host's cores, decoded a
 
 import torch
 
+from ..utils.profiling import spanned
+
 
 class HostCopy:
-    """A device-to-host copy of `buf` (and of its count) in flight."""
+    """A device-to-host copy of `buf` (and of its count) in flight; its
+    start is span copy.start, its finish span wait.copy."""
 
+    @spanned("copy.start")
     def __init__(self, buf, count=None):
         parts = [buf] if count is None else [buf, count]
         if buf.device.type == "cpu":
@@ -41,6 +45,7 @@ class HostCopy:
         self._event = torch.cuda.Event()
         self._event.record(torch.cuda.current_stream(buf.device))
 
+    @spanned("wait.copy")
     def finish(self):
         """Waits for the copy; returns the first count entries (numpy)."""
         if self._event is not None:

@@ -51,6 +51,7 @@ from ..entropy.gaussian import GaussianConditional, scale_to_index
 from ..kernels.rans_decode import make_bank, rans_decode
 from ..models.dmci import DMCI, DMCIConfig
 from ..rans.device_decode import init_state, upload_lanes
+from ..utils.profiling import count, span, spanned
 from .host_copy import HostCopy, to_device
 from .symbols import compact_idx_sorted, compact_vals_sorted, \
     expand_from_pos, pack_symbols, quantize_candidate
@@ -165,14 +166,17 @@ def lagged(states, finish, depth):
 def encode_stream(encoder, coded, z, qp, ch_z, ec_parallel):
     """One unit's stream from the host rANS `encoder`: the packed symbols
     of each entropy call in reverse call order (dmci_proxy.cpp:838), then
-    z (row (i % ch_z) + qp * ch_z of the z bank), on ec_parallel lanes."""
-    encoder.reset()
-    encoder.set_parallel(ec_parallel)
-    for c in reversed(coded):
-        encoder.encode_y(c)
-    encoder.encode_z(z.reshape(-1), int(qp) * ch_z, ch_z)
-    encoder.flush()
-    return encoder.get_encoded_stream()
+    z (row (i % ch_z) + qp * ch_z of the z bank), on ec_parallel lanes.
+    Counts the symbols coded in entropy.symbols."""
+    count("entropy.symbols", z.size + sum(c.size for c in coded))
+    with span("entropy.encode"):
+        encoder.reset()
+        encoder.set_parallel(ec_parallel)
+        for c in reversed(coded):
+            encoder.encode_y(c)
+        encoder.encode_z(z.reshape(-1), int(qp) * ch_z, ch_z)
+        encoder.flush()
+        return encoder.get_encoded_stream()
 
 
 class EntropyDecoder:
@@ -202,16 +206,20 @@ class EntropyDecoder:
                 raise ValueError(f"device_ec needs ch_z <= 256, got {ch_z}")
             lanes = (bit_stream if isinstance(bit_stream, torch.Tensor)
                      else self.upload_stream(bit_stream, ec_part))
-            rows = slice(int(qp) * ch_z, (int(qp) + 1) * ch_z)
-            bank = {k: v[rows] for k, v in self._k2_banks[0].items()}
-            state, z = rans_decode(init_state(lanes), p["z_idx"], n, bank)
-            return state, z.reshape(1, zh, zw, ch_z)
-        decoder.set_parallel(ec_part)
-        decoder.set_stream(bit_stream)
-        decoder.decode_z(n, int(qp) * ch_z, ch_z)
+            with span("entropy.decode_z"):
+                rows = slice(int(qp) * ch_z, (int(qp) + 1) * ch_z)
+                bank = {k: v[rows] for k, v in self._k2_banks[0].items()}
+                state, z = rans_decode(init_state(lanes), p["z_idx"], n,
+                                       bank)
+                return state, z.reshape(1, zh, zw, ch_z)
+        with span("entropy.decode_z"):
+            decoder.set_parallel(ec_part)
+            decoder.set_stream(bit_stream)
+            decoder.decode_z(n, int(qp) * ch_z, ch_z)
         yield                          # the lanes decode z meanwhile
-        z = to_device(decoder.get_decoded(), self.device)
-        return None, z.reshape(1, zh, zw, ch_z)
+        with span("entropy.decode_z"):
+            z = to_device(decoder.get_decoded(), self.device)
+            return None, z.reshape(1, zh, zw, ch_z)
 
     def _decode_y(self, decoder, state, packed_idx, count):
         """The y symbols of one call, from the first `count` compacted
@@ -221,15 +229,19 @@ class EntropyDecoder:
         while the copy is in flight), starts its lanes (yielding while
         they decode) and copies the symbols back without a wait."""
         if self.device_ec:
-            return rans_decode(state, packed_idx, count, self._k2_banks[1])
+            with span("entropy.decode_y"):
+                return rans_decode(state, packed_idx, count,
+                                   self._k2_banks[1])
         copy = HostCopy(packed_idx, count)
         yield                          # the count / index copy in flight
         idx = copy.finish()
         if idx.size == 0:
             return None, torch.zeros(0, dtype=torch.int8, device=self.device)
-        decoder.decode_y(idx)
+        with span("entropy.decode_y"):
+            decoder.decode_y(idx)
         yield                          # the lanes decode meanwhile
-        return None, to_device(decoder.get_decoded(), self.device)
+        with span("entropy.decode_y"):
+            return None, to_device(decoder.get_decoded(), self.device)
 
 
 def ec_parallel_of(rans, total, max_ec, force_ec):
@@ -394,6 +406,7 @@ class DMCICodec(EntropyDecoder):
 
     # -------------------------------------------------------------- encode
 
+    @spanned("codec.compress")
     def compress(self, x, qp):
         """x: (1, H, W, 3) float32 NHWC in [-0.5, 0.5] (unpadded), a numpy
         array or a tensor.
@@ -402,6 +415,7 @@ class DMCICodec(EntropyDecoder):
         tensor on the codec's device."""
         return self.compress_finish(self.compress_async(x, qp))
 
+    @spanned("codec.compress_many")
     def compress_many(self, images, qps, depth=4):
         """compress of each image, the host half of image k made while the
         device halves of images k+1..k+depth are queued on the card.
@@ -410,6 +424,7 @@ class DMCICodec(EntropyDecoder):
                        for x, qp in zip(images, qps)),
                       self.compress_finish, depth)
 
+    @spanned("codec.compress_async")
     @torch.inference_mode()
     def compress_async(self, x, qp):
         """The device half of compress: dispatches the whole encode and
@@ -420,26 +435,32 @@ class DMCICodec(EntropyDecoder):
         x = torch.as_tensor(x).to(self.device, torch.float32)
         h, w = x.shape[1], x.shape[2]
         p = self._plan(h, w)
-        y, z_int8 = self._analysis(p, x, qp)
+        with span("stage.analysis"):
+            y, z_int8 = self._analysis(p, x, qp)
         z_copy = HostCopy(z_int8)
-        means, ctx, packed_idx, packed_pos, count, cond, q = self._prior0(
-            p, z_int8)
-        y_scaled = self._enc_y(y, q)
-        y_hat = torch.zeros((1,) + p["y"] + (self.cfg.ch_y,),
-                            dtype=torch.float32, device=self.device)
+        with span("stage.prior"):
+            means, ctx, packed_idx, packed_pos, count, cond, q = \
+                self._prior0(p, z_int8)
+            y_scaled = self._enc_y(y, q)
+            y_hat = torch.zeros((1,) + p["y"] + (self.cfg.ch_y,),
+                                dtype=torch.float32, device=self.device)
         copies = []
         for k in range(4):
-            combined, y_q = self._enc_quant(p, k, y_scaled, means, cond,
-                                            packed_idx, packed_pos)
+            with span("stage.quant"):
+                combined, y_q = self._enc_quant(p, k, y_scaled, means, cond,
+                                                packed_idx, packed_pos)
             copies.append(HostCopy(combined, count))
-            out = self._step(p, k, y_q, means, y_hat, ctx)
+            with span("stage.step"):
+                out = self._step(p, k, y_q, means, y_hat, ctx)
             if k < 3:
                 y_hat, means, packed_idx, packed_pos, count, cond = out
             else:
                 y_hat = out
-        x_hat = self._synthesis(y_hat, q, qp, h, w)
+        with span("stage.synthesis"):
+            x_hat = self._synthesis(y_hat, q, qp, h, w)
         return {"z": z_copy, "coded": copies, "qp": int(qp), "x_hat": x_hat}
 
+    @spanned("codec.compress_finish")
     def compress_finish(self, st):
         """The host half of compress: waits on compress_async's copies
         alone, runs the host rANS coder and returns compress's result."""
@@ -459,6 +480,7 @@ class DMCICodec(EntropyDecoder):
 
     # -------------------------------------------------------------- decode
 
+    @spanned("codec.decompress")
     @torch.inference_mode()
     def decompress(self, bit_stream, qp, h, w, ec_part):
         """Returns dict(x_hat) with x_hat (1, h, w, 3) float32 in
@@ -467,6 +489,7 @@ class DMCICodec(EntropyDecoder):
         return run(self._decompress_gen(self.decoder, bit_stream, qp, h, w,
                                         ec_part))
 
+    @spanned("codec.decompress_many")
     @torch.inference_mode()
     def decompress_many(self, streams, qps, h, w, ec_parts, depth=10):
         """decompress of each stream, `depth` images in flight: a
@@ -488,7 +511,8 @@ class DMCICodec(EntropyDecoder):
                 next_i += 1
             for job in list(live):
                 try:
-                    next(job[0])
+                    with span("codec.decode_unit"):
+                        next(job[0])
                 except StopIteration as stop:
                     outs[job[2]] = stop.value
                     live.remove(job)
@@ -504,10 +528,11 @@ class DMCICodec(EntropyDecoder):
         ch_y = self.cfg.ch_y
         state, z_int8 = yield from self._decode_z(decoder, bit_stream,
                                                   ec_part, p, qp)
-        means, ctx, packed_idx, packed_pos, count, _, q = self._prior0(
-            p, z_int8)
-        y_hat = torch.zeros((1,) + p["y"] + (ch_y,), dtype=torch.float32,
-                            device=self.device)
+        with span("stage.prior"):
+            means, ctx, packed_idx, packed_pos, count, _, q = self._prior0(
+                p, z_int8)
+            y_hat = torch.zeros((1,) + p["y"] + (ch_y,),
+                                dtype=torch.float32, device=self.device)
         collect = ({"z": z_int8.cpu().numpy().reshape(-1), "y": [],
                     "idx": []} if self.collect_symbols is not None else None)
         for k in range(4):
@@ -517,9 +542,11 @@ class DMCICodec(EntropyDecoder):
                 c = int(count)
                 collect["y"].append(decoded[:c].cpu().numpy())
                 collect["idx"].append(packed_idx[:c].cpu().numpy())
-            y_q = expand_from_pos(packed_pos, decoded, p["n_cand"]).reshape(
-                (1,) + p["cand"] + (ch_y,))
-            out = self._step(p, k, y_q, means, y_hat, ctx)
+            with span("stage.step"):
+                y_q = expand_from_pos(packed_pos, decoded,
+                                      p["n_cand"]).reshape(
+                    (1,) + p["cand"] + (ch_y,))
+                out = self._step(p, k, y_q, means, y_hat, ctx)
             if k < 3:
                 y_hat, means, packed_idx, packed_pos, count, _ = out
             else:
@@ -528,4 +555,5 @@ class DMCICodec(EntropyDecoder):
                 yield                  # the rung is queued on the card
         if collect is not None:
             self.collect_symbols.append(collect)
-        return {"x_hat": self._synthesis(y_hat, q, qp, h, w)}
+        with span("stage.synthesis"):
+            return {"x_hat": self._synthesis(y_hat, q, qp, h, w)}

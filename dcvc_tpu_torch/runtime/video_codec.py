@@ -62,6 +62,7 @@ from ..core.shuffle import pixel_unshuffle
 from ..entropy.gaussian import scale_to_index
 from ..models.dmc_ht import DMCHT, HTS_CONFIG
 from ..models.dmc_ld import DMCLD, LD_CONFIG
+from ..utils.profiling import span, spanned
 from .host_copy import HostCopy
 from .image_codec import EntropyDecoder, cdf_banks, check_qp, \
     device_banks, ec_parallel_of, encode_stream, grid_plan, lagged, \
@@ -141,10 +142,12 @@ class VideoCodecBase(EntropyDecoder):
 
     # ------------------------------------------------------------ DPB state
 
+    @spanned("codec.dpb_seed")
     def clear_dpb(self):
         self.ref_feature = None
         self.memory = None
 
+    @spanned("codec.dpb_seed")
     @torch.inference_mode()
     def add_ref_feature_from_frame(self, frame):
         """frame: (1, H, W, 3), the intra codec's reconstruction in the
@@ -152,10 +155,11 @@ class VideoCodecBase(EntropyDecoder):
         for DCVC-RT), taken as it is.  Edge-pads it to 16 and
         8x-unshuffles it into the DPB seed feature, in the model dtype
         (video_model_ht.py:413-415)."""
-        frame = torch.as_tensor(frame).to(self.device, torch.float32)
-        pad_b, pad_r = self._plan(frame.shape[1], frame.shape[2])["pad"]
-        self.ref_feature = pixel_unshuffle(
-            pad_replicate_nhwc(frame, pad_b, pad_r).to(self.dtype), 8)
+        with span("stage.seed"):
+            frame = torch.as_tensor(frame).to(self.device, torch.float32)
+            pad_b, pad_r = self._plan(frame.shape[1], frame.shape[2])["pad"]
+            self.ref_feature = pixel_unshuffle(
+                pad_replicate_nhwc(frame, pad_b, pad_r).to(self.dtype), 8)
         self.memory = None
 
     # --------------------------------------------------------------- stages
@@ -276,6 +280,7 @@ class VideoCodecBase(EntropyDecoder):
 
     # --------------------------------------------------------------- encode
 
+    @spanned("codec.compress")
     def compress(self, x, qp, reset_feature_memory=False, recon=False):
         """x: (1, H, W, 3 * frame_delay) float32 in [-0.5, 0.5], a numpy
         array or a tensor.
@@ -289,6 +294,7 @@ class VideoCodecBase(EntropyDecoder):
         return self.compress_finish(self.compress_async(
             x, qp, reset_feature_memory, recon))
 
+    @spanned("codec.compress_sequence")
     def compress_sequence(self, chunks, qps, resets=None, depth=2):
         """compress of each unit, the host half of unit k made while the
         device halves of units k+1..k+depth are queued on the card (the
@@ -300,6 +306,7 @@ class VideoCodecBase(EntropyDecoder):
                        for x, qp, rs in zip(chunks, qps, resets)),
                       self.compress_finish, depth)
 
+    @spanned("codec.compress_async")
     @torch.inference_mode()
     def compress_async(self, x, qp, reset_feature_memory=False,
                        recon=False):
@@ -316,39 +323,54 @@ class VideoCodecBase(EntropyDecoder):
         x = torch.as_tensor(x).to(self.device, torch.float32)
         h, w = x.shape[1], x.shape[2]
         p = self._plan(h, w)
-        memory, ctx = self._adaptor()
-        y, z_int8 = self._analysis(p, x, ctx, qp)
+        with span("stage.adaptor"):
+            memory, ctx = self._adaptor()
+        with span("stage.analysis"):
+            y, z_int8 = self._analysis(p, x, ctx, qp)
         z_copy = HostCopy(z_int8)
-        q_enc, q_dec, means, spctx, packed_idx, packed_pos, count, cond = \
-            self._prior(p, z_int8, memory, qp)
-        y_hat = torch.zeros((1,) + p["y"] + (self.cfg.ch_y,),
-                            dtype=torch.float32, device=self.device)
+        with span("stage.prior"):
+            q_enc, q_dec, means, spctx, packed_idx, packed_pos, count, \
+                cond = self._prior(p, z_int8, memory, qp)
+            y_hat = torch.zeros((1,) + p["y"] + (self.cfg.ch_y,),
+                                dtype=torch.float32, device=self.device)
         if self.single_pass:
             y_qs = []
             for k in range(self.steps):
-                y_q = self._enc_quant(p, k, y, q_enc, means, cond)
+                with span("stage.quant"):
+                    y_q = self._enc_quant(p, k, y, q_enc, means, cond)
                 y_qs.append(y_q)
-                y_hat, means = self._step(p, k, y_q, means, y_hat, spctx)
-            packed_q = compact_vals_sorted(
-                torch.cat([q.to(torch.int16).reshape(-1) for q in y_qs]),
-                packed_pos)
-            copies = [HostCopy(pack_symbols(packed_q, packed_idx), count)]
+                with span("stage.step"):
+                    y_hat, means = self._step(p, k, y_q, means, y_hat,
+                                              spctx)
+            with span("stage.quant"):
+                packed_q = compact_vals_sorted(
+                    torch.cat([q.to(torch.int16).reshape(-1) for q in y_qs]),
+                    packed_pos)
+                symbols = pack_symbols(packed_q, packed_idx)
+            copies = [HostCopy(symbols, count)]
         else:
             copies = []
             for k in range(self.steps):
-                combined, y_q = self._enc_quant_ladder(
-                    p, k, y, q_enc, means, cond, packed_idx, packed_pos)
+                with span("stage.quant"):
+                    combined, y_q = self._enc_quant_ladder(
+                        p, k, y, q_enc, means, cond, packed_idx, packed_pos)
                 copies.append(HostCopy(combined, count))
-                out = self._step_ladder(p, k, y_q, means, y_hat, spctx)
+                with span("stage.step"):
+                    out = self._step_ladder(p, k, y_q, means, y_hat, spctx)
                 if k < self.steps - 1:
                     y_hat, means, packed_idx, packed_pos, count, cond = out
                 else:
                     y_hat = out
-        feature = self._final(y_hat, q_dec, ctx, memory, qp,
-                              reset_feature_memory)
-        x_hat = self._recon(feature, qp, h, w) if recon else None
+        with span("stage.final"):
+            feature = self._final(y_hat, q_dec, ctx, memory, qp,
+                                  reset_feature_memory)
+        x_hat = None
+        if recon:
+            with span("stage.recon"):
+                x_hat = self._recon(feature, qp, h, w)
         return {"z": z_copy, "coded": copies, "qp": int(qp), "x_hat": x_hat}
 
+    @spanned("codec.compress_finish")
     def compress_finish(self, st):
         """The host half of compress: waits on compress_async's copies
         alone, runs the host rANS coder (the ladder's steps in reverse
@@ -364,6 +386,7 @@ class VideoCodecBase(EntropyDecoder):
 
     # --------------------------------------------------------------- decode
 
+    @spanned("codec.decompress")
     @torch.inference_mode()
     def decompress(self, bit_stream, qp, h, w, ec_part,
                    reset_feature_memory=False):
@@ -372,8 +395,10 @@ class VideoCodecBase(EntropyDecoder):
         bit_stream may also be upload_stream's lanes."""
         feature = self._decompress_core(bit_stream, qp, h, w, ec_part,
                                         reset_feature_memory)
-        return {"x_hat": self._recon(feature, qp, h, w)}
+        with span("stage.recon"):
+            return {"x_hat": self._recon(feature, qp, h, w)}
 
+    @spanned("codec.decompress_sequence")
     @torch.inference_mode()
     def decompress_sequence(self, streams, qps, h, w, ec_parts, resets=None):
         """decompress of each stream, unit k-1's recon dispatched inside
@@ -390,7 +415,8 @@ class VideoCodecBase(EntropyDecoder):
         def recon_prev():
             if prev:
                 feature, qp = prev.pop()
-                outs.append(self._recon(feature, qp, h, w))
+                with span("stage.recon"):
+                    outs.append(self._recon(feature, qp, h, w))
 
         for bs, qp, ec, rs in zip(streams, qps, ec_parts, resets):
             feature = self._decompress_core(bs, qp, h, w, ec, rs, recon_prev)
@@ -399,6 +425,7 @@ class VideoCodecBase(EntropyDecoder):
         recon_prev()
         return outs
 
+    @spanned("codec.decode_unit")
     def _decompress_core(self, bit_stream, qp, h, w, ec_part,
                          reset_feature_memory=False, pre_wait=None):
         """The entropy decode and the device ladder up to the decoder
@@ -412,33 +439,39 @@ class VideoCodecBase(EntropyDecoder):
         ch_y, n_cand, steps = self.cfg.ch_y, p["n_cand"], self.steps
         state, z_int8 = run(self._decode_z(self.decoder, bit_stream, ec_part,
                                            p, qp))
-        memory, ctx = self._adaptor()
-        q_enc, q_dec, means, spctx, packed_idx, packed_pos, count, _ = \
-            self._prior(p, z_int8, memory, qp)
-        y_hat = torch.zeros((1,) + p["y"] + (ch_y,), dtype=torch.float32,
-                            device=self.device)
+        with span("stage.adaptor"):
+            memory, ctx = self._adaptor()
+        with span("stage.prior"):
+            q_enc, q_dec, means, spctx, packed_idx, packed_pos, count, _ = \
+                self._prior(p, z_int8, memory, qp)
+            y_hat = torch.zeros((1,) + p["y"] + (ch_y,), dtype=torch.float32,
+                                device=self.device)
         cand = (1,) + p["cand"] + (p["cand_ch"],)
         if self.single_pass:
             state, decoded = run(self._decode_y(self.decoder, state,
                                                 packed_idx, count), pre_wait)
-            y_qs = expand_from_pos(packed_pos, decoded,
-                                   steps * n_cand).reshape((steps,) + cand)
-            for k in range(steps):
-                y_hat, means = self._step(p, k, y_qs[k], means, y_hat,
-                                          spctx)
+            with span("stage.step"):
+                y_qs = expand_from_pos(packed_pos, decoded,
+                                       steps * n_cand).reshape(
+                                           (steps,) + cand)
+                for k in range(steps):
+                    y_hat, means = self._step(p, k, y_qs[k], means, y_hat,
+                                              spctx)
         else:
             for k in range(steps):
                 state, decoded = run(self._decode_y(
                     self.decoder, state, packed_idx, count), pre_wait)
-                y_q = expand_from_pos(packed_pos, decoded,
-                                      n_cand).reshape(cand)
-                out = self._step_ladder(p, k, y_q, means, y_hat, spctx)
+                with span("stage.step"):
+                    y_q = expand_from_pos(packed_pos, decoded,
+                                          n_cand).reshape(cand)
+                    out = self._step_ladder(p, k, y_q, means, y_hat, spctx)
                 if k < steps - 1:
                     y_hat, means, packed_idx, packed_pos, count, _ = out
                 else:
                     y_hat = out
-        return self._final(y_hat, q_dec, ctx, memory, qp,
-                           reset_feature_memory)
+        with span("stage.final"):
+            return self._final(y_hat, q_dec, ctx, memory, qp,
+                               reset_feature_memory)
 
 
 class DMCHTCodec(VideoCodecBase):

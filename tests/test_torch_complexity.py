@@ -1,12 +1,12 @@
-"""The port's complexity counter and stage timer, mirroring
+"""The port's complexity counter and trace context, mirroring
 tests/test_complexity.py: a matmul counts exactly m*k*n MACs
 (FlopCounterMode counts products, where XLA's cost analysis also counts
 elementwise work, so the port's counts are not held to the JAX
 package's); each TINY model's training forward (DCVC-FM's, DCVC-HEM's
 and DCVC-DC's: the eval forward of a later P frame) counts more than
 zero kMACs per pixel, a video chunk's per pixel of each of its frames; a
-1x1 convolution counts H*W*Cin*Cout; StageTimer counts and averages; the
-trace context writes a Chrome trace.
+1x1 convolution counts H*W*Cin*Cout; the trace context writes a Chrome
+trace and the counters of its window.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -30,7 +30,7 @@ from dcvc_tpu_torch.models.dmc_ld import DMCLD, TINY_LD_CONFIG
 from dcvc_tpu_torch.models.dmci import DMCI, TINY_CONFIG
 from dcvc_tpu_torch.utils.model_complexity import count_macs, \
     model_macs_per_pixel, summarize
-from dcvc_tpu_torch.utils.profiling import StageTimer, trace
+from dcvc_tpu_torch.utils.profiling import count, trace
 
 
 def test_matmul_macs():
@@ -69,22 +69,13 @@ def test_summarize_lists_each_size():
     assert text.splitlines()[1].startswith("60x100: ")
 
 
-def test_stage_timer():
-    t = StageTimer()
-    x = torch.ones(64, 64)
-    with t.stage("mul", sync=None):
-        y = x * 2
-    with t.stage("mul", sync=y):
-        y = y * 2
-    s = t.summary()
-    assert s["mul"]["count"] == 2
-    assert s["mul"]["mean_ms"] >= 0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(str(tmp_path)):
         torch.ones(32, 32) @ torch.ones(32, 32)
+        count("entropy.symbols", 7)
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
-    assert os.listdir(tmp_path) == ["trace.json"]
+    assert sorted(os.listdir(tmp_path)) == ["counters.json", "trace.json"]
+    with open(tmp_path / "counters.json") as f:
+        assert json.load(f)["counters"] == {"entropy.symbols": 7}
