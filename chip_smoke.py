@@ -617,8 +617,10 @@ def phase_k2(k2_log, launches):
     the kernel against its plain version (symbols and lane states equal),
     both timed (the kernel with CUDA events, the plain version, which runs
     on the host, by the host clock), and its cycle-counting build
-    (-DK2_CLOCKS, equal symbols) for the SM clock under load and where a
-    symbol's cycles go.  Prints one JSON line of K2 per main-path label.
+    (-DK2_CLOCKS, equal symbols) for the SM clock under load, where a
+    symbol's cycles go and which body decoded the aligned groups (the
+    share kept from the escape-free body, the share it redid).  Prints one
+    JSON line of K2 per main-path label.
     Returns K2's row of the JSON table; bound_ms is the latency bound of
     perf_probe.k2_latency_bound_ms (symbols and escapes, from the plain
     version's symbols) at the SM clock under load."""
@@ -673,8 +675,9 @@ def phase_k2(k2_log, launches):
             1e6 * r["kernel_ms"] / max(r["longest_lane_symbols"], 1)
         table[label]["bound_ms"] = k2_latency_bound_ms(
             r["calls"], clock, r["escape_counts"])
-        table[label]["cycles_per_symbol"] = k2_clock_summary(
-            r["clocks"])["cycles_per_symbol"]
+        summary = k2_clock_summary(r["clocks"])
+        for k in ("cycles_per_symbol", "groups", "free_share", "redo_share"):
+            table[label][k] = summary[k]
     ms = sum(r["kernel_ms"] for r in per_label.values())
     plain_ms = sum(r["plain_ms"] for r in per_label.values())
     bound = k2_latency_bound_ms(calls, clock, escapes)

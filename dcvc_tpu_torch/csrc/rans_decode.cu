@@ -51,16 +51,33 @@
 //     valid int8 stream) and a state of 0 after the advance (a corrupt
 //     stream) take rans.cc's loops, then reload the window.
 //   - No branch in the steady state: a lane decodes aligned groups of 16
-//     symbols, each step computing its renorm and its escape and selecting
-//     (the window's refill too), so a group is one basic block in which
-//     the compiler can overlap a symbol's independent work (the window,
-//     the next rows, the output) with the chain.  A group that meets a
-//     slow symbol is decoded again from a copy of the lane's state taken
-//     at its start, one symbol at a time, out of line.  The group's rows
-//     come in one 16-byte load issued a group ahead, and its symbols go
-//     out in one 16-byte store (the unaligned head and tail of a lane's
-//     block one at a time, by bytes).  A single thread issues in order,
-//     so the chain's latency is hidden only by work scheduled beside it.
+//     symbols, each group one basic block of 16 steps that compute and
+//     select (the window's refill too), in which the compiler can overlap
+//     a symbol's independent work (the window, the next rows, the output)
+//     with the chain.  The group's rows come in one 16-byte load issued a
+//     group ahead, and its symbols go out in one 16-byte store (the
+//     unaligned head and tail of a lane's block one at a time, by bytes).
+//     A single thread issues in order, so the chain's latency is hidden
+//     only by work scheduled beside it.
+//   - Two bodies for a group, chosen by what the lane has seen, each in a
+//     loop of its own.  The full body computes every symbol's escape in
+//     closed form and selects it, so the escape's ~20 dependent
+//     operations sit on every symbol's chain, escaped or not.  The
+//     escape-free body takes the renormed state as the next one and ORs
+//     each symbol's escape flag (the "sym" entry's) into the group's flag
+//     beside x == 0; a group so flagged is not stored, and the lane goes
+//     to the full body's loop, which decodes the group again from a copy
+//     of the lane taken at its start.  That loop goes back to the
+//     escape-free one after kCleanRun groups in a row without an escape
+//     (the entries' escape words ORed into an integer, which leaves the
+//     predicates to the chain).  So a stream without escapes (the
+//     benchmark's y and z streams) never pays for them, and one dense in
+//     escapes stays on the full body at the cost of a compare a group.
+//     With both bodies under a branch in one loop the full body ran 2-4%
+//     slower than alone on an H100; in a loop of its own it does not.
+//   - A group that the full body cannot finish (a state of 0, an escape of
+//     more than 16 chunks) is decoded again from its first symbol, one
+//     symbol at a time, out of line (serial).
 //   - Extra blocks zero out[count, cap) in the same launch.
 // kernels/rans_decode.py::rans_decode_kernel_model is this algorithm in
 // Python, held against the host decoder by the CPU tests.
@@ -68,8 +85,9 @@
 // Built with -DK2_CLOCKS (kernels/_build.py, a separate library), the
 // kernel also writes, per lane, the clock64() cycles of the search, the
 // update and renorm, the escape, and the output store with the window's
-// refill; the loop's cycles and %globaltimer ns; the symbols and escapes.
-// The production build carries none of it.
+// refill; the loop's cycles and %globaltimer ns; the symbols and escapes;
+// the groups kept from the escape-free body, those it had to redo, and
+// those run on the full body.  The production build carries none of it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,11 +108,15 @@ constexpr int kMaxBypassChunks = 16;
 constexpr int kBucketShift = 8;      // bucket = cum >> 8: 256 per row
 constexpr int kBuckets = 1 << (kScaleBits - kBucketShift);
 constexpr int kGroup = 16;           // symbols per idx load and out store
+// full-body groups in a row without an escape after which a lane returns
+// to the escape-free body
+constexpr int kCleanRun = 4;
 
 // the per-lane fields of the cycle-counting build (CLOCK_FIELDS in
 // kernels/rans_decode.py)
 enum { kClkSearch, kClkUpdate, kClkEscape, kClkStore, kClkTotal, kClkNs,
-       kClkSymbols, kClkEscapes, kClkFields };
+       kClkSymbols, kClkEscapes, kClkFreeGroups, kClkRedoneGroups,
+       kClkFullGroups, kClkFields };
 
 #ifdef K2_CLOCKS
 __device__ __forceinline__ long long stamp() {
@@ -282,15 +304,19 @@ __device__ __forceinline__ int8_t zigzag(int32_t value) {
                                               : -(value + 1) / 2);
 }
 
-// One symbol without a branch: the renorm by the pulls a state >= 1 asks
-// for and the escape in closed form, both always computed and selected.
-// Sets `slow` when the symbol needs rans.cc's loops instead (a state of
-// 0 after the advance, an escape of more than 16 chunks); the lane's
-// state is then garbage and the caller decodes again from a copy.
-template <int F>
+// One symbol without a branch, by the full body (Escapes) or the
+// escape-free one.  The full body computes the renorm by the pulls a state
+// >= 1 asks for and the escape in closed form, and selects; it sets `slow`
+// when the symbol needs rans.cc's loops instead (a state of 0 after the
+// advance, an escape of more than 16 chunks) and ORs the entry's word
+// s | escape << 8 into `esc`.  The escape-free body takes the renormed
+// state and sets `slow` at an escape too.  Once `slow` is set the lane's
+// state is garbage and the caller decodes again from a copy.
+template <int F, bool Escapes>
 __device__ __forceinline__ int8_t step_fast(
     Lane& l, const uint8_t* __restrict__ bucket_row,
-    const int4* __restrict__ sym_row, bool& slow, Clocks& clk) {
+    const int4* __restrict__ sym_row, bool& slow, uint32_t& esc,
+    Clocks& clk) {
   const uint32_t cum = l.st & kDecMask;
   const int4 e = search<F>(cum, bucket_row, sym_row);
   clk.mark(kClkSearch, e.x + e.y);
@@ -303,20 +329,27 @@ __device__ __forceinline__ int8_t step_fast(
   const uint32_t st = __funnelshift_lc(__byte_perm(lo, 0u, 0x0123u), x, sh);
   const int ptr = l.ptr + (sh >> 3);
   clk.mark(kClkUpdate, st);
-  uint32_t raw, st_e;
-  int taken;
-  const bool fits =
-      escape_fast(st, __funnelshift_r(lo, hi, sh), raw, st_e, taken);
   const bool escape = (e.z >> 8) != 0;
-  slow |= x == 0 || (escape && !fits);
-  l.st = escape ? st_e : st;
-  l.ptr = ptr + (escape ? taken : 0);
-  const int32_t value =
-      (e.z & 0xff) + (escape ? static_cast<int32_t>(raw) : 0);
-  clk.mark(kClkEscape, l.st + value);
+  int32_t value = e.z & 0xff;
+  if constexpr (Escapes) {
+    uint32_t raw, st_e;
+    int taken;
+    const bool fits =
+        escape_fast(st, __funnelshift_r(lo, hi, sh), raw, st_e, taken);
+    slow |= x == 0 || (escape && !fits);
+    esc |= static_cast<uint32_t>(e.z);
+    l.st = escape ? st_e : st;
+    l.ptr = ptr + (escape ? taken : 0);
+    value += escape ? static_cast<int32_t>(raw) : 0;
+    clk.mark(kClkEscape, l.st + value);
 #ifdef K2_CLOCKS
-  clk.f[kClkEscapes] += escape;
+    clk.f[kClkEscapes] += escape;
 #endif
+  } else {
+    slow |= x == 0 || escape;
+    l.st = st;
+    l.ptr = ptr;
+  }
   l.win.advance(l.ptr);
   return zigzag(value);
 }
@@ -330,7 +363,8 @@ __device__ __forceinline__ int8_t step(Lane& l, Bytes bytes,
                                        Clocks& clk) {
   const Lane before = l;
   bool slow = false;
-  const int8_t v = step_fast<F>(l, bucket_row, sym_row, slow, clk);
+  uint32_t esc = 0;
+  const int8_t v = step_fast<F, true>(l, bucket_row, sym_row, slow, esc, clk);
   if (!slow) return v;
   l = before;
   const uint32_t cum = l.st & kDecMask;
@@ -361,6 +395,27 @@ __device__ __noinline__ Lane serial(Lane l, Bytes bytes, int from, int to,
     clk.mark(kClkStore, q);
   }
   return l;
+}
+
+// One aligned group of 16 symbols by one body (step_fast), one basic
+// block: the rows packed in `in`, the symbols packed into `o`.
+template <int F, bool Escapes>
+__device__ __forceinline__ void group(Lane& l, const uint32_t (&in)[4],
+                                      int rows, int sym_per,
+                                      const uint8_t* s_bucket,
+                                      const int4* s_sym, uint32_t (&o)[4],
+                                      bool& slow, uint32_t& esc, Clocks& clk) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    int r = (in[j >> 2] >> (8 * (j & 3))) & 0xff;
+    r = r < rows ? r : rows - 1;
+    const int8_t v = step_fast<F, Escapes>(l, s_bucket + r * kBuckets,
+                                           s_sym + r * sym_per, slow, esc,
+                                           clk);
+    o[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(v))
+                 << (8 * (j & 3));
+    clk.mark(kClkStore, o[j >> 2]);
+  }
 }
 
 template <int F>
@@ -418,41 +473,71 @@ rans_decode_kernel(const uint8_t* __restrict__ streams, int lane_len,
 #endif
 
   // Aligned groups of 16 symbols: their rows in one 16-byte load issued a
-  // group ahead, 16 branch-free steps (one basic block, so the compiler
-  // can overlap a symbol's independent work with its neighbours' chains),
-  // the symbols out in one 16-byte store.  A group that met a slow symbol
-  // is decoded again from its first symbol, one symbol at a time.
+  // group ahead, one body's 16 steps, the symbols out in one 16-byte
+  // store.  An escape-free group that met an escape (or a state of 0) is
+  // decoded again by the full body, and a full-body group that met a slow
+  // symbol one symbol at a time; both from the lane as it was at the
+  // group's first symbol (`first`).
   int pos = min(end, (offs + kGroup - 1) & ~(kGroup - 1));
   l = serial<F>(l, bytes, offs, pos, idx, rows, sym_per, s_bucket, s_sym,
                 out, clk);
   if (pos + kGroup <= end) {
     uint4 rows_now = __ldg(reinterpret_cast<const uint4*>(idx + pos));
-    for (; pos + kGroup <= end; pos += kGroup) {
-      const uint4 rows_next =
-          pos + 2 * kGroup <= end
-              ? __ldg(reinterpret_cast<const uint4*>(idx + pos + kGroup))
-              : make_uint4(0, 0, 0, 0);
-      const uint32_t in[4] = {rows_now.x, rows_now.y, rows_now.z, rows_now.w};
-      const Lane first = l;
-      bool slow = false;
-      uint32_t o[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        int r = (in[j >> 2] >> (8 * (j & 3))) & 0xff;
-        r = r < rows ? r : rows - 1;
-        const int8_t v = step_fast<F>(l, s_bucket + r * kBuckets,
-                                      s_sym + r * sym_per, slow, clk);
-        o[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(v))
-                     << (8 * (j & 3));
-        clk.mark(kClkStore, o[j >> 2]);
-      }
-      if (slow)
-        l = serial<F>(first, bytes, pos, pos + kGroup, idx, rows, sym_per,
-                      s_bucket, s_sym, out, clk);
-      else
+    Lane first = l;
+    while (pos + kGroup <= end) {
+      // the escape-free body, until a group meets an escape
+      for (; pos + kGroup <= end; pos += kGroup) {
+        const uint4 rows_next =
+            pos + 2 * kGroup <= end
+                ? __ldg(reinterpret_cast<const uint4*>(idx + pos + kGroup))
+                : make_uint4(0, 0, 0, 0);
+        const uint32_t in[4] = {rows_now.x, rows_now.y, rows_now.z,
+                                rows_now.w};
+        first = l;
+        bool slow = false;
+        uint32_t esc = 0;
+        uint32_t o[4] = {0, 0, 0, 0};
+        group<F, false>(l, in, rows, sym_per, s_bucket, s_sym, o, slow, esc,
+                        clk);
+#ifdef K2_CLOCKS
+        ++clk.f[slow ? kClkRedoneGroups : kClkFreeGroups];
+#endif
+        if (slow) {
+          l = first;
+          break;
+        }
         *reinterpret_cast<uint4*>(out + pos) =
             make_uint4(o[0], o[1], o[2], o[3]);
-      rows_now = rows_next;
+        rows_now = rows_next;
+      }
+      // the full body, from that group on, until kCleanRun groups in a row
+      // without an escape
+      for (int clean = 0; clean < kCleanRun && pos + kGroup <= end;
+           pos += kGroup) {
+        const uint4 rows_next =
+            pos + 2 * kGroup <= end
+                ? __ldg(reinterpret_cast<const uint4*>(idx + pos + kGroup))
+                : make_uint4(0, 0, 0, 0);
+        const uint32_t in[4] = {rows_now.x, rows_now.y, rows_now.z,
+                                rows_now.w};
+        first = l;
+        bool slow = false;
+        uint32_t esc = 0;
+        uint32_t o[4] = {0, 0, 0, 0};
+        group<F, true>(l, in, rows, sym_per, s_bucket, s_sym, o, slow, esc,
+                       clk);
+#ifdef K2_CLOCKS
+        ++clk.f[kClkFullGroups];
+#endif
+        clean = (esc >> 8) != 0 || slow ? 0 : clean + 1;
+        if (slow)
+          l = serial<F>(first, bytes, pos, pos + kGroup, idx, rows, sym_per,
+                        s_bucket, s_sym, out, clk);
+        else
+          *reinterpret_cast<uint4*>(out + pos) =
+              make_uint4(o[0], o[1], o[2], o[3]);
+        rows_now = rows_next;
+      }
     }
   }
   l = serial<F>(l, bytes, pos, end, idx, rows, sym_per, s_bucket, s_sym, out,

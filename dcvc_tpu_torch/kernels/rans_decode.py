@@ -27,8 +27,9 @@ tensor is on the CPU; mixed devices, more than 8 lanes or another dtype
 raise.  On the card it never falls back.  The kernel is built with nvcc
 at its first launch (kernels/_build.py).  rans_decode_kernel_model runs
 the kernel's own algorithm (bucket search, byte window, closed-form
-escapes) in Python, so that the CPU tests hold it against the host
-decoder; nothing on the main path calls it.
+escapes, the escape-free and full group bodies and the switch between
+them) in Python, so that the CPU tests hold it against the host decoder;
+nothing on the main path calls it.
 """
 
 import ctypes
@@ -61,6 +62,11 @@ BUCKET_BITS = 8
 # csrc/rans_decode.cu's entry): a bank's largest spread, rounded up to one
 # of them
 FIXUPS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32)
+# symbols of an aligned group (one idx load and one out store), and the
+# full-body groups in a row without an escape after which a lane returns
+# to the escape-free body (csrc/rans_decode.cu, kGroup and kCleanRun)
+GROUP = 16
+CLEAN_RUN = 4
 # a start no cum reaches: the "sym" entries past a row's length
 NO_START = 0x7FFFFFFF
 
@@ -254,14 +260,25 @@ def escape_fast(st, win):
     return raw, (((st >> j2) << 8) | byte) >> (2 * (m & 3)), (m >> 2) + 1
 
 
-def rans_decode_kernel_model(state, idx, count, bank):
+def rans_decode_kernel_model(state, idx, count, bank, groups=None):
     """A plain model of the kernel's algorithm (same arguments and results
     as rans_decode_reference), for the CPU tests only: the inverse CDF by
     the bucket table and its fix-up over the "sym" entries, the renorm as
     one shift of the state and the lane's next bytes (a byte window) by
-    8 x the pulls its value asks for, and the bypass escape in closed form
-    (escape_fast); a state of 0 after the advance, or an escape of more
-    than 16 chunks, takes rans.cc's loops, as the kernel does."""
+    8 x the pulls its value asks for, the bypass escape in closed form
+    (escape_fast), and the kernel's schedule: a lane's unaligned head and
+    tail one symbol at a time, and between them aligned groups of GROUP
+    symbols, each by the escape-free body or the full body (the switch
+    rule of csrc/rans_decode.cu, CLEAN_RUN); an escape-free group that
+    meets an escape or a state of 0 is decoded again by the full body,
+    and a full-body group that meets a state of 0 or an escape of more
+    than 16 chunks one symbol at a time, taking rans.cc's loops for that
+    symbol, both from the lane as it was at the group's start.
+
+    groups: a list, to which each lane's group counts are appended as the
+    counting build's fields (free_groups, redone_groups, full_groups): the
+    groups kept from the escape-free body, those it redid, and those run
+    on the full body."""
     dev = idx.device
     streams = state["streams"]
     n, lane_len = streams.shape
@@ -279,67 +296,123 @@ def rans_decode_kernel_model(state, idx, count, bank):
     size0 = count // n
     for lane in range(n):
         lane_bytes = data[lane * lane_len:(lane + 1) * lane_len]
-        offs = size0 * lane
-        size = count - size0 * (n - 1) if lane == n - 1 else size0
-        st, ptr = st_all[lane], ptr_all[lane]
 
-        def window(at):
-            """The lane's 4 bytes from `at`, little-endian (0 outside)."""
-            return sum((lane_bytes[i] if 0 <= i < lane_len else 0)
-                       << (8 * (i - at)) for i in range(at, at + 4))
+        def byte(at):
+            return lane_bytes[at] if 0 <= at < lane_len else 0
 
-        def pull():
-            nonlocal ptr
-            b = lane_bytes[ptr] if 0 <= ptr < lane_len else 0
-            ptr += 1
-            return b
-
-        def get_bits():
-            nonlocal st
-            val = st & K_MAX_BYPASS
-            st >>= K_BYPASS_BITS
-            if st < K_RANS_L:
-                st = _u32(st << 8) | pull()
-            return val
-
-        for pos in range(offs, offs + size):
-            row = rows_of[pos]
-            cum = st & K_DEC_MASK
+        def entry(row, cum):
+            """The bucket search: the {start, freq, s | escape << 8}
+            entry of the symbol whose interval holds cum."""
             t = bucket[row][cum >> (K_SCALE_BITS - BUCKET_BITS)]
             cand = sym[row][t:t + fix + 1]
-            start, freq, meta, _ = cand[sum(c[0] <= cum for c in cand[1:])]
-            st = _u32(_u32(freq) * (st >> K_SCALE_BITS) + cum - start)
-            if st:
+            return cand[sum(c[0] <= cum for c in cand[1:])][:3]
+
+        def body(st, ptr, group_rows, escapes):
+            """One run of steps (csrc/rans_decode.cu, step_fast) over the
+            rows, by the full body (escapes) or the escape-free one:
+            (st, ptr, symbols, slow, esc).  At the first symbol that sets
+            slow the rest is dropped, as the kernel drops it."""
+            vals, esc = [], False
+            for row in group_rows:
+                cum = st & K_DEC_MASK
+                start, freq, meta = entry(row, cum)
+                x = _u32(_u32(freq) * (st >> K_SCALE_BITS) + cum - start)
+                escape = meta >> 8
+                if x == 0 or (escape and not escapes):
+                    return st, ptr, vals, True, esc
                 # the pulls a state >= 1 needs, from its value alone
-                pulls = (st < K_RANS_L) + (st < 1 << 15) + (st < 1 << 7)
+                pulls = (x < K_RANS_L) + (x < 1 << 15) + (x < 1 << 7)
+                st = x
                 for _ in range(pulls):
-                    st = _u32(st << 8) | pull()
-            else:
-                for _ in range(MAX_PULLS):
-                    if st >= K_RANS_L:
-                        break
-                    st = _u32(st << 8) | pull()
-            value = meta & 0xFF
-            if meta >> 8:
-                fast = escape_fast(st, window(ptr)) if st >= K_RANS_L \
-                    else None
-                if fast is not None:
+                    st = _u32(st << 8) | byte(ptr)
+                    ptr += 1
+                value = meta & 0xFF
+                if escape:
+                    fast = escape_fast(st, sum(byte(ptr + i) << (8 * i)
+                                               for i in range(4)))
+                    if fast is None:
+                        return st, ptr, vals, True, True
                     raw, st, taken = fast
                     ptr += taken
-                else:
+                    value = _i32(raw + value)
+                    esc = True
+                vals.append(_c_zigzag_int8(value))
+            return st, ptr, vals, False, esc
+
+        def slow_symbol(st, ptr, row):
+            """rans.cc's loops for one symbol (the kernel's slow_path)."""
+            def get_bits():
+                nonlocal st, ptr
+                val = st & K_MAX_BYPASS
+                st >>= K_BYPASS_BITS
+                if st < K_RANS_L:
+                    st = _u32(st << 8) | byte(ptr)
+                    ptr += 1
+                return val
+
+            cum = st & K_DEC_MASK
+            start, freq, meta = entry(row, cum)
+            st = _u32(_u32(freq) * (st >> K_SCALE_BITS) + cum - start)
+            for _ in range(MAX_PULLS):
+                if st >= K_RANS_L:
+                    break
+                st = _u32(st << 8) | byte(ptr)
+                ptr += 1
+            value = meta & 0xFF
+            if meta >> 8:
+                val = get_bits()
+                n_bypass = val
+                for _ in range(MAX_BYPASS_CHUNKS):
+                    if val != K_MAX_BYPASS:
+                        break
                     val = get_bits()
-                    n_bypass = val
-                    for _ in range(MAX_BYPASS_CHUNKS):
-                        if val != K_MAX_BYPASS:
-                            break
-                        val = get_bits()
-                        n_bypass += val
-                    raw = 0
-                    for k in range(min(n_bypass, MAX_BYPASS_CHUNKS)):
-                        raw |= get_bits() << (k * K_BYPASS_BITS)
+                    n_bypass += val
+                raw = 0
+                for k in range(min(n_bypass, MAX_BYPASS_CHUNKS)):
+                    raw |= get_bits() << (k * K_BYPASS_BITS)
                 value = _i32(raw + value)
-            out[pos] = _c_zigzag_int8(value)
+            return st, ptr, _c_zigzag_int8(value)
+
+        def serial(st, ptr, a, b):
+            """Symbols [a, b) one at a time (the kernel's serial)."""
+            for pos in range(a, b):
+                row = rows_of[pos]
+                st1, ptr1, vals, slow, _ = body(st, ptr, [row], True)
+                if slow:
+                    st, ptr, out[pos] = slow_symbol(st, ptr, row)
+                else:
+                    st, ptr, out[pos] = st1, ptr1, vals[0]
+            return st, ptr
+
+        offs = size0 * lane
+        end = offs + (count - size0 * (n - 1) if lane == n - 1 else size0)
+        st, ptr = st_all[lane], ptr_all[lane]
+        pos = min(end, (offs + GROUP - 1) // GROUP * GROUP)
+        st, ptr = serial(st, ptr, offs, pos)
+        escape_free, clean = True, 0
+        free_groups = redone = full = 0
+        while pos + GROUP <= end:
+            group_rows = rows_of[pos:pos + GROUP]
+            slow = False
+            if escape_free:
+                st1, ptr1, vals, slow, _ = body(st, ptr, group_rows, False)
+                redone += slow
+                free_groups += not slow
+            if not escape_free or slow:
+                st1, ptr1, vals, slow, esc = body(st, ptr, group_rows, True)
+                full += 1
+                clean = 0 if esc or slow else clean + 1
+                escape_free = clean >= CLEAN_RUN
+            if slow:
+                st, ptr = serial(st, ptr, pos, pos + GROUP)
+            else:
+                st, ptr = st1, ptr1
+                out[pos:pos + GROUP] = vals
+            pos += GROUP
+        st, ptr = serial(st, ptr, pos, end)
         st_all[lane], ptr_all[lane] = st, ptr
+        if groups is not None:
+            groups.append((free_groups, redone, full))
     new_state = {"streams": streams,
                  "st": torch.tensor([_i32(v) for v in st_all],
                                     dtype=torch.int32, device=dev),
@@ -350,9 +423,12 @@ def rans_decode_kernel_model(state, idx, count, bank):
 # the fields of one lane in the cycle-counting build's output (csrc/
 # rans_decode.cu, kClk*): clock64() cycles of the row fetch and CDF
 # search, the state update and renorm, the escape path and the output
-# store; the lane's whole loop; %globaltimer ns over it; symbols; escapes
+# store; the lane's whole loop; %globaltimer ns over it; symbols; escapes;
+# aligned groups kept from the escape-free body, redone after it, and run
+# on the full body
 CLOCK_FIELDS = ("search", "update", "escape", "store", "total", "ns",
-                "symbols", "escapes")
+                "symbols", "escapes", "free_groups", "redone_groups",
+                "full_groups")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1020,6 +1020,62 @@ def k2_fixtures():
     return cases
 
 
+# where the symbols of k2_pattern_stream escape: none, all, one every k
+# (position % k == k // 2), or the first / last symbol of every fifth
+# aligned group of 16
+K2_PATTERNS = ("none", "all", "every 1", "every 15", "every 16", "every 17",
+               "every 100", "group first", "group last")
+
+
+def k2_pattern_escapes(pattern, n):
+    """The (n,) bool mask of the symbols that escape under `pattern`."""
+    import numpy as np
+    pos = np.arange(n)
+    if pattern == "none":
+        return np.zeros(n, bool)
+    if pattern == "all":
+        return np.ones(n, bool)
+    if pattern.startswith("every "):
+        k = int(pattern.split()[1])
+        return pos % k == k // 2
+    return pos % 80 == (0 if pattern == "group first" else 15)
+
+
+def k2_escape_stream(escapes, n_lanes, seed, wide=False):
+    """len(escapes) y symbols coded by the host encoder over n_lanes lanes,
+    escaping where the bool mask `escapes` is set, on the rows of the
+    Gaussian bank (skip 0.15) with 7 entries: a symbol in -2..2 is coded
+    without escape, one of 3..127 in size escapes; wide: rows from the
+    whole bank and escapes of 64..127 in size, which escape in every row.
+    Returns (stream, idx (n,) uint8, sym (n,) int8, cdf, lengths)."""
+    import numpy as np
+    from .entropy.gaussian import GaussianConditional
+    from .rans import RansEncoder
+    cdf, lengths = GaussianConditional(0.15).compute_cdf_bank()
+    rng = np.random.default_rng(seed)
+    n, n_esc = len(escapes), int(escapes.sum())
+    rows = np.arange(len(lengths)) if wide else np.nonzero(lengths == 7)[0]
+    idx = rng.choice(rows, n).astype(np.uint8)
+    sym = rng.integers(-2, 3, n)
+    sym[escapes] = rng.choice([-1, 1], n_esc) * rng.integers(
+        64 if wide else 3, 128, n_esc)
+    sym = sym.astype(np.int8)
+    enc = RansEncoder()
+    enc.set_cdf(cdf, lengths, 1)
+    enc.set_parallel(n_lanes)
+    enc.reset()
+    enc.encode_y(((sym.astype(np.int16) << 8) | idx).astype(np.int16))
+    enc.flush()
+    return enc.get_encoded_stream(), idx, sym, cdf, lengths
+
+
+def k2_pattern_stream(pattern, n_lanes, n, seed):
+    """k2_escape_stream of n symbols with escapes where `pattern` puts
+    them; "all" on the whole bank (wide)."""
+    return k2_escape_stream(k2_pattern_escapes(pattern, n), n_lanes, seed,
+                            wide=pattern == "all")
+
+
 def run_k2_case(case, dev, decode):
     """A fixture's calls through `decode` (K2's wrapper, its launch or its
     plain version) on `dev`.  Returns (final state, outputs)."""
@@ -2118,8 +2174,10 @@ def k2_clock_summary(clocks):
     fields (kernels.rans_decode.CLOCK_FIELDS) of one call ((n, fields)
     tensor) or of several (a list of them): cycles per symbol of each part
     over every lane, escape-path cycles per escape, the escape share, the
-    longest lane's ns per symbol, and the SM clock under load (the longest
-    lanes' cycles over their %globaltimer ns, MHz)."""
+    aligned groups, the share of them kept from the escape-free body and
+    the share redone after it, the longest lane's ns per symbol, and the
+    SM clock under load (the longest lanes' cycles over their
+    %globaltimer ns, MHz)."""
     from .kernels.rans_decode import CLOCK_FIELDS
     if isinstance(clocks, torch.Tensor):
         clocks = [clocks]
@@ -2133,8 +2191,11 @@ def k2_clock_summary(clocks):
         for k in CLOCK_FIELDS:
             longest[k] += lane[k]
     sym = max(tot["symbols"], 1)
+    groups = tot["free_groups"] + tot["full_groups"]
     return {"symbols": tot["symbols"], "escapes": tot["escapes"],
-            "escape_share": tot["escapes"] / sym,
+            "escape_share": tot["escapes"] / sym, "groups": groups,
+            "free_share": tot["free_groups"] / max(groups, 1),
+            "redo_share": tot["redone_groups"] / max(groups, 1),
             "cycles_per_symbol": {k: tot[k] / sym for k in (
                 "search", "update", "escape", "store", "total")},
             "escape_cycles_per_escape": tot["escape"] / max(tot["escapes"],

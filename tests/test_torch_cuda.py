@@ -22,8 +22,8 @@ from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.kernels import rans_decode as K2
 from dcvc_tpu_torch.layers import blocks
 from dcvc_tpu_torch.entropy.gaussian import GaussianConditional
-from dcvc_tpu_torch.perf_probe import k2_fixtures, k2_lane_escapes, \
-    random_block, run_k2_case, K2Call
+from dcvc_tpu_torch.perf_probe import K2_PATTERNS, k2_fixtures, \
+    k2_lane_escapes, k2_pattern_stream, random_block, run_k2_case, K2Call
 from dcvc_tpu_torch.rans import RansDecoder, RansEncoder
 from dcvc_tpu_torch.rans.device_decode import init_state, upload_lanes
 
@@ -403,6 +403,66 @@ def test_cuda_rans_decode_escape_heavy_stream(cuda_device):
     assert sum(escapes) > 0.9 * n
     fields = dict(zip(K2.CLOCK_FIELDS, clocks.sum(0).tolist()))
     assert fields["escapes"] == sum(escapes) and fields["symbols"] == n
+
+
+def _k2_groups(state, idx, count, bank, clocks):
+    """The counting build's group fields of each lane equal the kernel
+    model's counts of the same call."""
+    groups = []
+    K2.rans_decode_kernel_model(state, idx, count, bank, groups)
+    cols = [K2.CLOCK_FIELDS.index(f) for f in ("free_groups",
+                                                "redone_groups",
+                                                "full_groups")]
+    assert [tuple(r) for r in clocks[:, cols].tolist()] == groups
+    return groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", K2_PATTERNS)
+def test_cuda_rans_decode_group_bodies(cuda_device, pattern):
+    """K2 on the streams of tests/test_torch_k2_design.py's group-body
+    cases (escapes none, all, one every 1 / 15 / 16 / 17 / 100 symbols, at
+    the first or the last symbol of an aligned group) at 1-8 lanes, the
+    lane blocks off the group grid: symbols and lane states equal the
+    plain version's and the host encoder's symbols, the counting build
+    equals the production build, and its group fields equal the kernel
+    model's counts."""
+    for n_lanes in range(1, 9):
+        n = 1200 + 37 * n_lanes
+        stream, idx, sym, cdf, lengths = k2_pattern_stream(
+            pattern, n_lanes, n, n_lanes)
+        state = init_state(upload_lanes(stream, n_lanes, cuda_device))
+        args = (state, torch.from_numpy(idx).to(cuda_device),
+                torch.tensor(n, dtype=torch.int32, device=cuda_device),
+                K2.make_bank(cdf, lengths, cuda_device))
+        _, clocks = _k2_check(*args, sym)
+        _k2_groups(*args, clocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes", [1, 4, 8])
+def test_cuda_rans_decode_state_of_zero(cuda_device, n_lanes):
+    """A corrupt stream (each lane's first 8 bytes zeroed: a state of 0,
+    twice): the kernel and its counting build equal the plain version, and
+    lane 0's first group is redone by the full body, which hands it to
+    the one-at-a-time path, as the kernel model counts it."""
+    n = 700
+    stream, idx, _, cdf, lengths = k2_pattern_stream("none", n_lanes, n, 5)
+    lanes = upload_lanes(stream, n_lanes, cuda_device).clone()
+    lanes[:, :8] = 0
+    args = (init_state(lanes), torch.from_numpy(idx).to(cuda_device),
+            torch.tensor(n, dtype=torch.int32, device=cuda_device),
+            K2.make_bank(cdf, lengths, cuda_device))
+    st_k, out_k = K2.rans_decode(*args)
+    st_c, out_c, clocks = K2.rans_decode_clocks(*args)
+    torch.cuda.synchronize()
+    st_p, out_p = K2.rans_decode_reference(*args)
+    for st, out in ((st_k, out_k), (st_c, out_c)):
+        assert torch.equal(out, out_p)
+        assert torch.equal(st["st"], st_p["st"])
+        assert torch.equal(st["ptr"], st_p["ptr"])
+    free, redone, full = _k2_groups(*args, clocks)[0]
+    assert redone >= 1 and full >= 1
 
 
 @pytest.mark.cuda

@@ -18,6 +18,14 @@ rans.cc's own way, exactly.
   host decoder and the plain version on every decode fixture
   (perf_probe.k2_fixtures) and on every K2 call of a DMCI TINY device
   decode.
+- Its two group bodies and the switch between them: on streams whose
+  escapes sit where perf_probe.k2_pattern_escapes puts them (none, all,
+  one every 1 / 15 / 16 / 17 / 100 symbols, the first or the last symbol
+  of an aligned group) at 1-8 lanes with unaligned lane heads and tails,
+  and on a corrupt stream that reaches a state of 0, the model equals the
+  host decoder and the plain version, and its group counts equal those
+  of the switch rule run on the stream's escape mask (switch_counts
+  below), which add up to each lane's aligned groups.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -32,7 +40,10 @@ from dcvc_tpu_torch.entropy.bit_estimator import BitEstimator
 from dcvc_tpu_torch.entropy.gaussian import GaussianConditional
 from dcvc_tpu_torch.kernels import rans_decode as K2
 from dcvc_tpu_torch.models.dmci import TINY_CONFIG, DMCIConfig
-from dcvc_tpu_torch.perf_probe import k2_fixtures, run_k2_case
+from dcvc_tpu_torch.perf_probe import K2_PATTERNS, k2_clock_summary, \
+    k2_escape_stream, k2_fixtures, k2_lane_sizes, k2_pattern_escapes, \
+    k2_pattern_stream, run_k2_case
+from dcvc_tpu_torch.rans.device_decode import init_state, upload_lanes
 from dcvc_tpu_torch.runtime import image_codec
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
 
@@ -264,3 +275,140 @@ def test_kernel_model_matches_on_dmci_device_decode(monkeypatch):
         value = 2 * out_p[:n].long().abs() - (out_p[:n] > 0).long()
         escapes += int((value >= bank["len"][idx[:n].long()] - 2).sum())
     assert escapes > 0
+
+
+def switch_counts(escapes, count, n_lanes):
+    """The kernel's schedule of aligned groups run on an escape mask (a
+    stream in which no symbol needs rans.cc's loops): per lane (free,
+    redone, full), the groups kept from the escape-free body, those it
+    redid, and those run on the full body.  A lane starts on the
+    escape-free body, takes the full body after a group that held an
+    escape, and returns after CLEAN_RUN full-body groups in a row without
+    one."""
+    counts, offs = [], 0
+    for size in k2_lane_sizes(count, n_lanes):
+        pos = min(offs + size, -(-offs // K2.GROUP) * K2.GROUP)
+        free = redone = full = clean = 0
+        escape_free = True
+        for g in range(pos, offs + size - K2.GROUP + 1, K2.GROUP):
+            held = bool(escapes[g:g + K2.GROUP].any())
+            if escape_free and not held:
+                free += 1
+                continue
+            redone += escape_free
+            full += 1
+            clean = 0 if held else clean + 1
+            escape_free = clean >= K2.CLEAN_RUN
+        counts.append((free, redone, full))
+        offs += size
+    return counts
+
+
+def _model_case(stream, idx, n_lanes, count, cdf, lengths, lanes=None):
+    """The model and the plain version on one call over the lanes of
+    `stream` (or `lanes`, already split): (model out, plain out, group
+    counts), the lane states checked equal."""
+    if lanes is None:
+        lanes = upload_lanes(stream, n_lanes, "cpu")
+    state = init_state(lanes)
+    idx_t = torch.from_numpy(idx)
+    bank = K2.make_bank(cdf, lengths, "cpu")
+    groups = []
+    st_m, out_m = K2.rans_decode_kernel_model(state, idx_t, count, bank,
+                                              groups)
+    st_p, out_p = K2.rans_decode_reference(state, idx_t, count, bank)
+    assert torch.equal(st_m["st"], st_p["st"])
+    assert torch.equal(st_m["ptr"], st_p["ptr"])
+    assert torch.equal(out_m, out_p)
+    return out_m, groups
+
+
+@pytest.mark.parametrize("pattern", K2_PATTERNS)
+@pytest.mark.parametrize("n_lanes", [1, 3, 8])
+def test_kernel_model_group_bodies(pattern, n_lanes):
+    """The model on a stream with escapes where `pattern` puts them: the
+    host encoder's symbols, the plain version's lane states, and the
+    switch rule's group counts, which add up to each lane's groups."""
+    n = 1200 + 37 * n_lanes          # lane blocks start unaligned
+    stream, idx, sym, cdf, lengths = k2_pattern_stream(pattern, n_lanes, n,
+                                                       n_lanes)
+    out, groups = _model_case(stream, idx, n_lanes, n, cdf, lengths)
+    np.testing.assert_array_equal(out.numpy(), sym)
+    escapes = k2_pattern_escapes(pattern, n)
+    assert groups == switch_counts(escapes, n, n_lanes)
+    offs = 0
+    for size, (free, redone, full) in zip(k2_lane_sizes(n, n_lanes),
+                                          groups):
+        head = -(-offs // K2.GROUP) * K2.GROUP
+        assert free + full == max(0, offs + size - head) // K2.GROUP
+        assert redone <= full
+        offs += size
+    total = np.array(groups).sum(0)
+    if pattern == "none":
+        assert total[1] == total[2] == 0
+    elif pattern in ("all", "every 1", "every 15", "every 16"):
+        # every group holds an escape: one redo a lane, then the full body
+        assert total[0] == 0 and total[1] == n_lanes
+
+
+@pytest.mark.parametrize("n_lanes", range(1, 9))
+def test_kernel_model_unaligned_lanes(n_lanes):
+    """1-8 lanes whose blocks start and end off the 16-symbol grid, with
+    escapes at every lane's first and last symbol and in its first and
+    last aligned group, and lanes shorter than a group."""
+    for n in (n_lanes * 16 + 7, 29 * n_lanes + 3, n_lanes + 5):
+        sizes = k2_lane_sizes(n, n_lanes)
+        esc = np.zeros(n, bool)
+        offs = 0
+        for size in sizes:
+            head = -(-offs // K2.GROUP) * K2.GROUP
+            for p in (offs, offs + size - 1, head, head + K2.GROUP - 1,
+                      offs + size - K2.GROUP):
+                if offs <= p < offs + size:
+                    esc[p] = True
+            offs += size
+        stream, idx, sym, cdf, lengths = k2_escape_stream(esc, n_lanes, n)
+        out, groups = _model_case(stream, idx, n_lanes, n, cdf, lengths)
+        np.testing.assert_array_equal(out.numpy(), sym)
+        assert groups == switch_counts(esc, n, n_lanes)
+
+
+@pytest.mark.parametrize("n_lanes", [1, 4])
+def test_kernel_model_state_of_zero(n_lanes):
+    """A corrupt stream: each lane's first 8 bytes zeroed, so its state
+    starts at 0 and stays 0 through a renorm (x == 0 twice).  Lane 0's
+    block starts on the group grid, so its first group meets the state of
+    0 in the escape-free body, is redone by the full body, which meets it
+    too and hands the group to the one-at-a-time path; the other lanes
+    meet it in their unaligned heads.  The model equals the plain version
+    (the host decoder does not bound its loops)."""
+    n = 700
+    stream, idx, _, cdf, lengths = k2_pattern_stream("none", n_lanes, n, 5)
+    lanes = upload_lanes(stream, n_lanes, "cpu").clone()
+    lanes[:, :8] = 0
+    _, groups = _model_case(None, idx, n_lanes, n, cdf, lengths, lanes)
+    free, redone, full = groups[0]
+    assert redone >= 1 and full >= 1
+
+
+def test_clock_summary_group_shares():
+    """perf_probe.k2_clock_summary over several calls of the counting
+    build: the aligned groups are those kept from the escape-free body
+    plus those run on the full body, and the escape-free and redo shares
+    are taken over them, summed over every lane of every call."""
+    def clocks(lanes):
+        t = torch.zeros((len(lanes), len(K2.CLOCK_FIELDS)),
+                        dtype=torch.int64)
+        for i, fields in enumerate(lanes):
+            for k, v in fields.items():
+                t[i, K2.CLOCK_FIELDS.index(k)] = v
+        return t
+    a = clocks([{"free_groups": 90, "redone_groups": 2, "full_groups": 10,
+                 "symbols": 1607, "total": 900, "ns": 450},
+                {"redone_groups": 1, "full_groups": 50, "symbols": 800,
+                 "total": 400, "ns": 200}])
+    b = clocks([{"free_groups": 50, "symbols": 803, "total": 50, "ns": 25}])
+    s = k2_clock_summary([a, b])
+    assert s["symbols"] == 3210 and s["groups"] == 200
+    assert s["free_share"] == 140 / 200 and s["redo_share"] == 3 / 200
+    assert k2_clock_summary(b)["free_share"] == 1.0
