@@ -49,6 +49,7 @@ from ..models import common
 from ..models.dmc_ld import Wrap
 from ..runtime.video_codec import VideoCodecBase
 from ..utils.keys import key_fn_rt
+from ..utils.profiling import spanned
 
 QP_SHIFT = [0, 8, 4]
 EXTRA_QP = max(QP_SHIFT)
@@ -88,7 +89,8 @@ class DepthConvBlockRT(nn.Module):
     """RT's DepthConvBlock (DCVC-RT/src/layers/layers.py:65-83): UF's dc
     trunk, and an FFN whose 4C activation is split in two halves that are
     summed into ffn_out's 2C inputs.  The parameters keep UF's names
-    (`adaptor`, `dc.0/2/3`, `ffn.0/2`)."""
+    (`adaptor`, `dc.0/2/3`, `ffn.0/2`).  Each call is a span `dcb.rt`
+    while torch.profiler is on."""
 
     def __init__(self, in_ch, out_ch, shortcut=False, force_adaptor=False):
         super().__init__()
@@ -101,6 +103,7 @@ class DepthConvBlockRT(nn.Module):
         self.ffn = nn.Sequential(Conv1x1(out_ch, 4 * out_ch), WSiLU(),
                                  Conv1x1(2 * out_ch, out_ch))
 
+    @spanned("dcb.rt")
     def forward(self, x):
         if self.adaptor is not None:
             x = self.adaptor(x)

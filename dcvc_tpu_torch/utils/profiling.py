@@ -28,7 +28,8 @@ stages stage.analysis, stage.adaptor, stage.prior, stage.quant,
 stage.step, stage.synthesis, stage.final, stage.recon, stage.seed (the
 DPB seed's pad and unshuffle); host copies copy.start, wait.copy;
 entropy entropy.encode, entropy.upload, entropy.decode_z,
-entropy.decode_y; kernels k1.launch, k2.launch.  The counter:
+entropy.decode_y; kernels k1.launch, k2.launch; blocks dcb.rt (a call of
+DCVC-RT's two-way DepthConvBlock, which runs as plain ops).  The counter:
 entropy.symbols, the z and y symbols coded by compress_finish.
 """
 

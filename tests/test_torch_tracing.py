@@ -7,7 +7,10 @@ while the profiler is on.  The TINY DMCI compress_many /
 decompress_many(depth=2) and HTS compress_sequence / decompress_sequence
 record the codecs' span names (host coder and device_ec), every span
 inside its parent (none is left open across a decode coroutine's yield),
-and entropy.symbols counts the symbols the host coder was given.
+and entropy.symbols counts the symbols the host coder was given.  A TINY
+DCVC-RT P segment (compress_sequence / decompress_sequence, the lanes
+pinned to 2) records HTS's span names and one dcb.rt span for each call
+of a two-way DepthConvBlock, and none with the profiler off.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -19,6 +22,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, DepthConvBlockRT, \
+    TINY_RT_CONFIG
 from dcvc_tpu_torch.models.dmc_ht import TINY_HT_CONFIG
 from dcvc_tpu_torch.models.dmci import TINY_CONFIG
 from dcvc_tpu_torch.runtime.image_codec import DMCICodec
@@ -37,6 +42,7 @@ HTS_SPANS = ENCODE | {"codec.dpb_seed", "stage.seed", "stage.adaptor",
                       "stage.final", "codec.compress_sequence",
                       "codec.decompress_sequence", "codec.decode_unit",
                       "entropy.decode_z", "entropy.decode_y", "stage.recon"}
+RT_SPANS = HTS_SPANS | {"dcb.rt"}
 
 
 @pytest.fixture
@@ -73,6 +79,19 @@ def hts():
     cy = TINY_HT_CONFIG.ch_y
     with torch.no_grad():
         codec.model.y_prior_fusion.conv[3].bias[cy:2 * cy] += 2.0
+    return codec
+
+
+@pytest.fixture(scope="module")
+def rt():
+    codec = DMCRTCodec.init_random(torch.Generator().manual_seed(2),
+                                   cfg=TINY_RT_CONFIG, init_scale=0.4,
+                                   dtype=torch.float32, device="cpu")
+    codec.force_ec = 2
+    cy = TINY_RT_CONFIG.ch_y
+    with torch.no_grad():      # lift both steps' scales: y symbols coded
+        codec.model.y_prior_fusion.conv[3].bias[cy:2 * cy] += 2.0
+        codec.model.y_spatial_prior.conv[2].bias[:cy] += 2.0
     return codec
 
 
@@ -251,3 +270,56 @@ def test_symbol_counter_is_the_symbols_coded(dmci, hts, recorded, codec,
     assert len(given["encode_z"]) == 2 and sum(given["encode_y"]) > 0
     total = sum(given["encode_y"]) + sum(given["encode_z"])
     assert rec["counters"] == {"entropy.symbols": total}
+
+
+def rt_segment(rt, on):
+    """A 2-frame RT P segment, encode then decode from a seeded DPB;
+    returns (the encoder's and the decoder's DPB, the two-way blocks'
+    calls counted by forward pre-hooks)."""
+    calls = [0]
+
+    def hook(mod, args):
+        calls[0] += 1
+    handles = [m.register_forward_pre_hook(hook) for m in rt.model.modules()
+               if isinstance(m, DepthConvBlockRT)]
+    frames = [smooth((1, H, W, 3), 20 + i) + 0.5 for i in range(3)]
+    qps = [3, 11]               # the second at a shifted bank
+    try:
+        rt.clear_dpb()
+        rt.add_ref_feature_from_frame(frames[0])
+        res = rt.compress_sequence(frames[1:], qps)
+        dpb = rt.ref_feature.clone()
+        rt.clear_dpb()
+        rt.add_ref_feature_from_frame(frames[0])
+        with device_ec(rt, on):
+            rt.decompress_sequence([r["bit_stream"] for r in res], qps, H, W,
+                                   [r["ec_parallel"] for r in res])
+    finally:
+        for h in handles:
+            h.remove()
+    return (dpb, rt.ref_feature), calls[0]
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["host", "device_ec"])
+def test_rt_sequence_records_a_span_per_block_call(rt, recorded, on):
+    ((enc_dpb, dec_dpb), calls), rec, events = recorded(
+        lambda: rt_segment(rt, on))
+    assert torch.equal(enc_dpb, dec_dpb)
+    names = check_nesting(rec)
+    assert names == RT_SPANS | ({"entropy.upload"} if on else set())
+    roots = [s[0] for s in rec["spans"] if s[1] == -1]
+    assert roots == ["codec.dpb_seed"] * 2 + ["codec.compress_sequence"] \
+        + ["codec.dpb_seed"] * 2 + ["codec.decompress_sequence"]
+    blocks = [s for s in rec["spans"] if s[0] == "dcb.rt"]
+    assert calls > 0 and len(blocks) == calls
+    # every block span lies under a stage of a request
+    assert all(rec["spans"][s[1]][0].startswith("stage.") for s in blocks)
+    assert len([e for e in events if e.name == "dcb.rt"]) == calls
+
+
+def test_rt_blocks_open_no_span_with_the_profiler_off(rt):
+    profiling.reset()
+    (enc_dpb, dec_dpb), calls = rt_segment(rt, False)
+    assert torch.equal(enc_dpb, dec_dpb) and calls > 0
+    assert profiling.records() == {"spans": [], "counters": {},
+                                   "dropped": 0}
