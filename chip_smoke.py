@@ -47,8 +47,9 @@ every K2 launch's inputs:
     grid), each P stream decoded by the host coder and by K2 (3 calls per
     frame); RT's K1 launches and shapes are derived from the models on
     the meta device (perf_probe.rt_stage_launches: 42 / 32 per intra
-    encode / decode, none in the P model, whose two-way DCBs run plain
-    PyTorch as in the JAX package) and must match the card's;
+    encode / decode, and one of K1's two-plane form per two-way DCB of
+    the P model, 37 per encode and 28 per decode) and must match the
+    card's;
   - the legacy intra codecs (float32, RGB in [0, 1]): EVCCodec at
     EVC_CONFIG and IntraNoARCodec at INTRA_NOAR_CONFIG at 1080p and 720p,
     the scalable EVC (SCALABLE_EVC_CONFIG) and FM's IntraNoAR (N 256) at
@@ -1281,7 +1282,7 @@ def rt_spec(dtype=torch.bfloat16):
         f"{ {k: v for k, v in n.items() if not k.startswith('p.')} }; "
         f"encode {spec['encode']}, decode {spec['decode']}; P codec per "
         f"stage { {k: v for k, v in n.items() if k.startswith('p.')} } (its "
-        f"DCBs are the two-way kind, not K1's); {len(shapes)} distinct "
+        f"two-way DCBs, K1's two-plane form); {len(shapes)} distinct "
         f"shapes")
     return spec, shapes
 

@@ -3,13 +3,16 @@
 // Replaces the TPU kernel dcvc_tpu/kernels/fused_dcb.py::_dcb_kernel in
 // both of its forms: one block (entry fused_dcb, S = 1) and S independent
 // blocks with stacked weights (_fused_dcb_stacked via fused_dcb_stacked,
-// the DMC-HTS/HTL recon heads).  Per block:
+// the DMC-HTS/HTL recon heads).  It also runs DCVC-RT's two-way block
+// (dcvc_tpu computes that one in plain flax), which differs from UF's in
+// the FFN's chunk-add alone.  Per block:
 //
 //   [adaptor 1x1] -> dc_in 1x1 -> WSiLU -> (zero outside the image)
 //   -> depthwise 3x3 + bias -> dc_out 1x1 + residual (out1, f32)
-//   -> FFN: 4 (C x I) products, each through WSiLU, summed (the
-//      reference's 4-way chunk-add; the 4I-wide activation never exists)
-//   -> ffn_out 1x1 + out1 [+ shortcut]
+//   -> FFN: P (C x I_ffn) products, each through WSiLU, summed (the
+//      reference's P-way chunk-add; the 4I-wide activation never exists):
+//      UF P = 4 planes of I_ffn = I, RT P = 2 planes of I_ffn = 2C (I = C)
+//   -> ffn_out 1x1 (K = I_ffn) + out1 [+ shortcut]
 //
 // What bounds it on the H100: arithmetic.  At C = I = 384 a block costs
 // about 2 MFLOP per pixel (7 C x I products), against ~1.5 KB of
@@ -33,10 +36,11 @@
 //   ffn_out  out = bf16((s w4 + b4) + out1 [+ xin])             k1_ffn_out
 //
 // xin is xa where the block has an adaptor, else x.  Weights are K-major
-// (N, K), as a 1x1 conv stores them; ffn_in's are (4, I, C), j-major, and
-// one block multiplies the four j planes of 64 output columns at once
-// (BN = 256 accumulators), summing the four WSiLUs in its epilogue in the
-// order j = 0..3.  h, d, out1, out1c and s are scratch the caller
+// (N, K), as a 1x1 conv stores them; ffn_in's are (P, I_ffn, C), j-major,
+// and one block multiplies the P j planes of 256 / P output columns at
+// once (BN = 256 accumulators: four planes of 64, or two of 128), summing
+// the P WSiLUs in its epilogue in the order j = 0..P-1.  P is a template
+// argument of k1_ffn_in.  h, d, out1, out1c and s are scratch the caller
 // allocates.  The stack entry is blockIdx.y of every GEMM launch and
 // blockIdx.z of the dw launch; the tensor maps are 3-D with the entry as a
 // coordinate, and an x with entry stride 0 (every entry reads the same x,
@@ -53,8 +57,10 @@
 // tail: TMA reads the rows of B past N and the columns of A and B past K
 // as zeros (the maps' bounds), so the depth runs over ceil(K / 64) stages
 // and the tail's sums are zero or, in ffn_in, the next plane's; the
-// epilogue stores no column past N.  The dw launch's last channel block
-// likewise stages zeros past I and stores nothing there.  16 keeps every
+// epilogue stores no column past N.  The two-plane ffn_in has 128-wide
+// planes, so an I_ffn that 128 does not divide takes such a tail too.
+// The dw launch's last channel block likewise stages zeros past I and
+// stores nothing there.  16 keeps every
 // row a multiple of 32 bytes: the 16-byte vectors of the epilogues and the
 // dw launch never straddle the end of a row.
 //
@@ -102,7 +108,8 @@ struct GemmParams {
   int n_tiles;          // output column tiles (ceil(N / bn_out))
   int bn_out;           // output columns per block
   int stages;           // of the core's ring
-  int b_step;           // B rows between a block's boxes (ffn_in: I)
+  int b_step;           // B rows between a block's runs of boxes
+                        // (ffn_in: I_ffn)
   int a_bcast;          // every entry reads entry 0 of A
   const bf16* bias;     // per entry bias_stride elements
   int bias_stride;
@@ -117,17 +124,17 @@ struct GemmParams {
 // consumer threads take 4 adjacent output columns at a time, row by row,
 // so that a warp reads and writes whole rows of global memory.  A tail
 // tile's columns past N (a multiple of 16, so a group of 4 is all in or
-// all out) are neither read nor stored.
-template <int KIND, int BM, int BN>
+// all out) are neither read nor stored.  P: ffn_in's planes (1 elsewhere).
+template <int KIND, int BM, int BN, int P>
 struct Epilogue {
   const GemmParams& p;
   int s, m0, n0;
   __device__ __forceinline__ void operator()(const float* tile, int ld,
                                              int tid, int nthreads) const {
-    constexpr int kOut = KIND == kFfnIn ? BN / 4 : BN;  // output columns
+    constexpr int kOut = BN / P;  // output columns
     constexpr int kVecs = kOut / 4;
-    static_assert(KIND != kFfnIn || BN == 256,
-                  "ffn_in multiplies four 64-wide planes");
+    static_assert(KIND == kFfnIn ? BN == 256 && (P == 2 || P == 4) : P == 1,
+                  "ffn_in multiplies four 64-wide or two 128-wide planes");
     const size_t entry = (size_t)p.M * p.N;
     const bf16* bias = p.bias + (size_t)s * p.bias_stride;
     const int rows = min(BM, p.M - m0);
@@ -140,9 +147,9 @@ struct Epilogue {
       const float* t = tile + r * ld + c;
       float4 y;
       if constexpr (KIND == kFfnIn) {
-        // s = sum_j wsilu(out1c w3[j] + b3[j]), j = 0..3 in order
+        // s = sum_j wsilu(out1c w3[j] + b3[j]), j = 0..P-1 in order
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < P; ++j) {
           const float4 f = wsilu4(add4(
               *reinterpret_cast<const float4*>(t + j * kOut),
               load4(bias + j * p.N + col)));
@@ -167,8 +174,10 @@ struct Epilogue {
 };
 
 // Block (m_tile, n_tile) = divmod(blockIdx.x, n_tiles) of entry blockIdx.y
-// (kernels/fused_dcb.py::gemm_block_tile mirrors this).
-template <int KIND, int BM, int BN>
+// (kernels/fused_dcb.py::gemm_block_tile mirrors this).  ffn_in's B tile
+// is P runs of boxes, one per plane; a plain product's boxes are one run
+// of consecutive rows (b_step = kBoxRows, RUN = 1).
+template <int KIND, int BM, int BN, int P>
 __device__ __forceinline__ void gemm_body(const CUtensorMap& a,
                                           const CUtensorMap& b,
                                           const GemmParams& p) {
@@ -181,27 +190,35 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& a,
   t.b_step = p.b_step;
   t.nk = (p.K + hgemm::kBK - 1) / hgemm::kBK;  // a K tail reads as zeros
   t.stages = p.stages;
-  const Epilogue<KIND, BM, BN> epi{p, t.s, t.m0, n0};
-  hgemm::gemm_core<BM, BN>(reinterpret_cast<uint64_t>(&a),
-                           reinterpret_cast<uint64_t>(&b), t, epi);
+  const Epilogue<KIND, BM, BN, P> epi{p, t.s, t.m0, n0};
+  constexpr int kRun = KIND == kFfnIn ? BN / hgemm::kBoxRows / P : 1;
+  hgemm::gemm_core<BM, BN, kRun>(reinterpret_cast<uint64_t>(&a),
+                                 reinterpret_cast<uint64_t>(&b), t, epi);
 }
 
 // one kernel name per launch of the chain, so that a profile tells them
-// apart
+// apart; ffn_in's plane count is its third template argument
 #define K1_GEMM_KERNEL(NAME, KIND)                                         \
   template <int BM, int BN>                                                \
   __global__ void __launch_bounds__(2 * BM + 32, 1)                        \
       NAME(const __grid_constant__ CUtensorMap a,                          \
            const __grid_constant__ CUtensorMap b,                          \
            const __grid_constant__ GemmParams p) {                         \
-    gemm_body<KIND, BM, BN>(a, b, p);                                      \
+    gemm_body<KIND, BM, BN, 1>(a, b, p);                                   \
   }
 K1_GEMM_KERNEL(k1_adaptor, kAdaptor)
 K1_GEMM_KERNEL(k1_h, kH)
 K1_GEMM_KERNEL(k1_dc_out, kDcOut)
-K1_GEMM_KERNEL(k1_ffn_in, kFfnIn)
 K1_GEMM_KERNEL(k1_ffn_out, kFfnOut)
 #undef K1_GEMM_KERNEL
+
+template <int BM, int BN, int P>
+__global__ void __launch_bounds__(2 * BM + 32, 1)
+    k1_ffn_in(const __grid_constant__ CUtensorMap a,
+              const __grid_constant__ CUtensorMap b,
+              const __grid_constant__ GemmParams p) {
+  gemm_body<kFfnIn, BM, BN, P>(a, b, p);
+}
 
 // the tiles of the plain products: BM 64 / 128 x BN 64 / 128 (a 256-wide
 // tile holds 128 accumulators a thread, which leaves room for one block
@@ -212,14 +229,18 @@ K1_GEMM_KERNEL(k1_ffn_out, kFfnOut)
               : ((bn) == 64 ? (const void*)NAME<128, 64>                   \
                             : (const void*)NAME<128, 128>))
 
-const void* gemm_kernel(int kind, int bm, int bn) {
+// planes: ffn_in's P (2 or 4); the other launches ignore it
+const void* gemm_kernel(int kind, int bm, int bn, int planes) {
   switch (kind) {
     case kAdaptor: return K1_PICK(k1_adaptor, bm, bn);
     case kH: return K1_PICK(k1_h, bm, bn);
     case kDcOut: return K1_PICK(k1_dc_out, bm, bn);
     case kFfnIn:
-      return bm == 64 ? (const void*)k1_ffn_in<64, 256>
-                      : (const void*)k1_ffn_in<128, 256>;
+      if (planes == 2)
+        return bm == 64 ? (const void*)k1_ffn_in<64, 256, 2>
+                        : (const void*)k1_ffn_in<128, 256, 2>;
+      return bm == 64 ? (const void*)k1_ffn_in<64, 256, 4>
+                      : (const void*)k1_ffn_in<128, 256, 4>;
     default: return K1_PICK(k1_ffn_out, bm, bn);
   }
 }
@@ -400,10 +421,11 @@ struct Slot {
 };
 constexpr int kSlots = 6, kSlotInts = 9;
 
-bool gemm_slot_ok(const Slot& q, int S, int M, int N, int K, bool ffn_in,
+// planes: ffn_in's P (its bn_out is 256 / P), 0 for a plain product
+bool gemm_slot_ok(const Slot& q, int S, int M, int N, int K, int planes,
                   int max_smem) {
   if (q.on != 1 || (q.bm != 64 && q.bm != 128)) return false;
-  if (ffn_in ? (q.bn != 256 || q.bn_out != 64)
+  if (planes ? (q.bn != 256 || q.bn_out != 256 / planes)
              : ((q.bn != 64 && q.bn != 128) || q.bn_out != q.bn))
     return false;
   if (N % 16 || K % 16 || K < 16) return false;
@@ -464,8 +486,8 @@ cudaError_t launch(const void* fn, dim3 grid, dim3 block, int smem,
 
 cudaError_t launch_gemm(int kind, const Slot& q, const CUtensorMap& a,
                         const CUtensorMap& b, const GemmParams& p,
-                        cudaStream_t stream) {
-  const void* fn = gemm_kernel(kind, q.bm, q.bn);
+                        cudaStream_t stream, int planes = 0) {
+  const void* fn = gemm_kernel(kind, q.bm, q.bn, planes);
   cudaError_t err = allow_smem(fn, q.smem);
   if (err != cudaSuccess) return err;
   void* args[] = {const_cast<CUtensorMap*>(&a), const_cast<CUtensorMap*>(&b),
@@ -495,21 +517,25 @@ GemmParams gemm_params(const Slot& q, int M, int N, int K, const void* bias,
 // S blocks (S = 1: one DepthConvBlock) on x (S, H, W, Cin), entry stride
 // x_stride elements (0: every entry reads the same x).  Weights carry a
 // leading S and are K-major: wa (C, Cin), w1 (I, C), w2 (C, I),
-// w3 (4, I, C), w4 (C, I); wd (3, 3, I); biases (N), b3 (4, I).  Scratch:
+// w3 (P, I_ffn, C), w4 (C, I_ffn); wd (3, 3, I); biases (N), b3 (P,
+// I_ffn); P = planes, 4 (UF: I_ffn = I) or 2 (RT: I_ffn = 2C).  Scratch:
 // xa (S, H, W, C) (with an adaptor), h and d (S, H, W, I), out1 (S, H, W,
-// C) f32, out1c (S, H, W, C), s (S, H, W, I; it may be h's buffer: h is
-// dead once dc_out has run).  out (S, H, W, C) bf16.  plan: kSlots rows of
-// kSlotInts ints, a Slot each (kernels/fused_dcb.py::plan_ints).
+// C) f32, out1c (S, H, W, C), s (S, H, W, I_ffn; it may be h's buffer
+// where I_ffn <= I: h is dead once dc_out has run).  out (S, H, W, C)
+// bf16.  plan: kSlots rows of kSlotInts ints, a Slot each
+// (kernels/fused_dcb.py::plan_ints).
 extern "C" int dcvc_fused_dcb(
     const void* x, const void* wa, const void* ba, const void* w1,
     const void* b1, const void* wd, const void* bd, const void* w2,
     const void* b2, const void* w3, const void* b3, const void* w4,
     const void* b4, void* xa, void* h, void* d, void* out1, void* out1c,
     void* s_buf, void* out, int S, long long x_stride, int H, int W, int Cin,
-    int C, int I, int shortcut, const int* plan, void* stream) {
+    int C, int I, int I_ffn, int planes, int shortcut, const int* plan,
+    void* stream) {
   const bool adaptor = wa != nullptr;
   const long long M = (long long)H * W;
-  if (Cin % 16 || C % 16 || I % 16 || H < 1 || W < 1 || S < 1 ||
+  if (Cin % 16 || C % 16 || I % 16 || I_ffn % 16 || I_ffn < 16 ||
+      (planes != 2 && planes != 4) || H < 1 || W < 1 || S < 1 ||
       (adaptor ? xa == nullptr : Cin != C) || plan == nullptr)
     return cudaErrorInvalidValue;
   const bool bcast = S > 1 && x_stride == 0;
@@ -531,13 +557,13 @@ extern "C" int dcvc_fused_dcb(
     q[i] = Slot{r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8]};
   }
   const bool plan_ok =
-      (adaptor ? gemm_slot_ok(q[0], S, M, C, Cin, false, max_smem)
+      (adaptor ? gemm_slot_ok(q[0], S, M, C, Cin, 0, max_smem)
                : q[0].on == 0) &&
-      gemm_slot_ok(q[1], S, M, I, C, false, max_smem) &&
+      gemm_slot_ok(q[1], S, M, I, C, 0, max_smem) &&
       dw_slot_ok(q[2], S, H, W, I) &&
-      gemm_slot_ok(q[3], S, M, C, I, false, max_smem) &&
-      gemm_slot_ok(q[4], S, M, I, C, true, max_smem) &&
-      gemm_slot_ok(q[5], S, M, C, I, false, max_smem);
+      gemm_slot_ok(q[3], S, M, C, I, 0, max_smem) &&
+      gemm_slot_ok(q[4], S, M, I_ffn, C, planes, max_smem) &&
+      gemm_slot_ok(q[5], S, M, C, I_ffn, 0, max_smem);
   if (!plan_ok) return cudaErrorInvalidValue;
 
   // the block's input: the adapted x, or x itself
@@ -553,9 +579,10 @@ extern "C" int dcvc_fused_dcb(
       make_map(&m_d, d, M, I, S, M * I) &&
       make_map(&m_w2, w2, C, I, S, (long long)C * I) &&
       make_map(&m_o1c, out1c, M, C, S, M * C) &&
-      make_map(&m_w3, w3, 4LL * I, C, S, 4LL * I * C) &&
-      make_map(&m_s, s_buf, M, I, S, M * I) &&
-      make_map(&m_w4, w4, C, I, S, (long long)C * I);
+      make_map(&m_w3, w3, (long long)planes * I_ffn, C, S,
+               (long long)planes * I_ffn * C) &&
+      make_map(&m_s, s_buf, M, I_ffn, S, M * I_ffn) &&
+      make_map(&m_w4, w4, C, I_ffn, S, (long long)C * I_ffn);
   if (adaptor)
     maps_ok = maps_ok && make_map(&m_x, x, M, Cin, xe, M * Cin) &&
               make_map(&m_wa, wa, C, Cin, S, (long long)C * Cin);
@@ -597,12 +624,12 @@ extern "C" int dcvc_fused_dcb(
     if (err != cudaSuccess) return err;
   }
   {
-    GemmParams p = gemm_params(q[4], M, I, C, b3, 4 * I, s_buf);
-    p.b_step = I;
-    err = launch_gemm(kFfnIn, q[4], m_o1c, m_w3, p, st);
+    GemmParams p = gemm_params(q[4], M, I_ffn, C, b3, planes * I_ffn, s_buf);
+    p.b_step = I_ffn;
+    err = launch_gemm(kFfnIn, q[4], m_o1c, m_w3, p, st, planes);
     if (err != cudaSuccess) return err;
   }
-  GemmParams p = gemm_params(q[5], M, C, I, b4, C, out);
+  GemmParams p = gemm_params(q[5], M, C, I_ffn, b4, C, out);
   p.res32 = static_cast<const float*>(out1);
   if (shortcut) {
     p.res = static_cast<const bf16*>(xin);

@@ -8,10 +8,12 @@
 // A block computes BM rows x BN accumulator columns of one stack entry.
 //  * Operands reach shared memory by TMA as boxes of 64 rows x 64 elements
 //    (128 bytes) with the 128-byte swizzle, which is also the layout wgmma
-//    reads (K-major, SW128).  A block's B tile is BN / 64 boxes whose
-//    starting rows are b_row0 + i * b_step: consecutive rows for a plain
-//    product, one box per plane where a block multiplies several weight
-//    planes at once (ffn_in's four j products, b_step = I).
+//    reads (K-major, SW128).  A block's B tile is BN / 64 boxes in runs of
+//    RUN consecutive boxes, run r starting at row b_row0 + r * b_step:
+//    consecutive rows for a plain product (RUN = 1, b_step = 64), one run
+//    per plane where a block multiplies several weight planes at once
+//    (ffn_in's j products, b_step = the plane's rows: UF's four planes of
+//    one box, RUN = 1; RT's two planes of two boxes, RUN = 2).
 //  * Tensor maps are 3-D, (entries, rows, 64-element columns); the entry
 //    is a coordinate, so a tile never reads another entry's rows, and
 //    rows past the end of an entry read as zeros, as do the columns past
@@ -282,8 +284,9 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
 
 // ---------------------------------------------------------------- the core
 
-// What a block multiplies: A rows m0.. of entry a_entry, B boxes at rows
-// b_row0 + i * b_step of entry s, nk steps of depth kBK through a ring of
+// What a block multiplies: A rows m0.. of entry a_entry, B box i at row
+// b_row0 + (i / RUN) * b_step + (i % RUN) * kBoxRows of entry s (RUN: the
+// core's template argument), nk steps of depth kBK through a ring of
 // `stages` stages.
 struct Tile {
   int s, a_entry, m0, b_row0, b_step, nk, stages;
@@ -298,10 +301,12 @@ __device__ __forceinline__ void consumers_sync(int n) {
 // epi(tile, ld, tid, n): tile is the block's BM x BN sums in shared
 // memory, f32, rows ld apart; tid < n numbers the consumer threads, which
 // all call it.  The producer warp returns without calling epi.
-template <int BM, int BN, class Epi>
+template <int BM, int BN, int RUN, class Epi>
 __device__ __forceinline__ void gemm_core(uint64_t map_a, uint64_t map_b,
                                           const Tile& t, const Epi& epi) {
   static_assert(BM == 64 || BM == 128, "BM is 64 or 128");
+  static_assert(RUN >= 1 && (BN / kBoxRows) % RUN == 0,
+                "B's boxes come in whole runs");
   constexpr int kWarpgroups = BM / 64;
   constexpr int kConsumers = 128 * kWarpgroups;
   constexpr int kBoxesB = BN / kBoxRows;
@@ -341,7 +346,8 @@ __device__ __forceinline__ void gemm_core(uint64_t map_a, uint64_t map_b,
 #pragma unroll
         for (int i = 0; i < kBoxesB; ++i)
           tma_load_3d(b + i * kBoxBytes, map_b, &full[st], kb * kBK,
-                      t.b_row0 + i * t.b_step, t.s);
+                      t.b_row0 + (i / RUN) * t.b_step + (i % RUN) * kBoxRows,
+                      t.s);
         if (++st == t.stages) {
           st = 0;
           phase ^= 1;

@@ -2,7 +2,9 @@
 (csrc/fused_dcb.cu, replacing dcvc_tpu/kernels/fused_dcb.py::_dcb_kernel)
 and its plain PyTorch version, in both forms of the TPU kernel: one block
 (`fused_dcb`) and S independent blocks with stacked weights
-(`fused_dcb_stacked`, the DMC-HTS/HTL recon heads).
+(`fused_dcb_stacked`, the DMC-HTS/HTL recon heads).  The one-block form
+also runs DCVC-RT's two-way block, whose FFN sums two planes where UF's
+sums four (`ffn_planes`).
 
 On the card a call is a chain of launches (adaptor, h, dw, dc_out,
 ffn_in, ffn_out; see csrc/fused_dcb.cu), the GEMMs on one wgmma/TMA core.
@@ -20,8 +22,11 @@ importing this module builds nothing.
 
 params use the layout of dcvc_tpu's fused_dcb: optional 'wa'/'ba'
 (adaptor), and 'w1 b1 wd bd w2 b2 w3 b3 w4 b4' with 1x1 kernels
-(Cin, Cout), the dw kernel (3, 3, I) and ffn_in (C, 4I) whose output
-channel c*4 + j belongs to chunk j.  Stacked params carry a leading S.
+(Cin, Cout), the dw kernel (3, 3, I) and ffn_in (C, 4I), whose 4I outputs
+are P chunks of I_ffn = 4I / P summed into ffn_out's I_ffn inputs (w4
+(I_ffn, C)): UF's P = 4 chunks interleaved (output channel c*4 + j
+belongs to chunk j), RT's P = 2 contiguous halves (channel j*I_ffn + c;
+RT's I is C, so I_ffn = 2C).  Stacked params carry a leading S.
 
 No backward: the TPU kernel has none either.  Call under
 torch.inference_mode().
@@ -43,9 +48,23 @@ def wsilu_f32(x):
     return x * torch.sigmoid(4.0 * x)
 
 
+def ffn_planes(params):
+    """P, the number of chunks the FFN's chunk-add sums: ffn_in's outputs
+    (w3 (..., C, P * I_ffn)) over ffn_out's inputs (w4 (..., I_ffn, C));
+    4 for UF's block, 2 for RT's two-way block."""
+    planes = params["w3"].shape[-1] // params["w4"].shape[-2]
+    if planes not in (2, 4) or \
+            params["w3"].shape[-1] != planes * params["w4"].shape[-2]:
+        raise ValueError(f"fused_dcb: ffn_in has {params['w3'].shape[-1]} "
+                         f"outputs for {params['w4'].shape[-2]} inputs of "
+                         f"ffn_out; the chunk-add sums 2 or 4 chunks")
+    return planes
+
+
 def fused_dcb_reference(x, params, shortcut=False):
     """Plain DepthConvBlock (the unfused path of dcvc_tpu's
-    layers/blocks.py DepthConvBlock) in the dtype of x and params."""
+    layers/blocks.py DepthConvBlock, and of its legacy/dcvc_rt.py two-way
+    block) in the dtype of x and params."""
     if "wa" in params:
         x = torch.matmul(x, params["wa"]) + params["ba"]
     inner = params["w1"].shape[-1]
@@ -55,8 +74,13 @@ def fused_dcb_reference(x, params, shortcut=False):
                  groups=inner).permute(0, 2, 3, 1)
     out = torch.matmul(h, params["w2"]) + params["b2"] + x
     f = wsilu_f32(torch.matmul(out, params["w3"]) + params["b3"])
-    # chunk-add: channels (c*4 + j) summed over j
-    f = f.reshape(*f.shape[:-1], inner, 4).sum(dim=-1)
+    if ffn_planes(params) == 4:
+        # chunk-add: channels (c*4 + j) summed over j
+        f = f.reshape(*f.shape[:-1], inner, 4).sum(dim=-1)
+    else:
+        # two-way chunk-add: the contiguous halves summed
+        f1, f2 = f.chunk(2, dim=-1)
+        f = f1 + f2
     out = torch.matmul(f, params["w4"]) + params["b4"] + out
     if shortcut:
         out = out + x
@@ -87,9 +111,10 @@ class KernelOperands(dict):
 def prepare_operands(params):
     """params -> the kernel's operands: contiguous tensors, every matrix
     K-major, (N, K) as a 1x1 conv stores it (wa (C, Cin), w1 (I, C),
-    w2 and w4 (C, I)), and ffn_in regrouped j-major to (..., 4, I, C) (its
-    bias to (..., 4, I)), so that one block multiplies the four chunk
-    planes and sums the chunk-add.  Leading (stack) dims are kept."""
+    w2 (C, I), w4 (C, I_ffn)), and ffn_in regrouped j-major to
+    (..., P, I_ffn, C) (its bias to (..., P, I_ffn)), so that one block
+    multiplies the P chunk planes and sums the chunk-add.  Leading
+    (stack) dims are kept."""
     def kmajor(w):
         return w.transpose(-1, -2).contiguous()
     ops = {k: params[k].contiguous() for k in ("b1", "wd", "bd", "b2", "b4")}
@@ -100,9 +125,14 @@ def prepare_operands(params):
         ops["ba"] = params["ba"].contiguous()
     inner = params["w1"].shape[-1]
     w3, b3 = params["w3"], params["b3"]
-    ops["w3"] = kmajor(w3.reshape(*w3.shape[:-1], inner, 4).movedim(-1, -3))
-    ops["b3"] = b3.reshape(*b3.shape[:-1], inner, 4).movedim(-1, -2) \
-        .contiguous()
+    if ffn_planes(params) == 4:      # UF: output channel c*4 + j
+        ops["w3"] = kmajor(w3.reshape(*w3.shape[:-1], inner, 4)
+                           .movedim(-1, -3))
+        ops["b3"] = b3.reshape(*b3.shape[:-1], inner, 4).movedim(-1, -2) \
+            .contiguous()
+    else:                            # RT: output channel j*I_ffn + c
+        ops["w3"] = kmajor(w3.reshape(*w3.shape[:-1], 2, -1).movedim(-2, -3))
+        ops["b3"] = b3.reshape(*b3.shape[:-1], 2, -1).contiguous()
     return KernelOperands(ops)
 
 
@@ -125,7 +155,7 @@ class K1Launch(NamedTuple):
     """One launch of K1's chain.  A GEMM ('adaptor', 'h', 'dc_out',
     'ffn_in', 'ffn_out') multiplies s entries of (m x k) by (k x n) in
     blocks of bm rows by bn accumulator columns, bn_out of them output
-    columns (ffn_in: four j planes of 64, bn = 256), through a ring of
+    columns (ffn_in: P j planes of 256 / P, bn = 256), through a ring of
     `stages` pipeline stages.  'dw': bm x bn is the pixel tile, bn_out the
     channels of a block (the last block's tail masked), m = H * W, n = I,
     stages 0."""
@@ -168,29 +198,33 @@ def tile_fits(bn, n):
     return n % bn == 0 or n % 64 != 0
 
 
-def _gemm(name, s, m, n, k, tile=None):
+def _gemm(name, s, m, n, k, tile=None, planes=4):
     """BM = 128 with the widest BN <= 128 that fits n (tile_fits) and gives
     at least a wave of blocks (K1_SMS), else BM = 64 likewise, else the
-    most blocks (64 x 64).  ffn_in's blocks are 64 output columns wide
-    (four j planes, 256 accumulators).  A 256-wide tile of the other
-    products leaves room for one block per SM; two 128-wide ones share it
-    and measured faster (`perf_probe tiles`, PERF.md §6).  tile=(bm, bn)
+    most blocks (BM = 64, the narrowest BN).  ffn_in's blocks are 256 /
+    `planes` output columns wide (its P j planes, 256 accumulators; the
+    last tile may have a tail).  A 256-wide tile of the other products
+    leaves room for one block per SM; two 128-wide ones share it and
+    measured faster (`perf_probe tiles`, PERF.md §6).  tile=(bm, bn)
     forces a tile (bn where it is a width the kernel has and fits n, else
-    64)."""
-    widths = (64,) if name == "ffn_in" else (128, 64)
-    pick = (64, 64)
+    the narrowest)."""
+    widths = (256 // planes,) if name == "ffn_in" else (128, 64)
+
+    def fits(bn):
+        return name == "ffn_in" or tile_fits(bn, n)
+    pick = (64, widths[-1])
     if tile is not None:
         bm, bn = tile
-        pick = (bm, bn if bn in widths and tile_fits(bn, n) else 64)
+        pick = (bm, bn if bn in widths and fits(bn) else widths[-1])
     else:
         for bm in (128, 64):
-            fits = [bn for bn in widths if tile_fits(bn, n)
+            wide = [bn for bn in widths if fits(bn)
                     and s * math.ceil(m / bm) * math.ceil(n / bn) >= K1_SMS]
-            if fits:
-                pick = (bm, fits[0])
+            if wide:
+                pick = (bm, wide[0])
                 break
     bm, bn_out = pick
-    bn = 4 * bn_out if name == "ffn_in" else bn_out
+    bn = planes * bn_out if name == "ffn_in" else bn_out
     stages = gemm_stages(bm, bn)
     return K1Launch(name, s, m, n, k, bm, bn, bn_out, stages,
                     (math.ceil(m / bm) * math.ceil(n / bn_out), s, 1),
@@ -198,10 +232,15 @@ def _gemm(name, s, m, n, k, tile=None):
 
 
 @functools.lru_cache(maxsize=None)
-def k1_plan(s, h, w, cin, c, inner, adaptor, tile=None):
+def k1_plan(s, h, w, cin, c, inner, adaptor, tile=None, ffn_inner=None,
+            planes=4):
     """The launches of one call of K1 on s entries of (h, w, cin) with
-    channels c and inner width `inner`, in order.  tile=(bm, bn) forces
-    every GEMM's tile (the card tests)."""
+    channels c and the dc trunk's inner width `inner`, in order; the FFN
+    sums `planes` planes of ffn_inner columns (default 4 * inner /
+    planes, ffn_in's 4I outputs split in P): UF I and 4, RT 2c and 2.
+    tile=(bm, bn) forces every GEMM's tile (the card tests)."""
+    if ffn_inner is None:
+        ffn_inner = 4 * inner // planes
     m = h * w
     th, tw = DW_TILE
     dw = K1Launch("dw", s, m, inner, 9, th, tw, DW_CHANNELS, 0,
@@ -211,8 +250,8 @@ def k1_plan(s, h, w, cin, c, inner, adaptor, tile=None):
     chain = [_gemm("adaptor", s, m, c, cin, tile)] if adaptor else []
     return tuple(chain + [_gemm("h", s, m, inner, c, tile), dw,
                           _gemm("dc_out", s, m, c, inner, tile),
-                          _gemm("ffn_in", s, m, inner, c, tile),
-                          _gemm("ffn_out", s, m, c, inner, tile)])
+                          _gemm("ffn_in", s, m, ffn_inner, c, tile, planes),
+                          _gemm("ffn_out", s, m, c, ffn_inner, tile)])
 
 
 def gemm_block_tile(launch, bx, by):
@@ -244,7 +283,7 @@ def load_kernel():
     """Build (at first use) and bind the CUDA kernel's C entry point."""
     fn = load_library("fused_dcb.cu").dcvc_fused_dcb
     fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -272,9 +311,12 @@ def _launch(x, ops, shortcut, lead, tile=None, keep=None):
                          f"x is on {x.device}")
     nst, hh, ww, cin = x.shape
     cout, inner = ops["w2"].shape[-2], ops["w1"].shape[-2]
-    if min(cin, cout, inner) <= 0 or cin % 16 or cout % 16 or inner % 16:
+    planes, ffn_inner = ops["w3"].shape[-3], ops["w4"].shape[-1]
+    if min(cin, cout, inner, ffn_inner) <= 0 or cin % 16 or cout % 16 \
+            or inner % 16 or ffn_inner % 16:
         raise ValueError(f"fused_dcb: channel counts must be multiples of "
-                         f"16, got Cin={cin} C={cout} I={inner}")
+                         f"16, got Cin={cin} C={cout} I={inner} "
+                         f"I_ffn={ffn_inner}")
     dev = x.device
     if x.dtype != torch.bfloat16 or x.stride()[1:] != (ww * cin, cin, 1) \
             or x.data_ptr() % 16:
@@ -286,15 +328,16 @@ def _launch(x, ops, shortcut, lead, tile=None, keep=None):
         raise ValueError(f"fused_dcb: x's stack stride must be 0 or "
                          f"H*W*Cin, got {x_stride}")
     has_adaptor = "wa" in ops
-    sig = (dev, lead, cin, cout, inner, has_adaptor)
+    sig = (dev, lead, cin, cout, inner, has_adaptor, ffn_inner, planes)
     if getattr(ops, "checked", None) != sig:
         ptrs = _check_operands(ops, sig)
     else:
         ptrs = ops.ptrs
 
-    plan = k1_plan(nst, hh, ww, cin, cout, inner, has_adaptor, tile)
+    plan = k1_plan(nst, hh, ww, cin, cout, inner, has_adaptor, tile,
+                   ffn_inner, planes)
     size, offs = workspace(nst * hh * ww, cout, inner, has_adaptor,
-                           keep is not None)
+                           keep is not None, ffn_inner)
     ws = torch.empty((size,), dtype=torch.uint8, device=dev)
     base = ws.data_ptr()
     at = {name: base + off for name, (off, _, _) in offs.items()}
@@ -302,7 +345,7 @@ def _launch(x, ops, shortcut, lead, tile=None, keep=None):
     err = load_kernel()(
         x.data_ptr(), *ptrs, at.get("xa"), at["h"], at["d"], at["out1"],
         at["out1c"], at.get("s", at["h"]), out.data_ptr(), nst, x_stride,
-        hh, ww, cin, cout, inner, int(bool(shortcut)),
+        hh, ww, cin, cout, inner, ffn_inner, planes, int(bool(shortcut)),
         ctypes.addressof(plan_ints(plan)),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -318,18 +361,18 @@ def _launch(x, ops, shortcut, lead, tile=None, keep=None):
 
 
 @functools.lru_cache(maxsize=None)
-def workspace(pix, cout, inner, adaptor, keep):
+def workspace(pix, cout, inner, adaptor, keep, ffn_inner):
     """The chain's intermediates in one buffer: (bytes, {name: (offset,
     channels, bytes per element)}) for h, d, out1 (f32), out1c, xa (with an
-    adaptor) and, when they are kept, the FFN sum s; otherwise s reuses
-    h's buffer (h is dead once dc_out has run).  Each part starts on a
-    256-byte boundary."""
+    adaptor) and, when they are kept or wider than h (ffn_inner: RT's 2C),
+    the FFN sum s; otherwise s reuses h's buffer (h is dead once dc_out
+    has run).  Each part starts on a 256-byte boundary."""
     parts = [("h", inner, 2), ("d", inner, 2), ("out1", cout, 4),
              ("out1c", cout, 2)]
     if adaptor:
         parts.append(("xa", cout, 2))
-    if keep:
-        parts.append(("s", inner, 2))
+    if keep or ffn_inner > inner:
+        parts.append(("s", ffn_inner, 2))
     offs, size = {}, 0
     for name, ch, width in parts:
         offs[name] = (size, ch, width)
@@ -339,9 +382,12 @@ def workspace(pix, cout, inner, adaptor, keep):
 
 def _check_operands(ops, sig):
     """Raise unless ops are what the kernel takes for the signature
-    (device, lead dims, Cin, C, I, adaptor); return their addresses in
-    WEIGHTS order, and remember both on a KernelOperands."""
-    dev, lead, cin, cout, inner, has_adaptor = sig
+    (device, lead dims, Cin, C, I, adaptor, I_ffn, P); return their
+    addresses in WEIGHTS order, and remember both on a KernelOperands."""
+    dev, lead, cin, cout, inner, has_adaptor, ffn_inner, planes = sig
+    if planes not in (2, 4):
+        raise ValueError(f"fused_dcb: ffn_in has {planes} planes, the "
+                         f"kernel sums 2 or 4")
     if has_adaptor:
         _check("wa", ops["wa"], lead + (cout, cin), dev, 16)
         _check("ba", ops["ba"], lead + (cout,), dev, 8)
@@ -351,8 +397,9 @@ def _check_operands(ops, sig):
             ("w1", (inner, cout), 16), ("b1", (inner,), 8),
             ("wd", (3, 3, inner), 16), ("bd", (inner,), 16),
             ("w2", (cout, inner), 16), ("b2", (cout,), 8),
-            ("w3", (4, inner, cout), 16), ("b3", (4, inner), 8),
-            ("w4", (cout, inner), 16), ("b4", (cout,), 8)):
+            ("w3", (planes, ffn_inner, cout), 16),
+            ("b3", (planes, ffn_inner), 8),
+            ("w4", (cout, ffn_inner), 16), ("b4", (cout,), 8)):
         _check(name, ops[name], lead + shape, dev, align)
     ptrs = tuple(ops[k].data_ptr() if k in ops else None for k in WEIGHTS)
     if isinstance(ops, KernelOperands):

@@ -8,7 +8,9 @@ an NCHW view.  A DepthConvBlock in bfloat16 at batch 1 on the card goes
 through kernels.fused_dcb.fused_dcb, and a StackedDCB through
 fused_dcb_stacked (the hand-written CUDA kernel); every other block, on
 the CPU or in the float32 training forwards, runs the plain PyTorch
-version (`kernel_path`).
+version (`kernel_path`).  DCVC-RT's two-way block (legacy/dcvc_rt.py)
+shares `K1Block` with DepthConvBlock and takes the same route where its
+channel counts are multiples of 16.
 """
 
 import math
@@ -98,32 +100,16 @@ class DepthwiseConv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
 
-class DepthConvBlock(nn.Module):
-    """Depth-conv block (reference DepthConvBlock, layers.py:128-159).
-
-    dc branch:  1x1 -> WSiLU -> dw3x3 -> 1x1, residual.
-    ffn branch: 1x1 (4x inner width) -> WSiLU -> 4-way chunk add -> 1x1,
-                residual.  dcb2 halves the inner width.
-    """
-
-    def __init__(self, in_ch, out_ch, dcb2=False, shortcut=False,
-                 force_adaptor=False):
-        super().__init__()
-        assert not (dcb2 and shortcut)
-        inner = out_ch // (2 if dcb2 else 1)
-        self.shortcut = shortcut
-        self.adaptor = Conv1x1(in_ch, out_ch) \
-            if in_ch != out_ch or force_adaptor else None
-        self.dc = nn.Sequential(Conv1x1(out_ch, inner), WSiLU(),
-                                DepthwiseConv3x3(inner),
-                                Conv1x1(inner, out_ch))
-        self.ffn = nn.Sequential(Conv1x1(out_ch, 4 * inner), WSiLU(),
-                                 Conv1x1(inner, out_ch))
+class K1Block(nn.Module):
+    """A DepthConvBlock's module tree as K1 reads it (`adaptor`, `dc.0/2/3`,
+    `ffn.0/2`), shared by DepthConvBlock and DCVC-RT's two-way block: its
+    weights in the layout of kernels/fused_dcb.py, and the kernel's
+    operands made from them."""
 
     def block_params(self):
         """Weights in the layout of kernels/fused_dcb.py: 1x1 kernels
-        (Cin, Cout), dw kernel (3, 3, I), ffn_in (C, 4I) with output
-        channel c*4 + j."""
+        (Cin, Cout), dw kernel (3, 3, I), ffn_in (C, 4I) as ffn.0 stores
+        it (UF: output channel c*4 + j; RT: j*2C + c)."""
         dw = self.dc[2]
         p = {"w1": self.dc[0].matrix(), "b1": self.dc[0].bias,
              "wd": dw.weight[:, 0].permute(1, 2, 0), "bd": dw.bias,
@@ -144,6 +130,29 @@ class DepthConvBlock(nn.Module):
                 self._ops = prepare_operands(self.block_params())
             self._ops_key = key
         return self._ops
+
+
+class DepthConvBlock(K1Block):
+    """Depth-conv block (reference DepthConvBlock, layers.py:128-159).
+
+    dc branch:  1x1 -> WSiLU -> dw3x3 -> 1x1, residual.
+    ffn branch: 1x1 (4x inner width) -> WSiLU -> 4-way chunk add -> 1x1,
+                residual.  dcb2 halves the inner width.
+    """
+
+    def __init__(self, in_ch, out_ch, dcb2=False, shortcut=False,
+                 force_adaptor=False):
+        super().__init__()
+        assert not (dcb2 and shortcut)
+        inner = out_ch // (2 if dcb2 else 1)
+        self.shortcut = shortcut
+        self.adaptor = Conv1x1(in_ch, out_ch) \
+            if in_ch != out_ch or force_adaptor else None
+        self.dc = nn.Sequential(Conv1x1(out_ch, inner), WSiLU(),
+                                DepthwiseConv3x3(inner),
+                                Conv1x1(inner, out_ch))
+        self.ffn = nn.Sequential(Conv1x1(out_ch, 4 * inner), WSiLU(),
+                                 Conv1x1(inner, out_ch))
 
     def forward(self, x):
         x = x.contiguous()

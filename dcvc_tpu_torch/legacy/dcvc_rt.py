@@ -13,10 +13,14 @@ signal domain is [0, 1] (the reference feeds x / 255), and every
 reconstruction is clamped to it.
 
 RT's DepthConvBlock is not UF's: its FFN chunk-add is two-way (the 4C
-activation's halves summed into 2C lanes of ffn_out), so it is not the
-fused kernel's block.  The JAX package computes it in plain flax, outside
-any Pallas kernel, and the port computes it in plain PyTorch
-(`DepthConvBlockRT`), on the card too.
+activation's halves summed into 2C lanes of ffn_out).  The JAX package
+computes it in plain flax, outside any Pallas kernel.  The port runs it
+through K1 where UF's blocks take it (bfloat16 at batch 1 on the card,
+layers/blocks.py::kernel_path) and its channel counts are multiples of
+16: K1's ffn_in sums two planes of 2C there in place of UF's four of I
+(kernels/fused_dcb.py).  Everywhere else (float32, the training forwards
+at batch > 1, the CPU, the 8-channel z of the tiny configuration) it
+runs as plain PyTorch ops (`DepthConvBlockRT`).
 
 The module tree gives the reference key names that dcvc_tpu's importer
 maps the flax params to (`key_fn_rt`, copied in utils/keys.py):
@@ -41,15 +45,16 @@ from ..core.masks import make_mask_2x
 from ..core.padding import pad_for_y
 from ..core.quant import ste_round
 from ..core.shuffle import pixel_shuffle, pixel_unshuffle
+from ..kernels.fused_dcb import fused_dcb
 from ..layers.blocks import (
-    Conv1x1, Conv2x2Stride2, Conv3x3, DepthwiseConv3x3, SubpelConv2x, WSiLU,
-    lecun_init_,
+    Conv1x1, Conv2x2Stride2, Conv3x3, DepthwiseConv3x3, K1Block,
+    SubpelConv2x, WSiLU, kernel_path, lecun_init_,
 )
 from ..models import common
 from ..models.dmc_ld import Wrap
 from ..runtime.video_codec import VideoCodecBase
 from ..utils.keys import key_fn_rt
-from ..utils.profiling import spanned
+from ..utils.profiling import count, spanned
 
 QP_SHIFT = [0, 8, 4]
 EXTRA_QP = max(QP_SHIFT)
@@ -85,12 +90,13 @@ def shift_qp(qp, fa_idx, qp_num=64):
     return min(qp + QP_SHIFT[fa_idx], qp_num + EXTRA_QP - 1)
 
 
-class DepthConvBlockRT(nn.Module):
+class DepthConvBlockRT(K1Block):
     """RT's DepthConvBlock (DCVC-RT/src/layers/layers.py:65-83): UF's dc
     trunk, and an FFN whose 4C activation is split in two halves that are
     summed into ffn_out's 2C inputs.  The parameters keep UF's names
     (`adaptor`, `dc.0/2/3`, `ffn.0/2`).  Each call is a span `dcb.rt`
-    while torch.profiler is on."""
+    while torch.profiler is on, and each call that runs K1 adds 1 to the
+    counter `dcb.rt.k1`."""
 
     def __init__(self, in_ch, out_ch, shortcut=False, force_adaptor=False):
         super().__init__()
@@ -103,8 +109,19 @@ class DepthConvBlockRT(nn.Module):
         self.ffn = nn.Sequential(Conv1x1(out_ch, 4 * out_ch), WSiLU(),
                                  Conv1x1(2 * out_ch, out_ch))
 
+    def runs_k1(self, x):
+        """True where a call on x goes through K1: UF's kernel_path (bf16,
+        off the CPU, batch 1) and channel counts that are multiples of 16
+        (x's and the block's; the FFN's 2C then is too)."""
+        return kernel_path(x, x.shape[0]) and x.shape[-1] % 16 == 0 \
+            and self.dc[0].weight.shape[0] % 16 == 0
+
     @spanned("dcb.rt")
     def forward(self, x):
+        if self.runs_k1(x):
+            count("dcb.rt.k1", 1)
+            return fused_dcb(x.contiguous(), None, shortcut=self.shortcut,
+                             ops=self._kernel_operands())
         if self.adaptor is not None:
             x = self.adaptor(x)
         h = self.dc[1](self.dc[0](x))

@@ -114,7 +114,9 @@ H, W = 1080, 1920
 class Launch(NamedTuple):
     """The shape of one K1 launch.  kind is 'fused_dcb' (s = 1) or
     'fused_dcb_stacked' (s entries); bcast: the stacked x is one tensor
-    for every entry (a stack stride of 0)."""
+    for every entry (a stack stride of 0); planes: the FFN's chunk-add
+    sums `planes` planes of ffn_inner = 4 * inner / planes (UF's block 4,
+    DCVC-RT's two-way block 2)."""
     kind: str
     s: int
     h: int
@@ -125,12 +127,19 @@ class Launch(NamedTuple):
     adaptor: bool
     shortcut: bool
     bcast: bool
+    planes: int = 4
+
+    @property
+    def ffn_inner(self):
+        return 4 * self.inner // self.planes
 
     def __str__(self):
         stack = "" if self.kind == "fused_dcb" else f" S={self.s}"
+        planes = "" if self.planes == 4 else f" planes={self.planes}"
         return (f"{self.kind}{stack} {self.h}x{self.w} {self.cin}->{self.c} "
                 f"I={self.inner} adaptor={int(self.adaptor)} "
-                f"shortcut={int(self.shortcut)} broadcast_x={int(self.bcast)}")
+                f"shortcut={int(self.shortcut)} broadcast_x={int(self.bcast)}"
+                f"{planes}")
 
 
 class LaunchLog:
@@ -159,16 +168,18 @@ class LaunchLog:
 
     def _recorder(self, fn, kind):
         def launch(x, ops, *args):
-            # K-major operands: w2 (..., C, I), w1 (..., I, C)
+            # K-major operands: w2 (..., C, I), w1 (..., I, C), w3 (..., P,
+            # I_ffn, C)
             c, inner = ops["w2"].shape[-2], ops["w1"].shape[-2]
+            planes = ops["w3"].shape[-3]
             if kind == "fused_dcb":
                 shortcut = bool(args[0]) if args else False
                 key = Launch(kind, 1, *x.shape[1:], c, inner, "wa" in ops,
-                             shortcut, False)
+                             shortcut, False, planes)
             else:
                 s = x.shape[0]
                 key = Launch(kind, s, *x.shape[2:], c, inner, "wa" in ops,
-                             False, s > 1 and x.stride(0) == 0)
+                             False, s > 1 and x.stride(0) == 0, planes)
             if self._cur is None:
                 raise AssertionError(f"K1 launched outside a labelled call: "
                                      f"{key}")
@@ -354,9 +365,10 @@ def rt_stage_launches(intra_cfg, p_cfg, h, w, dtype=torch.bfloat16):
     device, in the codecs' order): the intra model's analysis, prior0,
     prior_step 1-3 and synthesis (RTIntraCodec), and the P model's
     adaptor_i, adaptor_m, analysis, prior0, prior_step, synthesis_feature,
-    reset_feature and recon_frames (DMCRTCodec; its two-way DCBs are not
-    K1's block, so none launches K1).  Returns {stage: Counter of Launch},
-    the P stages prefixed `p.`.  dtype: the codecs' (in float32 every
+    reset_feature and recon_frames (DMCRTCodec; its two-way DCBs launch
+    K1's two-plane form, planes=2, wherever their channel counts are
+    multiples of 16).  Returns {stage: Counter of Launch}, the P stages
+    prefixed `p.`.  dtype: the codecs' (in float32 every
     DCB takes the plain block, as layers/blocks.py kernel_path says)."""
     from .core.padding import get_padding_size
     from .legacy.dcvc_rt import DMCRT
@@ -1164,7 +1176,8 @@ def k1_bound_ms(key):
     all bf16) of one K1 launch of shape `key`.  The bound is the larger."""
     pix = key.h * key.w
     i, c = key.inner, key.c
-    macs = c * i + i * c + 4 * c * i + i * c          # dc_in, dc_out, FFN
+    # dc_in, dc_out, FFN (ffn_out's K is the FFN's inner width)
+    macs = c * i + i * c + 4 * c * i + key.ffn_inner * c
     weights = macs + 9 * i + 2 * i + 4 * i + 3 * c    # + dw kernel, biases
     if key.adaptor:
         macs += key.cin * c
@@ -1189,7 +1202,7 @@ def k1_launch_flops(key):
     ci = key.c * key.inner
     flops = {"k1_h": 2 * pix * ci, "k1_dw": 2 * 9 * pix * key.inner,
              "k1_dc_out": 2 * pix * ci, "k1_ffn_in": 8 * pix * ci,
-             "k1_ffn_out": 2 * pix * ci}
+             "k1_ffn_out": 2 * pix * key.c * key.ffn_inner}
     if key.adaptor:
         flops["k1_adaptor"] = 2 * pix * key.cin * key.c
     return flops
@@ -1288,8 +1301,9 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def random_block(cin, c, inner, adaptor, gen):
-    """DCB weights in fused_dcb layout, lecun-scaled, non-zero biases."""
+def random_block(cin, c, inner, adaptor, gen, planes=4):
+    """DCB weights in fused_dcb layout, lecun-scaled, non-zero biases; the
+    FFN sums `planes` chunks (fused_dcb.ffn_planes)."""
     def w(i, o):
         return torch.randn(i, o, generator=gen) / i ** 0.5
 
@@ -1302,7 +1316,7 @@ def random_block(cin, c, inner, adaptor, gen):
     p["wd"], p["bd"] = torch.randn(3, 3, inner, generator=gen) / 3.0, b(inner)
     p["w2"], p["b2"] = w(inner, c), b(c)
     p["w3"], p["b3"] = w(c, 4 * inner), b(4 * inner)
-    p["w4"], p["b4"] = w(inner, c), b(c)
+    p["w4"], p["b4"] = w(4 * inner // planes, c), b(c)
     return p
 
 
@@ -1311,8 +1325,8 @@ def block_inputs(key, gen, dev):
     Returns (x, params, run, ref): run() goes through the kernel's wrapper,
     ref(x, params) is its plain version."""
     bf = torch.bfloat16
-    blocks = [random_block(key.cin, key.c, key.inner, key.adaptor, gen)
-              for _ in range(key.s)]
+    blocks = [random_block(key.cin, key.c, key.inner, key.adaptor, gen,
+                           key.planes) for _ in range(key.s)]
     if key.kind == "fused_dcb":
         p = {k: v.to(dev, bf) for k, v in blocks[0].items()}
         x = torch.randn(1, key.h, key.w, key.cin, generator=gen).to(dev, bf)
@@ -2136,7 +2150,8 @@ def run_tiles(dev, iters):
                 ms = profile_launches(run)
                 t = cuda_ms(run, iters)
             plan = K1.k1_plan(key.s, key.h, key.w, key.cin, key.c,
-                              key.inner, key.adaptor, tile)
+                              key.inner, key.adaptor, tile, key.ffn_inner,
+                              key.planes)
             tiles = {q.name: (q.bm, q.bn, q.stages) for q in plan}
             print(json.dumps({"shape": str(key), "tile": tile,
                               "plan": tiles, "call_ms": t,

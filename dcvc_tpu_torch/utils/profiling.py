@@ -29,8 +29,9 @@ stage.step, stage.synthesis, stage.final, stage.recon, stage.seed (the
 DPB seed's pad and unshuffle); host copies copy.start, wait.copy;
 entropy entropy.encode, entropy.upload, entropy.decode_z,
 entropy.decode_y; kernels k1.launch, k2.launch; blocks dcb.rt (a call of
-DCVC-RT's two-way DepthConvBlock, which runs as plain ops).  The counter:
-entropy.symbols, the z and y symbols coded by compress_finish.
+DCVC-RT's two-way DepthConvBlock, through K1 or as plain ops).  The
+counters: entropy.symbols, the z and y symbols coded by compress_finish;
+dcb.rt.k1, the dcb.rt calls that ran K1.
 """
 
 import contextlib

@@ -1,7 +1,7 @@
 """The CUDA kernels of the port on the card: K1 (csrc/fused_dcb.cu), one
-block and the stacked form, and K2 (csrc/rans_decode.cu), against their
-plain PyTorch versions (K2 also against the host decoder), and the
-wrappers' refusals.
+block and the stacked form, UF's four-plane FFN and DCVC-RT's two-plane
+one, and K2 (csrc/rans_decode.cu), against their plain PyTorch versions
+(K2 also against the host decoder), and the wrappers' refusals.
 
 Marked `cuda`; each test skips where torch sees no CUDA device.  This file
 imports nothing of JAX, so it also runs on the GPU machine, where
@@ -219,9 +219,35 @@ def test_cuda_chain_launches_match_torch(cuda_device, s, h, w, cin, c,
     of their peak (a bf16 step at the peak is 2^-8), out1 (f32) within
     2^-10 (the same sums in another order); out1c is bf16(out1) exactly,
     and a second run gives the same bits."""
+    _check_chain(cuda_device, s, h, w, cin, c, inner, shortcut, bcast, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,w,cin,c,shortcut,bcast,tile", [
+    (1, 9, 17, 256, 256, False, False, None),
+    (1, 9, 17, 192, 256, False, False, None),      # adaptor
+    (1, 12, 40, 320, 320, False, False, (64, 64)),
+    (1, 6, 9, 128, 128, True, False, (128, 128)),  # shortcut
+    (1, 5, 7, 512, 384, False, False, None),       # adaptor, I_ffn 768
+    (1, 5, 9, 48, 48, False, False, None),         # I_ffn 96 < one plane
+    (1, 7, 13, 368, 368, False, False, None),      # I_ffn 736: a tail
+    (2, 6, 9, 128, 128, False, True, None),        # stacked, one x
+])
+def test_cuda_two_plane_chain_launches_match_torch(cuda_device, s, h, w, cin,
+                                                   c, shortcut, bcast, tile):
+    """The chain of DCVC-RT's two-way block (I = C, ffn_in two 128-wide
+    planes of I_ffn = 2C, ffn_out at K = 2C), each launch against its
+    torch expression as the four-plane chain's are."""
+    _check_chain(cuda_device, s, h, w, cin, c, c, shortcut, bcast, tile,
+                 planes=2)
+
+
+def _check_chain(cuda_device, s, h, w, cin, c, inner, shortcut, bcast, tile,
+                 planes=4):
     gen = torch.Generator().manual_seed(s + h + w + cin)
     bf = torch.bfloat16
-    raw = [random_block(cin, c, inner, cin != c, gen) for _ in range(s)]
+    raw = [random_block(cin, c, inner, cin != c, gen, planes)
+           for _ in range(s)]
     p = {k: torch.stack([b[k] for b in raw]).to(cuda_device, bf)
          for k in raw[0]}
     x = torch.randn(1 if bcast else s, h, w, cin, generator=gen).to(
@@ -261,12 +287,101 @@ def test_cuda_chain_launches_match_torch(cuda_device, s, h, w, cin, c,
     _close("dc_out", keep["out1"], out1, 2 ** -10)
     assert torch.equal(keep["out1c"], keep["out1"].to(bf))
     f = K1.wsilu_f32(mm(keep["out1c"], wts["w3"], wts["b3"]))
-    f = f.reshape(*f.shape[:-1], inner, 4).sum(dim=-1)
+    if planes == 4:
+        f = f.reshape(*f.shape[:-1], inner, 4).sum(dim=-1)
+    else:
+        f1, f2 = f.chunk(2, dim=-1)
+        f = f1 + f2
     _close("ffn_in", keep["s"], f.to(bf), 2 ** -7)
     y = mm(keep["s"], wts["w4"], wts["b4"]) + keep["out1"]
     if shortcut:
         y = y + xin
     _close("ffn_out", out, y.to(bf), 2 ** -7)
+
+
+# DCVC-RT's two-way DCBs at the cell rt_1080p_k2's shapes: the 1/8-scale
+# trunk (C 256, the feature adaptor 192 -> 256), the recon trunk (256 ->
+# 320, 320), the spatial prior at 1/16 (512 -> 384, 384) and the hyper
+# path at 1/32 (C 128, a shortcut)
+RT_TWO_WAY = [
+    (136, 240, 256, 256, False),
+    (136, 240, 192, 256, False),
+    (136, 240, 256, 320, False),
+    (136, 240, 320, 320, False),
+    (68, 120, 512, 384, False),
+    (68, 120, 384, 384, False),
+    (34, 60, 128, 128, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,cin,c,shortcut", RT_TWO_WAY)
+def test_cuda_two_way_block_matches_plain(cuda_device, h, w, cin, c,
+                                          shortcut):
+    """RT's two-way DepthConvBlock in bf16 at batch 1 runs K1's two-plane
+    form (one launch, the same bits on two runs) within 2^-6 of the
+    output's largest magnitude of its plain version in bf16 (the two round
+    at different points, as UF's block)."""
+    from dcvc_tpu_torch.legacy.dcvc_rt import DepthConvBlockRT
+    gen = torch.Generator().manual_seed(h + cin + c)
+    blk = DepthConvBlockRT(cin, c, shortcut=shortcut)
+    blocks.lecun_init_(blk, gen)
+    with torch.no_grad():
+        for p in blk.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    blk = blk.to(cuda_device, torch.bfloat16)
+    x = torch.randn(1, h, w, cin, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
+    with torch.inference_mode():
+        n = K1.fused_dcb.launches
+        out = blk(x)
+        again = blk(x)
+        torch.cuda.synchronize()
+        assert K1.fused_dcb.launches == n + 2
+        ref = K1.fused_dcb_reference(x, blk.block_params(), shortcut)
+    assert torch.equal(out, again)
+    peak = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= peak * 2 ** -6
+
+
+@pytest.mark.cuda
+def test_cuda_rt_frame_runs_every_two_way_block_through_k1(cuda_device):
+    """One 1080p RT P frame in bf16 (RT_CONFIG, encoded then decoded from
+    a seeded DPB, under torch.profiler): every two-way block call runs K1
+    (the counter dcb.rt.k1 equals the dcb.rt spans, and K1's launches
+    grow by as many), and the decoder's DPB equals the encoder's."""
+    from torch.profiler import ProfilerActivity, profile
+    from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, RT_CONFIG
+    from dcvc_tpu_torch.perf_probe import smooth_frame
+    from dcvc_tpu_torch.utils import profiling
+    codec = DMCRTCodec.init_random(
+        torch.Generator().manual_seed(1), cfg=RT_CONFIG, init_scale=0.4,
+        skip_thres=0.15, dtype=torch.bfloat16, device=cuda_device)
+    codec.force_ec = 2
+    seed, frame = (smooth_frame(1080, 1920, i, cuda_device) + 0.5
+                   for i in (5, 6))
+    launches = K1.fused_dcb.launches
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            codec.clear_dpb()
+            codec.add_ref_feature_from_frame(seed)
+            res = codec.compress_sequence([frame], [32])
+            dpb = codec.ref_feature.clone()
+            codec.clear_dpb()
+            codec.add_ref_feature_from_frame(seed)
+            codec.decompress_sequence([res[0]["bit_stream"]], [32], 1080,
+                                      1920, [res[0]["ec_parallel"]])
+            torch.cuda.synchronize()
+        rec = profiling.records()
+    finally:
+        profiling.reset()
+    spans = sum(s[0] == "dcb.rt" for s in rec["spans"])
+    assert spans > 40
+    assert rec["counters"]["dcb.rt.k1"] == spans
+    assert K1.fused_dcb.launches - launches == spans
+    assert torch.equal(codec.ref_feature, dpb)
 
 
 @pytest.mark.cuda

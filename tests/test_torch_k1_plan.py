@@ -12,7 +12,9 @@ takes tail tiles), the blocks of each GEMM cover its S x M x N outputs
 exactly once (so the h launch computes dc_in once per pixel: no halo
 rows), the dw blocks cover every pixel and channel once, and a GEMM with
 at least a wave of 64 x 64 tiles launches at least a wave of blocks.  The
-plans of the 87 shapes that predate the tails are pinned.
+plans of the 87 shapes that predate the tails are pinned.  DCVC-RT's P
+model runs K1's two-plane form (its two-way DCBs, planes=2): its shapes
+are planned here too.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -149,23 +151,25 @@ CARD_TESTS = [
 ]
 
 _LINE = re.compile(r"(\w+)(?: S=(\d+))? (\d+)x(\d+) (\d+)->(\d+) I=(\d+) "
-                   r"adaptor=([01]) shortcut=([01]) broadcast_x=([01])$")
+                   r"adaptor=([01]) shortcut=([01]) broadcast_x=([01])"
+                   r"(?: planes=(\d+))?$")
 
 
 def parse(line):
     """A Launch from its str() (chip_smoke.py's launch log)."""
     m = _LINE.match(line.strip())
-    kind, s, h, w, cin, c, inner, ad, sc, bc = m.groups()
+    kind, s, h, w, cin, c, inner, ad, sc, bc, planes = m.groups()
     return Launch(kind, int(s or 1), int(h), int(w), int(cin), int(c),
-                  int(inner), ad == "1", sc == "1", bc == "1")
+                  int(inner), ad == "1", sc == "1", bc == "1",
+                  int(planes or 4))
 
 
 
-def _rt_shapes():
+def _rt_shapes(sizes=((1080, 1920), (720, 1280))):
     """The distinct K1 shapes of DCVC-RT's codecs on chip_smoke.py's 1080p
     and 720p frames (perf_probe.rt_stage_launches)."""
     shapes = set()
-    for h, w in ((1080, 1920), (720, 1280)):
+    for h, w in sizes:
         for counts in rt_stage_launches(DMCIRTConfig(), RT_CONFIG, h,
                                         w).values():
             shapes.update(counts)
@@ -173,6 +177,8 @@ def _rt_shapes():
 
 
 RT_SHAPES = _rt_shapes()
+# the two-way DCBs of RT's P model at 1080p (the cell rt_1080p_k2's size)
+RT_P_1080P = [k for k in _rt_shapes(((1080, 1920),)) if k.planes == 2]
 SHAPES = ([parse(line) for line in MAIN_PATH] + list(chip_smoke.TEST_SHAPES)
           + CARD_TESTS + [k for k in RT_SHAPES if str(k) not in MAIN_PATH])
 # sha256 of repr() of the 87 MAIN_PATH plans as they were before the tail
@@ -183,7 +189,8 @@ MAIN_PATH_PLANS_SHA256 = \
 
 def plan_of(key):
     return K1.k1_plan(key.s, key.h, key.w, key.cin, key.c, key.inner,
-                      key.adaptor)
+                      key.adaptor, ffn_inner=key.ffn_inner,
+                      planes=key.planes)
 
 
 def test_main_path_list_parses_back():
@@ -198,20 +205,35 @@ def test_main_path_plans_unchanged():
     assert hashlib.sha256(plans).hexdigest() == MAIN_PATH_PLANS_SHA256
 
 
+# K1 launches of each stage of RT's P model: one per two-way DCB it runs
+# (adaptor_m is a 1x1 conv; the extractor runs in analysis, prior0 and
+# synthesis_feature)
+RT_P_STAGE_LAUNCHES = {
+    "p.adaptor_i": 1, "p.adaptor_m": 0, "p.analysis": 12, "p.prior0": 13,
+    "p.prior_step": 2, "p.synthesis_feature": 9, "p.reset_feature": 4,
+    "p.recon_frames": 4}
+
+
 def test_rt_shapes_derived_from_the_model():
     """DCVC-RT's K1 launches: its intra codec's blocks (42 per encode, 32
     per decode, as DMCI's), 8 of them new shapes, every one at C or Cin =
-    368; the P model launches none (its DCBs are the two-way kind)."""
-    new = [str(k) for k in RT_SHAPES if str(k) not in MAIN_PATH]
-    assert len(new) == 8
-    assert all("368" in line for line in new)
+    368, all UF's four-plane form; the P model's two-way DCBs, one launch
+    each of the two-plane form (planes=2), none of UF's."""
+    new = [k for k in RT_SHAPES if str(k) not in MAIN_PATH]
+    intra = [str(k) for k in new if k.planes == 4]
+    assert len(intra) == 8
+    assert all("368" in line for line in intra)
     for h, w in ((1080, 1920), (720, 1280)):
-        n = {k: sum(v.values()) for k, v in rt_stage_launches(
-            DMCIRTConfig(), RT_CONFIG, h, w).items()}
+        stages = rt_stage_launches(DMCIRTConfig(), RT_CONFIG, h, w)
+        n = {k: sum(v.values()) for k, v in stages.items()}
         steps = sum(n[f"prior_step {k}"] for k in (1, 2, 3))
         assert n["analysis"] + n["prior0"] + steps + n["synthesis"] == 42
         assert n["prior0"] + steps + n["synthesis"] == 32
-        assert all(v == 0 for k, v in n.items() if k.startswith("p."))
+        assert {k: v for k, v in n.items() if k.startswith("p.")} == \
+            RT_P_STAGE_LAUNCHES
+        for name, counts in stages.items():
+            assert {k.planes for k in counts} <= \
+                ({2} if name.startswith("p.") else {4}), name
 
 
 @pytest.mark.parametrize("key", [k for k in RT_SHAPES if "368" in str(k)],
@@ -291,7 +313,8 @@ def test_plan_fits_and_covers_once(key):
             continue
         assert q.k % 16 == 0 and q.n % 16 == 0, q
         assert q.n % q.bn_out == 0 or q.n % 64, q   # a tail only past 64s
-        assert q.bn == (4 * q.bn_out if q.name == "ffn_in" else q.bn_out)
+        assert q.bn == (key.planes * q.bn_out if q.name == "ffn_in"
+                        else q.bn_out)
         assert q.bn in ((256,) if q.name == "ffn_in" else (64, 128))
         assert q.smem == K1.gemm_smem(q.bm, q.bn, q.stages)
         assert 2 <= q.stages <= 4
@@ -313,20 +336,25 @@ def test_plan_fits_and_covers_once(key):
         assert area == key.s * m * q.n
     h_launch = plan[names.index("h")]
     assert (h_launch.m, h_launch.n, h_launch.k) == (m, key.inner, key.c)
+    ffn_in, ffn_out = plan[-2], plan[-1]
+    assert (ffn_in.n, ffn_in.k) == (key.ffn_inner, key.c)
+    assert (ffn_out.n, ffn_out.k) == (key.c, key.ffn_inner)
 
 
 @pytest.mark.parametrize("key", SHAPES, ids=str)
 def test_plan_fills_the_card(key):
     """A GEMM with at least a wave of 64 x 64 output tiles launches at
-    least a wave of blocks; BM = 128 wherever that still gives one, with
-    the widest BN (<= 128; ffn_in: four 64-wide planes) that does."""
+    least a wave of blocks (ffn_in of the two-plane form: of 64 x 128
+    tiles); BM = 128 wherever that still gives one, with the widest BN
+    (<= 128; ffn_in: the width of its planes) that does."""
     for q in plan_of(key):
         if q.name == "dw":
             continue
+        narrow = 256 // key.planes if q.name == "ffn_in" else 64
         blocks = q.grid[0] * q.grid[1]
-        if key.s * q.m * q.n >= K1.K1_SMS * 64 * 64:
+        if key.s * q.m * q.n >= K1.K1_SMS * 64 * narrow:
             assert blocks >= K1.K1_SMS, q
-        wide = key.s * math.ceil(q.m / 128) * math.ceil(q.n / 64)
+        wide = key.s * math.ceil(q.m / 128) * math.ceil(q.n / narrow)
         assert (q.bm == 128) == (wide >= K1.K1_SMS), q
         if q.name != "ffn_in" and q.bn == 64 and K1.tile_fits(128, q.n):
             assert key.s * math.ceil(q.m / q.bm) * math.ceil(q.n / 128) \
@@ -377,3 +405,47 @@ def test_192_wide_inner_is_planned(line):
     assert plan["ffn_in"].bn_out == 64
     assert plan["dc_out"].k == plan["ffn_out"].k == 3 * K1.GEMM_BK
     assert plan["dw"].grid[1] == 3
+
+
+def test_rt_1080p_two_way_blocks_are_planned():
+    """Every two-way DCB shape of RT's P model at 1080p takes the
+    two-plane form: ffn_in multiplies two 128-wide planes of I_ffn = 2C
+    (bn 256, bn_out 128, no tail: 2C is 256, 512, 640 or 768), ffn_out
+    runs at K = 2C, and every other launch is the four-plane plan's at
+    the same (C, I = C)."""
+    assert {(k.h, k.w, k.cin, k.c, k.adaptor, k.shortcut)
+            for k in RT_P_1080P} >= {
+        (136, 240, 256, 256, False, False), (136, 240, 192, 256, True, False),
+        (136, 240, 256, 320, True, False), (136, 240, 320, 320, False, False),
+        (68, 120, 512, 384, True, False), (68, 120, 384, 384, False, False),
+        (34, 60, 128, 128, False, True)}
+    for key in RT_P_1080P:
+        assert key.inner == key.c and key.ffn_inner == 2 * key.c
+        plan = {q.name: q for q in plan_of(key)}
+        ffn_in, ffn_out = plan["ffn_in"], plan["ffn_out"]
+        assert (ffn_in.n, ffn_in.k, ffn_in.bn, ffn_in.bn_out) == \
+            (2 * key.c, key.c, 256, 128)
+        assert ffn_in.n % ffn_in.bn_out == 0
+        assert ffn_in.grid[0] == math.ceil(ffn_in.m / ffn_in.bm) * \
+            (2 * key.c // 128)
+        assert ffn_out.k == 2 * key.c
+        uf = {q.name: q for q in K1.k1_plan(key.s, key.h, key.w, key.cin,
+                                            key.c, key.inner, key.adaptor)}
+        for name in plan:
+            if name not in ("ffn_in", "ffn_out"):
+                assert plan[name] == uf[name], name
+        assert ffn_out._replace(k=key.c) == uf["ffn_out"]
+
+
+@pytest.mark.parametrize("key", [k for k in SHAPES if k.planes == 4],
+                         ids=str)
+def test_four_plane_plans_are_the_defaults(key):
+    """UF's plans: k1_plan with the FFN given as I wide in four planes is
+    k1_plan without it, launch for launch (ffn_in four 64-wide planes,
+    ffn_out at K = I)."""
+    plan = plan_of(key)
+    assert plan == K1.k1_plan(key.s, key.h, key.w, key.cin, key.c,
+                              key.inner, key.adaptor)
+    ffn_in = plan[-2]
+    assert (ffn_in.n, ffn_in.bn, ffn_in.bn_out) == (key.inner, 256, 64)
+    assert plan[-1].k == key.inner

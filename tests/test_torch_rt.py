@@ -483,3 +483,128 @@ def test_params_v1_files_both_ways(jax_codec, tmp_path):
     save_native(model, again)
     with open(path, "rb") as a, open(again, "rb") as b:
         assert a.read() == b.read()
+
+
+# ------------------------------------------- the two-way block through K1
+
+
+def _two_way_block(cin, c, shortcut, seed):
+    """A DepthConvBlockRT with seeded lecun weights and non-zero biases."""
+    from dcvc_tpu_torch.layers.blocks import lecun_init_
+    gen = torch.Generator().manual_seed(seed)
+    blk = dcvc_rt.DepthConvBlockRT(cin, c, shortcut=shortcut)
+    lecun_init_(blk, gen)
+    with torch.no_grad():
+        for p in blk.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return blk, gen
+
+
+@pytest.mark.parametrize("cin,c,shortcut", [
+    (32, 32, False), (48, 32, False), (32, 32, True), (192, 256, False),
+    (128, 128, True)])
+def test_two_way_reference_is_the_plain_block(cin, c, shortcut):
+    """kernels/fused_dcb.py::fused_dcb_reference on the block's params
+    (its two-plane form: ffn.0's contiguous halves summed) gives
+    DepthConvBlockRT's plain forward bit for bit, in float32, with and
+    without an adaptor and a shortcut."""
+    from dcvc_tpu_torch.kernels import fused_dcb as K1
+    blk, gen = _two_way_block(cin, c, shortcut, 7)
+    x = torch.randn(1, 9, 13, cin, generator=gen)
+    params = blk.block_params()
+    assert K1.ffn_planes(params) == 2
+    with torch.no_grad():
+        assert torch.equal(K1.fused_dcb_reference(x, params, shortcut),
+                           blk(x))
+
+
+def test_two_way_operands_are_j_major():
+    """prepare_operands of a two-way block: ffn_in as (2, 2C, C), row i of
+    plane j being ffn.0's output channel j*2C + i (its bias likewise),
+    and ffn_out K-major at K = 2C."""
+    from dcvc_tpu_torch.kernels import fused_dcb as K1
+    c = 32
+    blk, _ = _two_way_block(c, c, False, 8)
+    ops = blk._kernel_operands()
+    w3, b3 = blk.ffn[0].weight[:, :, 0, 0], blk.ffn[0].bias
+    assert ops["w3"].shape == (2, 2 * c, c) and ops["b3"].shape == (2, 2 * c)
+    for j in range(2):
+        assert torch.equal(ops["w3"][j], w3[j * 2 * c:(j + 1) * 2 * c])
+        assert torch.equal(ops["b3"][j], b3[j * 2 * c:(j + 1) * 2 * c])
+    assert torch.equal(ops["w4"], blk.ffn[2].weight[:, :, 0, 0])
+    assert ops["w4"].shape == (c, 2 * c)
+    # and the plain FFN on those operands, plane by plane, is the block's
+    out = torch.randn(5, c)
+    planes = sum(K1.wsilu_f32(out @ ops["w3"][j].t() + ops["b3"][j])
+                 for j in range(2))
+    f = K1.wsilu_f32(out @ w3.t() + b3)
+    torch.testing.assert_close(planes, f[:, :2 * c] + f[:, 2 * c:],
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("device,dtype,batch,cin,c,want", [
+    ("meta", torch.bfloat16, 1, 256, 256, True),
+    ("meta", torch.bfloat16, 1, 192, 256, True),     # adaptor
+    ("meta", torch.float32, 1, 256, 256, False),     # float32
+    ("meta", torch.bfloat16, 2, 256, 256, False),    # batch > 1 (training)
+    ("cpu", torch.bfloat16, 1, 256, 256, False),     # the CPU
+    ("meta", torch.bfloat16, 1, 8, 8, False),        # TINY's 8-channel z
+    ("meta", torch.bfloat16, 1, 16, 8, False),       # into 8 channels
+    ("meta", torch.bfloat16, 1, 8, 16, False),       # from 8 channels
+])
+def test_two_way_block_path_choice(device, dtype, batch, cin, c, want):
+    """K1 takes a two-way block where UF's blocks take it (bf16 off the CPU
+    at batch 1: the meta device stands for the card) and its channel
+    counts are multiples of 16; everything else runs the plain ops.  A
+    call that runs K1 launches its two-plane form once, and counts 1 in
+    `dcb.rt.k1` inside its `dcb.rt` span; one that does not counts
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from dcvc_tpu_torch.perf_probe import LaunchLog, meta_launches
+    from dcvc_tpu_torch.utils import profiling
+    with torch.device(device):
+        blk = dcvc_rt.DepthConvBlockRT(cin, c).to(dtype)
+        x = torch.zeros(batch, 4, 8, cin, dtype=dtype)
+    assert blk.runs_k1(x) == want
+    log = LaunchLog()
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]), meta_launches(), \
+                log, log.call("block"), torch.no_grad():
+            out = blk(x)
+        rec = profiling.records()
+    finally:
+        profiling.reset()
+    assert out.shape == (batch, 4, 8, c) and out.dtype == dtype
+    # (meta_launches' stand-in for the launch opens no k1.launch span)
+    assert [s[0] for s in rec["spans"]] == ["dcb.rt"]
+    assert rec["counters"].get("dcb.rt.k1", 0) == int(want)
+    launches = dict(log.calls)["block"]
+    assert sum(launches.values()) == int(want)
+    assert all(k.planes == 2 and k.inner == c for k in launches)
+
+
+def test_two_way_counter_is_zero_on_the_cpu():
+    """A bf16 RT P frame on the CPU (TINY_RT_CONFIG) runs every two-way
+    block plain: `dcb.rt` spans, no `dcb.rt.k1` count and no K1 launch."""
+    from torch.profiler import ProfilerActivity, profile
+    from dcvc_tpu_torch.kernels import fused_dcb as K1
+    from dcvc_tpu_torch.utils import profiling
+    codec = DMCRTCodec.init_random(torch.Generator().manual_seed(3),
+                                   cfg=TINY_RT_CONFIG, init_scale=0.4,
+                                   dtype=torch.bfloat16, device="cpu")
+    frame = torch.from_numpy(_rand((1, 64, 64, 3), 5, 0.0, 1.0))
+    launches = K1.fused_dcb.launches
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            codec.clear_dpb()
+            codec.add_ref_feature_from_frame(frame)
+            codec.compress_sequence([frame], [5])
+        rec = profiling.records()
+    finally:
+        profiling.reset()
+    assert sum(s[0] == "dcb.rt" for s in rec["spans"]) > 20
+    assert rec["counters"].get("dcb.rt.k1", 0) == 0
+    assert K1.fused_dcb.launches == launches
