@@ -57,22 +57,21 @@ every K2 launch's inputs:
     init_scale 0.4, lifted so that symbols are coded:
     perf_probe.lifted_legacy_intra): the bytes written and decoded back
     bit-exact, two encodes equal, the warm 1080p encode and decode timed;
-    their blocks are not K1's, so this part launches no kernel (derived
-    from the models on the meta device, perf_probe.legacy_intra_launches);
+    float32, no K1Block: no launch (NO_LAUNCHES at every counted call, as
+    in each legacy part below);
   - DCVC-FM (float32, RGB in [0, 1]): DMCFMCodec at FM_CONFIG with
     seeded weights at init_scale 0.4, lifted so that y, mv and z symbols
     are coded (perf_probe.lifted_fm), its DPB seeded by the IntraNoAR
     codec of the part before: 3 P frames at 1080p and 2 at 720p, fa_idx
     from INDEX_MAP_FM, at q_index 12 and 51, each sequence encoded twice
     (the same bytes) and decoded bit-exact with equal final DPBs, the warm
-    1080p P frame timed; its blocks are LeakyReLU FFNs and it decodes on
-    the host, so it launches no kernel (perf_probe.fm_stage_launches);
+    1080p P frame timed; float32, no K1Block: no launch;
   - DCVC-HEM and DCVC-DC (float32, RGB in [0, 1]): DMCHEMCodec at
     HEM_CONFIG and DMCDCCodec at DC_CONFIG, lifted as FM's
     (perf_probe.lifted_hem, lifted_dc), the same cases, q indexes and
     checks as DCVC-FM's part (HEM at the q scales of the family runner's
-    ladders, DC's fa_idx from INDEX_MAP_DC); neither launches a kernel
-    (perf_probe.hem_stage_launches, dc_stage_launches);
+    ladders, DC's fa_idx from INDEX_MAP_DC); float32, no K1Block: no
+    launch;
   - the CompressAI intra codecs and DCVC-2021 (float32, RGB in [0, 1],
     seeded weights lifted so that symbols are coded:
     perf_probe.lifted_compressai, lifted_dcvc): Cheng2020Codec at
@@ -81,15 +80,14 @@ every K2 launch's inputs:
     cheng2020's reconstruction, each decoded bit-exact (the final
     reference frame too); each call's wall time split into the host AR
     loop (with its us per latent position), the host rANS coder and the
-    rest (HostClock); no kernel launched
-    (perf_probe.compressai_stage_launches, dcvc_stage_launches);
+    rest (HostClock); float32, no K1Block: no launch;
   - DCVC-TCM (float32, TF32 off, RGB in [0, 1], seeded weights lifted so
     that symbols are coded: perf_probe.lifted_tcm): DMCTCMCodec at
     TCM_CONFIG, its DPB seeded by the bmshj2018 codec's reconstruction: 3
     P frames at 1080p and 2 at 720p, encoded twice (the same bytes) and
     decoded bit-exact with equal final DPBs (frame and feature), the warm
     1080p P frame timed and split into the host rANS coder and the rest;
-    no kernel launched (perf_probe.tcm_stage_launches);
+    float32, no K1Block: no launch;
   - training (perf_probe.TRAIN_CELLS): steps of the full-width trainers,
     float32, TF32 off: DMCI at batch 4 on 256x256 patches, LD at its
     stage0 shape (1 + 1 frames, batch 4), HTS at its stage1 shape (1 + 8
@@ -274,10 +272,8 @@ from dcvc_tpu_torch.legacy.rt_intra import DMCIRTConfig
 from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     LaunchLog, block_inputs, cuda_ms, k1_bound_ms, k1_launch_flops, \
     k2_clock_summary, k2_fixtures, k2_lane_escapes, k2_lane_sizes, \
-    k2_latency_bound_ms, ld_stage_launches, legacy_intra_launches, \
-    dc_p_codec, dc_stage_launches, fm_p_codec, fm_stage_launches, \
-    hem_p_codec, hem_q_scales, hem_stage_launches, lifted_legacy_intra, \
-    compressai_stage_launches, dcvc_p_codec, dcvc_stage_launches, \
+    k2_latency_bound_ms, ld_stage_launches, dc_p_codec, fm_p_codec, \
+    hem_p_codec, hem_q_scales, lifted_legacy_intra, dcvc_p_codec, \
     lifted_compressai, \
     launch_counts, make_sequence, max_sm_clock_mhz, no_sync, nvidia_smi, \
     p_frame_calls, pipeline_cases, profile_launches, run_k2_case, \
@@ -285,7 +281,7 @@ from dcvc_tpu_torch.perf_probe import K1_GEMMS, K1_KERNELS, K2Log, Launch, \
     rt_stage_launches, same, sass_counts, smooth_frame, \
     spatial_dmci_launches, \
     TRAIN_CELLS, TRAIN_INIT_SCALE, TRAIN_LAMBDAS, TRAIN_LR, damped_model, \
-    tcm_p_codec, tcm_stage_launches, train_setup, uf_call_launches
+    tcm_p_codec, train_setup, uf_call_launches
 from dcvc_tpu_torch.runtime.compressai_codec import Cheng2020Codec, \
     HyperpriorCodec
 from dcvc_tpu_torch.runtime.evc_codec import EVCCodec, IntraNoARCodec
@@ -387,6 +383,11 @@ RT_CASES = [(1080, 1920, 32, 13, 7), (720, 1280, 32, 14, 2)]
 RT_FORCE_EC = 2
 RT_K2_LAUNCHES = 3
 RT_FAMILY_FRAMES = 6
+# (S = 1, stacked, K2) launches of every counted call of a legacy codec
+# (EVC, IntraNoAR, DCVC-FM, -HEM, -DC, -TCM, -2021, cheng2020,
+# bmshj2018): float32, no K1Block, no K2 path
+# (tests/test_torch_layers.py::test_legacy_models_launch_no_kernel)
+NO_LAUNCHES = (0, 0, 0)
 # the legacy intra codecs (RGB in [0, 1], float32, the weights of
 # perf_probe.lifted_legacy_intra): (name, codec class, config, seed,
 # sizes), each size at the two q_scales of tests/test_evc_codec.py; the
@@ -1554,17 +1555,6 @@ def phase_stages_legacy(name, codec):
                              f"{bad}")
 
 
-def legacy_launches(cls, cfg, h, w):
-    """(S = 1, stacked, K2) launches of one encode and of one decode of a
-    legacy intra codec, from the model on the meta device
-    (perf_probe.legacy_intra_launches): its blocks are not K1's and its
-    decode has no device path, so none."""
-    n = {k: sum(v.values())
-         for k, v in legacy_intra_launches(cls.MODEL_CLS, cfg, h, w).items()}
-    decode = n["prior"] + n["spatial"] + n["synthesis"]
-    return (n["analysis"] + decode, 0, 0), (decode, 0, 0)
-
-
 def psnr01(x_hat, x):
     """PSNR in dB of a [0, 1] reconstruction against its [0, 1] source."""
     mse = torch.mean((x_hat.float() - x.float()) ** 2).item()
@@ -1579,26 +1569,23 @@ def phase_legacy_intra(dev, launch_log, codecs):
     bytes.  At 1080p the warm encode and decode of EVC and IntraNoAR are
     timed (median of LEGACY_TIMED calls each, host clock, synchronised:
     an encode ends with the host rANS coder, a decode with its x_hat on
-    the card), with bpp and PSNR.  Returns the (S = 1, stacked, K2)
-    launches derived for it (none)."""
+    the card), with bpp and PSNR.  Float32, no K1Block: no launch."""
     t0 = time.perf_counter()
     root = scratch_dir("legacy")
-    derived = [0, 0, 0]
     try:
-        for name, cls, cfg, seed, sizes in LEGACY_CODECS:
+        for name, _, _, seed, sizes in LEGACY_CODECS:
             codec = codecs[name]
             for h, w in sizes:
-                enc_n, dec_n = legacy_launches(cls, cfg, h, w)
                 x = smooth_frame(h, w, seed + h, dev) + 0.5
                 for qs in LEGACY_Q_SCALES:
                     label = f"legacy {name} {w}x{h} q_scale {qs}"
                     res, enc_ms, *n = counted(
                         launch_log, f"{label} encode",
                         lambda: codec.compress(x, qs))
-                    expect(f"{label} encode", tuple(n), enc_n)
+                    expect(f"{label} encode", tuple(n), NO_LAUNCHES)
                     again, _, *n = counted(launch_log, f"{label} encode 2",
                                            lambda: codec.compress(x, qs))
-                    expect(f"{label} encode 2", tuple(n), enc_n)
+                    expect(f"{label} encode 2", tuple(n), NO_LAUNCHES)
                     path = os.path.join(root, "frame.bin")
                     with open(path, "wb") as f:
                         f.write(res["bit_stream"])
@@ -1607,9 +1594,7 @@ def phase_legacy_intra(dev, launch_log, codecs):
                     out, dec_ms, *n = counted(
                         launch_log, f"{label} decode",
                         lambda: codec.decompress(stream, qs, h, w))
-                    expect(f"{label} decode", tuple(n), dec_n)
-                    for i in range(3):
-                        derived[i] += 2 * enc_n[i] + dec_n[i]
+                    expect(f"{label} decode", tuple(n), NO_LAUNCHES)
                     if again["bit_stream"] != res["bit_stream"] \
                             or not torch.equal(out["x_hat"], res["x_hat"]) \
                             or out["x_hat"].shape != (1, h, w, 3):
@@ -1628,14 +1613,12 @@ def phase_legacy_intra(dev, launch_log, codecs):
                     res, ms, *n = counted(launch_log, f"{name} timed encode",
                                           lambda: codec.compress(x, qs))
                     times["encode"].append(ms)
-                    expect(f"{name} timed encode", tuple(n), enc_n)
+                    expect(f"{name} timed encode", tuple(n), NO_LAUNCHES)
                     out, ms, *n = counted(
                         launch_log, f"{name} timed decode",
                         lambda: codec.decompress(res["bit_stream"], qs, h, w))
                     times["decode"].append(ms)
-                    expect(f"{name} timed decode", tuple(n), dec_n)
-                    for i in range(3):
-                        derived[i] += enc_n[i] + dec_n[i]
+                    expect(f"{name} timed decode", tuple(n), NO_LAUNCHES)
                 log(f"legacy {name} 1920x1080 q_scale {qs} warm: "
                     f"encode_ms={statistics.median(times['encode'])} "
                     f"decode_ms={statistics.median(times['decode'])} "
@@ -1647,7 +1630,6 @@ def phase_legacy_intra(dev, launch_log, codecs):
     log(f"legacy intra: {len(LEGACY_CODECS)} codecs, every round trip "
         f"bit-exact and repeatable, no kernel launched "
         f"({time.perf_counter() - t0:.3f} s)")
-    return tuple(derived)
 
 
 # ---------------------------------------------------------------- DCVC-FM
@@ -1771,30 +1753,6 @@ def phase_stages_hem(codec):
     report_stages("HEM", f"q index {q}", out)
 
 
-def p_frame_launches(name, h, w):
-    """{"first" / "later": ((S = 1, stacked, K2) launches of one P-frame
-    encode, of one decode), "... forward": those of the eval forward} of
-    a legacy P codec (`name`: FM, HEM, DC or TCM) on an (h, w) frame, from
-    the model on the meta device (perf_probe.fm_stage_launches,
-    hem_stage_launches, dc_stage_launches, tcm_stage_launches): their
-    blocks are not K1's and they decode on the host, so none."""
-    derive, cfg = {"FM": (fm_stage_launches, FM_CONFIG),
-                   "HEM": (hem_stage_launches, HEM_CONFIG),
-                   "DC": (dc_stage_launches, DC_CONFIG),
-                   "TCM": (tcm_stage_launches, TCM_CONFIG)}[name]
-    n = {k: sum(v.values()) for k, v in derive(cfg, h, w).items()}
-    out = {}
-    for which in ("first", "later"):
-        stages = {k.split(" ", 1)[1]: v for k, v in n.items()
-                  if k.startswith(which)}
-        forward = stages.pop("forward")
-        decode = sum(v for k, v in stages.items() if "analysis" not in k)
-        out[which] = ((decode + stages["mv_analysis"]
-                       + stages["ctx_analysis"], 0, 0), (decode, 0, 0))
-        out[f"{which} forward"] = (forward, 0, 0)
-    return out
-
-
 def phase_p_frames(name, intra, pcodec, dev, launch_log):
     """A legacy P codec on the card (`name`: FM, HEM or DC; full published
     widths, float32; perf_probe.p_frame_calls: FM's and DC's fa_idx from
@@ -1806,34 +1764,27 @@ def phase_p_frames(name, intra, pcodec, dev, launch_log):
     size (1080p) the warm encode and decode of the third P frame are timed
     (median of FM_TIMED calls each, host clock, synchronised: an encode
     ends with the host rANS coder, a decode with its x_hat on the card).
-    Returns the (S = 1, stacked, K2) launches derived for it (none)."""
+    Float32, no K1Block: no launch."""
     t0 = time.perf_counter()
-    derived = [0, 0, 0]
     _, encode_fn, decode_fn, _ = p_frame_calls(name)
 
-    def run(label, want, fn):
+    def run(label, fn):
         out, ms, *n = counted(launch_log, label, fn)
-        expect(label, tuple(n), want)
-        for i in range(3):
-            derived[i] += want[i]
+        expect(label, tuple(n), NO_LAUNCHES)
         return out, ms
 
     for h, w, seed, n_p in FM_CASES:
-        launches = p_frame_launches(name, h, w)
-        i_enc = legacy_launches(IntraNoARCodec, INTRA_NOAR_CONFIG, h, w)[0]
         frames = [f + 0.5 for f in make_sequence(h, w, n_p + 1, seed, dev)]
-        seed_frame = run(f"{name} {w}x{h} intra frame", i_enc,
+        seed_frame = run(f"{name} {w}x{h} intra frame",
                          lambda: intra.compress(frames[0], FM_I_Q_SCALE)
                          )[0]["x_hat"]
 
         def encode(label, q, i):
-            which = "first" if i == 1 else "later"
-            return run(f"{label} frame {i} encode", launches[which][0],
+            return run(f"{label} frame {i} encode",
                        lambda: encode_fn(pcodec, frames[i], i, q))
 
         def decode(label, q, i, stream):
-            which = "first" if i == 1 else "later"
-            return run(f"{label} frame {i} decode", launches[which][1],
+            return run(f"{label} frame {i} decode",
                        lambda: decode_fn(pcodec, stream, i, q, h, w))
 
         for q in FM_Q_INDEXES:
@@ -1891,28 +1842,6 @@ def phase_p_frames(name, intra, pcodec, dev, launch_log):
     log(f"DCVC-{name}: every P frame bit-exact, final DPBs equal, encodes "
         f"repeatable, no kernel launched "
         f"({time.perf_counter() - t0:.3f} s)")
-    return tuple(derived)
-
-
-def family_launches(name, frames, fast, h=FM_FAMILY_H, w=FM_FAMILY_W):
-    """(S = 1, stacked, K2) launches of one family_main run of a legacy P
-    codec (`name`: FM, HEM or DC; `frames` frames, gop 4: I P P P I P,
-    2 rates), from the models on the meta device (none); --fast: the
-    intra encodes and the eval forwards, at the size padded to 64."""
-    if fast:
-        h, w = -(-h // 64) * 64, -(-w // 64) * 64
-    launches = p_frame_launches(name, h, w)
-    i_enc, i_dec = legacy_launches(IntraNoARCodec, INTRA_NOAR_CONFIG, h, w)
-    per_rate = [0, 0, 0]
-    for i in range(frames):
-        which = "first" if i % 4 == 1 else "later"
-        if fast:
-            parts = [i_enc] if i % 4 == 0 else [launches[f"{which} forward"]]
-        else:
-            parts = [i_enc, i_dec] if i % 4 == 0 else launches[which]
-        for n in parts:
-            per_rate = [a + b for a, b in zip(per_rate, n)]
-    return tuple(2 * n for n in per_rate)   # 2 rates
 
 
 def phase_fm_family(dev, launch_log):
@@ -1924,12 +1853,10 @@ def phase_fm_family(dev, launch_log):
     bpp > 0, the frame types I P P P I P, and the second run's .bin bytes
     and JSON numbers those of the first.  Then once with --fast (the
     estimated-bits mode): exit 0, finite bpp and PSNRs, the same frame
-    types.  Returns the (S = 1, stacked, K2) launches derived for it."""
+    types.  Float32, no K1Block: no launch."""
     t0 = time.perf_counter()
     root = scratch_dir("fm_family")
     types = [0, 1, 1, 1, 0, 1]
-    want, want_fast = (family_launches("FM", FM_FAMILY_FRAMES, fast)
-                       for fast in (False, True))
     try:
         cfg_path, seq = write_cli_inputs(root, dev, FM_FAMILY_FRAMES, 16, 4,
                                          FM_FAMILY_H, FM_FAMILY_W)
@@ -1943,8 +1870,7 @@ def phase_fm_family(dev, launch_log):
                 argv.append("--fast")
             code, ms, *got = counted(launch_log, f"FM family_main {run}",
                                      lambda: family_main.main(argv))
-            expect(f"FM family_main {run}", tuple(got),
-                   want_fast if run == "fast" else want)
+            expect(f"FM family_main {run}", tuple(got), NO_LAUNCHES)
             with open(os.path.join(root, f"{run}.json")) as f:
                 result = json.load(f)["results"]
             bins = {}
@@ -1980,7 +1906,6 @@ def phase_fm_family(dev, launch_log):
             f"({time.perf_counter() - t0:.3f} s)")
     finally:
         shutil.rmtree(root)
-    return tuple(2 * a + b for a, b in zip(want, want_fast))
 
 
 def phase_family_hem_dc(dev, launch_log):
@@ -1991,13 +1916,12 @@ def phase_family_hem_dc(dev, launch_log):
     frames, gop 4, 2 rates: exit code 0 (every frame bit-exact), one
     container file per frame, finite PSNRs, bpp > 0, the frame types I P P
     P.  Then --model hem --fast (the estimated-bits mode): exit 0, finite
-    bpp and PSNRs, the same frame types, no stream written.  Returns the
-    (S = 1, stacked, K2) launches derived for it."""
+    bpp and PSNRs, the same frame types, no stream written.  Float32, no
+    K1Block: no launch."""
     t0 = time.perf_counter()
     root = scratch_dir("hem_dc_family")
     n = HEM_DC_FAMILY_FRAMES
     types = [0 if i % 4 == 0 else 1 for i in range(n)]
-    total = [0, 0, 0]
     try:
         cfg_path, seq = write_cli_inputs(root, dev, n, 17, 4, FM_FAMILY_H,
                                          FM_FAMILY_W)
@@ -2008,12 +1932,10 @@ def phase_family_hem_dc(dev, launch_log):
             argv = ["--model", model, "--test_config", cfg_path, "--gop",
                     "4", "--rate_num", "2", "--stream_path", out_dir,
                     "--output_path", out_json] + (["--fast"] if fast else [])
-            want = family_launches(model.upper(), n, fast)
             label = f"{model.upper()} family_main{' --fast' if fast else ''}"
             code, ms, *got = counted(launch_log, label,
                                      lambda: family_main.main(argv))
-            expect(label, tuple(got), want)
-            total = [a + b for a, b in zip(total, want)]
+            expect(label, tuple(got), NO_LAUNCHES)
             with open(out_json) as f:
                 result = json.load(f)["results"]["Smoke"][seq]
             files = sorted(os.listdir(out_dir))
@@ -2038,7 +1960,6 @@ def phase_family_hem_dc(dev, launch_log):
             f"frame; HEM --fast finite ({time.perf_counter() - t0:.3f} s)")
     finally:
         shutil.rmtree(root)
-    return tuple(total)
 
 
 # -------------------------------- the CompressAI intra codecs, DCVC-2021
@@ -2053,30 +1974,6 @@ def compressai_codecs(dev):
     return {name: cls(lifted_compressai(name, cfg, COMPRESSAI_SEEDS[name])
                       .state_dict(), cfg=cfg, device=dev)
             for name, (cls, cfg) in COMPRESSAI_CODECS.items()}
-
-
-def compressai_launches(name, h, w):
-    """(S = 1, stacked, K2) launches of one encode and of one decode of a
-    CompressAI codec on an (h, w) image, from the model on the meta device
-    (perf_probe.compressai_stage_launches): its blocks are not K1's and it
-    decodes on the host, so none."""
-    cls, cfg = COMPRESSAI_CODECS[name]
-    n = {k: sum(v.values()) for k, v in
-         compressai_stage_launches(cls.MODEL_CLS, cfg, h, w).items()}
-    decode = n["h_s"] + n["g_s"]
-    return (n["g_a"] + n["h_a"] + decode, 0, 0), (decode, 0, 0)
-
-
-def dcvc_launches(h, w):
-    """(S = 1, stacked, K2) launches of one DCVC P-frame encode, of one
-    decode, and of one eval forward (perf_probe.dcvc_stage_launches):
-    none."""
-    n = {k: sum(v.values())
-         for k, v in dcvc_stage_launches(DCVC_CONFIG, h, w).items()}
-    decode = n["mv_prior"] + n["mv_synthesis"] + n["ctx_prior"] \
-        + n["synthesis"]
-    return ((decode + n["mv_analysis"] + n["ctx_analysis"], 0, 0),
-            (decode, 0, 0), (n["forward"], 0, 0))
 
 
 def phase_stages_compressai_dcvc(compressai, dcvc):
@@ -2212,29 +2109,24 @@ def phase_compressai_dcvc(dev, launch_log, compressai, dcvc):
     reference (every x_hat and the final reference frame bit for bit).
     Each call's wall time is split (HostClock) into the host AR loop (and
     its us per latent position), the host rANS coder, and the rest (the
-    device stages and glue).  Returns the (S = 1, stacked, K2) launches
-    derived for it (none)."""
+    device stages and glue).  Float32, no K1Block: no launch."""
     t0 = time.perf_counter()
     h, w, seed = DCVC_CASE
     frames = [f + 0.5 for f in make_sequence(h, w, DCVC_P_FRAMES + 1, seed,
                                              dev)]
-    derived = [0, 0, 0]
 
-    def run(label, want, codec, fn):
+    def run(label, codec, fn):
         with HostClock([codec]) as clock:
             out, ms, *n = counted(launch_log, label, fn)
-        expect(label, tuple(n), want)
-        for i in range(3):
-            derived[i] += want[i]
+        expect(label, tuple(n), NO_LAUNCHES)
         log(f"{label}: {clock.line(ms)}")
         return out
 
     seed_frame = None
     for name, codec in compressai.items():
-        enc_n, dec_n = compressai_launches(name, h, w)
-        res = run(f"{name} {w}x{h} encode", enc_n, codec,
+        res = run(f"{name} {w}x{h} encode", codec,
                   lambda: codec.compress(frames[0]))
-        out = run(f"{name} {w}x{h} decode", dec_n, codec,
+        out = run(f"{name} {w}x{h} decode", codec,
                   lambda: codec.decompress(res["y_string"], res["z_string"],
                                            h, w))
         if out["x_hat"].shape != (1, h, w, 3) or not torch.equal(
@@ -2247,16 +2139,15 @@ def phase_compressai_dcvc(dev, launch_log, compressai, dcvc):
             f"{nvidia_smi()}")
         if name == "cheng2020":
             seed_frame = res["x_hat"]
-    enc_n, dec_n, _ = dcvc_launches(h, w)
     dcvc.set_ref_frame(seed_frame)
-    encoded = [run(f"DCVC {w}x{h} P frame {i} encode", enc_n, dcvc,
+    encoded = [run(f"DCVC {w}x{h} P frame {i} encode", dcvc,
                    lambda i=i: dcvc.compress(frames[i]))
                for i in range(1, DCVC_P_FRAMES + 1)]
     enc_ref = dcvc.ref_frame
     dcvc.set_ref_frame(seed_frame)
     strings = ("mv_y_string", "mv_z_string", "y_string", "z_string")
     for i, res in enumerate(encoded, 1):
-        out = run(f"DCVC {w}x{h} P frame {i} decode", dec_n, dcvc,
+        out = run(f"DCVC {w}x{h} P frame {i} decode", dcvc,
                   lambda res=res: dcvc.decompress(
                       *[res[k] for k in strings], h, w))
         if not torch.equal(out["x_hat"], res["x_hat"]):
@@ -2271,7 +2162,6 @@ def phase_compressai_dcvc(dev, launch_log, compressai, dcvc):
         f"; every decode bit-exact, final reference equal")
     log(f"CompressAI / DCVC-2021: bit-exact, no kernel launched "
         f"({time.perf_counter() - t0:.3f} s)")
-    return tuple(derived)
 
 
 def phase_family_dcvc(dev, launch_log):
@@ -2282,28 +2172,15 @@ def phase_family_dcvc(dev, launch_log):
     DCVC_FAMILY_FRAMES frames, gop 4, one rate: exit code 0 (every frame
     bit-exact), one container file per frame, finite PSNRs, bpp > 0, the
     frame types I P P P.  Then --fast: exit 0, finite bpp and PSNRs, no
-    stream written.  Returns the (S = 1, stacked, K2) launches derived for
-    it (none)."""
+    stream written.  Float32, no K1Block: no launch."""
     t0 = time.perf_counter()
     root = scratch_dir("dcvc_family")
     n = DCVC_FAMILY_FRAMES
     types = [0 if i % 4 == 0 else 1 for i in range(n)]
-    total = [0, 0, 0]
     try:
         cfg_path, seq = write_cli_inputs(root, dev, n, 18, 4, FM_FAMILY_H,
                                          FM_FAMILY_W)
         for fast in (False, True):
-            h, w = FM_FAMILY_H, FM_FAMILY_W
-            if fast:
-                h, w = -(-h // 64) * 64, -(-w // 64) * 64
-            i_enc, i_dec = compressai_launches("cheng2020", h, w)
-            p_enc, p_dec, fwd = dcvc_launches(h, w)
-            want = [0, 0, 0]
-            for i in range(n):
-                parts = ([i_enc] if fast else [i_enc, i_dec]) if i % 4 == 0 \
-                    else ([fwd] if fast else [p_enc, p_dec])
-                for part in parts:
-                    want = [a + b for a, b in zip(want, part)]
             out_dir = os.path.join(root, "fast" if fast else "coded")
             out_json = out_dir + ".json"
             argv = ["--model", "dcvc", "--test_config", cfg_path, "--gop",
@@ -2312,8 +2189,7 @@ def phase_family_dcvc(dev, launch_log):
             label = f"DCVC family_main{' --fast' if fast else ''}"
             code, ms, *got = counted(launch_log, label,
                                      lambda: family_main.main(argv))
-            expect(label, tuple(got), tuple(want))
-            total = [a + b for a, b in zip(total, want)]
+            expect(label, tuple(got), NO_LAUNCHES)
             with open(out_json) as f:
                 result = json.load(f)["results"]["Smoke"][seq]
             files = sorted(os.listdir(out_dir))
@@ -2338,7 +2214,6 @@ def phase_family_dcvc(dev, launch_log):
             f"--fast finite ({time.perf_counter() - t0:.3f} s)")
     finally:
         shutil.rmtree(root)
-    return tuple(total)
 
 
 # ------------------------------------------------------------------ DCVC-TCM
@@ -2405,35 +2280,28 @@ def phase_tcm(dev, launch_log, intra, pcodec):
     feature) are equal.  At 1080p the warm encode and decode of the third
     P frame (the DPB holding a feature) are timed (median of TCM_TIMED
     calls each, host clock, synchronised), each split into the host rANS
-    coder and the rest (device stages and glue).  Returns the (S = 1,
-    stacked, K2) launches derived for it (none)."""
+    coder and the rest (device stages and glue).  Float32, no K1Block: no
+    launch."""
     t0 = time.perf_counter()
-    derived = [0, 0, 0]
 
-    def run(label, want, fn):
+    def run(label, fn):
         with HostClock([pcodec]) as clock:
             out, ms, *n = counted(launch_log, label, fn)
-        expect(label, tuple(n), want)
-        for i in range(3):
-            derived[i] += want[i]
+        expect(label, tuple(n), NO_LAUNCHES)
         return out, ms, clock.rans_ms
 
     for h, w, seed, n_p in TCM_CASES:
-        launches = p_frame_launches("TCM", h, w)
         frames = [f + 0.5 for f in make_sequence(h, w, n_p + 1, seed, dev)]
         label = f"TCM {w}x{h}"
         seed_frame = run(f"{label} intra frame",
-                         compressai_launches("bmshj2018", h, w)[0],
                          lambda: intra.compress(frames[0]))[0]["x_hat"]
 
         def encode(i):
-            which = "first" if i == 1 else "later"
-            return run(f"{label} P frame {i} encode", launches[which][0],
+            return run(f"{label} P frame {i} encode",
                        lambda: pcodec.compress(frames[i]))
 
         def decode(i, stream):
-            which = "first" if i == 1 else "later"
-            return run(f"{label} P frame {i} decode", launches[which][1],
+            return run(f"{label} P frame {i} decode",
                        lambda: pcodec.decompress(stream, h, w))
 
         passes = []
@@ -2491,7 +2359,6 @@ def phase_tcm(dev, launch_log, intra, pcodec):
             f" psnr={psnr01(out['x_hat'], frames[3])} | {nvidia_smi()}")
     log(f"DCVC-TCM: every P frame bit-exact, final DPBs equal, encodes "
         f"repeatable, no kernel launched ({time.perf_counter() - t0:.3f} s)")
-    return tuple(derived)
 
 
 def phase_family_tcm(dev, launch_log):
@@ -2506,13 +2373,12 @@ def phase_family_tcm(dev, launch_log):
     converter: the runner's own P model (FamilyRunner("tcm")'s, in
     memory) written as a reference .pth.tar by save_reference, turned
     into params.v1 by import_cli.main, and family_main --model_path_p on
-    it: the same .bin bytes and numbers as the first run.  Returns the
-    (S = 1, stacked, K2) launches derived for it (none)."""
+    it: the same .bin bytes and numbers as the first run.  Float32, no
+    K1Block: no launch."""
     t0 = time.perf_counter()
     root = scratch_dir("tcm_family")
     n = TCM_FAMILY_FRAMES
     types = [0 if i % 4 == 0 else 1 for i in range(n)]
-    total = [0, 0, 0]
     try:
         cfg_path, seq = write_cli_inputs(root, dev, n, 19, 4, FM_FAMILY_H,
                                          FM_FAMILY_W)
@@ -2527,19 +2393,6 @@ def phase_family_tcm(dev, launch_log):
         out = {}
         for run in ("coded", "fast", "converted"):
             fast = run == "fast"
-            h, w = FM_FAMILY_H, FM_FAMILY_W
-            if fast:
-                h, w = -(-h // 64) * 64, -(-w // 64) * 64
-            i_enc, i_dec = compressai_launches("bmshj2018", h, w)
-            launches = p_frame_launches("TCM", h, w)
-            want = [0, 0, 0]
-            for i in range(n):
-                which = "first" if i % 4 == 1 else "later"
-                parts = ([i_enc] if fast else [i_enc, i_dec]) \
-                    if i % 4 == 0 else ([launches[f"{which} forward"]]
-                                        if fast else launches[which])
-                for part in parts:
-                    want = [a + b for a, b in zip(want, part)]
             out_dir = os.path.join(root, run)
             out_json = out_dir + ".json"
             argv = ["--model", "tcm", "--test_config", cfg_path, "--gop",
@@ -2550,8 +2403,7 @@ def phase_family_tcm(dev, launch_log):
             label = f"TCM family_main {run}"
             code, ms, *got = counted(launch_log, label,
                                      lambda: family_main.main(argv))
-            expect(label, tuple(got), tuple(want))
-            total = [a + b for a, b in zip(total, want)]
+            expect(label, tuple(got), NO_LAUNCHES)
             with open(out_json) as f:
                 results = json.load(f)["results"]
             result = results["Smoke"][seq]
@@ -2588,7 +2440,6 @@ def phase_family_tcm(dev, launch_log):
             f"s)")
     finally:
         shutil.rmtree(root)
-    return tuple(total)
 
 
 def write_cli_inputs(root, dev, frames=CLI_FRAMES, seed=8,
@@ -2892,7 +2743,7 @@ def phase_image_cli(dev, launch_log):
     equal.  Then image_main --i_frame_model evc, intra_noar, cheng2020 and
     bmshj2018 on the same PNGs (float32, --model_path: a params.v1 file of
     the legacy parts' weights, written by save_native): every image
-    bit-exact, exit code 0.
+    bit-exact, exit code 0 (float32, no K1Block: no launch).
     Returns the (S = 1, stacked, K2) launches derived for it."""
     t0 = time.perf_counter()
     root = scratch_dir("image")
@@ -2941,18 +2792,14 @@ def phase_image_cli(dev, launch_log):
                 (a["bpp"], a["psnr"]) != (b["bpp"], b["psnr"]) for a, b in
                 zip(res0["per_image"].values(), res1["per_image"].values())):
             raise AssertionError("image CLI: the device_ec run differs")
-        for model, weights, launches_of in (
+        for model, weights in (
                 ("evc", lambda: lifted_legacy_intra(EVCCodec.MODEL_CLS,
-                                                    EVC_CONFIG, 20),
-                 lambda h, w: legacy_launches(EVCCodec, EVC_CONFIG, h, w)),
+                                                    EVC_CONFIG, 20)),
                 ("intra_noar",
                  lambda: lifted_legacy_intra(IntraNoARCodec.MODEL_CLS,
-                                             INTRA_NOAR_CONFIG, 21),
-                 lambda h, w: legacy_launches(IntraNoARCodec,
-                                              INTRA_NOAR_CONFIG, h, w)),
+                                             INTRA_NOAR_CONFIG, 21)),
                 *[(name, lambda name=name: lifted_compressai(
-                    name, COMPRESSAI_CODECS[name][1], COMPRESSAI_SEEDS[name]),
-                   lambda h, w, name=name: compressai_launches(name, h, w))
+                    name, COMPRESSAI_CODECS[name][1], COMPRESSAI_SEEDS[name]))
                   for name in COMPRESSAI_CODECS]):
             path = os.path.join(root, f"{model}.bin")
             save_native(weights(), path)
@@ -2964,12 +2811,7 @@ def phase_image_cli(dev, launch_log):
             label = f"image CLI --i_frame_model {model}"
             rc, ms, *n = counted(launch_log, label,
                                  lambda: image_main.main(argv))
-            want = [0, 0, 0]
-            for h, w, _ in IMAGE_CASES:
-                for launches in launches_of(h, w):
-                    want = [a + b for a, b in zip(want, launches)]
-            expect(label, tuple(n), tuple(want))
-            derived = [a + b for a, b in zip(derived, want)]
+            expect(label, tuple(n), NO_LAUNCHES)
             with open(os.path.join(root, f"{model}.json")) as f:
                 result = json.load(f)
             if rc != 0 or len(result["per_image"]) != len(IMAGE_CASES) \
@@ -4269,12 +4111,16 @@ def main(argv=None):
                                                         launch_log)),
               ("mask decay", lambda: phase_mask_decay(dev))]
     got, want = {}, {}
+
+    def run_part(part, run):
+        zero_launch_counts()
+        derived = run()     # None: a legacy part, which launches nothing
+        want[part] = NO_LAUNCHES if derived is None else derived
+        got[part] = launch_counts()
     with launch_log:
         with k2_log:
             for part, run in parts:
-                zero_launch_counts()
-                want[part] = run()
-                got[part] = launch_counts()
+                run_part(part, run)
         # parts whose K2 calls are counted, not replayed
         counted_only = [
             ("CLI", lambda: phase_cli(dev, launch_log)),
@@ -4297,9 +4143,7 @@ def main(argv=None):
             ("entry points", lambda: phase_entry_points(dev, launch_log))]
         for part, run in counted_only:
             parts.append((part, None))
-            zero_launch_counts()
-            want[part] = run()
-            got[part] = launch_counts()
+            run_part(part, run)
     shutil.rmtree(surface)
     phase_traced(dmci, video["HTS"], dev)
     phase_complexity()

@@ -54,7 +54,7 @@ from ..models import common
 from ..models.dmc_ld import Wrap
 from ..runtime.video_codec import VideoCodecBase
 from ..utils.keys import key_fn_rt
-from ..utils.profiling import count, spanned
+from ..utils.profiling import spanned
 
 QP_SHIFT = [0, 8, 4]
 EXTRA_QP = max(QP_SHIFT)
@@ -95,8 +95,7 @@ class DepthConvBlockRT(K1Block):
     trunk, and an FFN whose 4C activation is split in two halves that are
     summed into ffn_out's 2C inputs.  The parameters keep UF's names
     (`adaptor`, `dc.0/2/3`, `ffn.0/2`).  Each call is a span `dcb.rt`
-    while torch.profiler is on, and each call that runs K1 adds 1 to the
-    counter `dcb.rt.k1`."""
+    while torch.profiler is on."""
 
     def __init__(self, in_ch, out_ch, shortcut=False, force_adaptor=False):
         super().__init__()
@@ -119,7 +118,6 @@ class DepthConvBlockRT(K1Block):
     @spanned("dcb.rt")
     def forward(self, x):
         if self.runs_k1(x):
-            count("dcb.rt.k1", 1)
             return fused_dcb(x.contiguous(), None, shortcut=self.shortcut,
                              ops=self._kernel_operands())
         if self.adaptor is not None:

@@ -57,13 +57,9 @@ decode at 1080p and 720p each, printing `profile`'s line per call
 DCVC-TCM's P-frame codecs at their published widths in float32
 (chip_smoke.py's weights: lifted_fm, lifted_hem, lifted_dc, lifted_tcm):
 a warm 1080p P frame's encode and decode, the DPB full, printing
-`profile`'s line per call (run_p_frame).  Their blocks are not K1's and
-they decode on the host, so they launch no kernel of the port
-(fm_stage_launches, hem_stage_launches, dc_stage_launches and
-tcm_stage_launches derive that from the models on the meta device); nor
-do the CompressAI intra codecs and DCVC-2021 (compressai_stage_launches,
-dcvc_stage_launches), whose weights chip_smoke.py lifts with
-lifted_compressai / lifted_dcvc.
+`profile`'s line per call (run_p_frame).  These legacy codecs launch no
+kernel of the port: float32, no K1Block, no K2 path
+(tests/test_torch_layers.py::test_legacy_models_launch_no_kernel).
 
 `train` builds each full-width training cell of TRAIN_CELLS (DMCI, LD,
 HTS, HTL at their published widths in float32, TF32 off), takes one warm
@@ -407,30 +403,7 @@ def rt_stage_launches(intra_cfg, p_cfg, h, w, dtype=torch.bfloat16):
     return dict(log.calls)
 
 
-# ------------------------------------------------------------------ K2
-
-def legacy_intra_launches(model_cls, cfg, h, w):
-    """The K1 launches of each stage of a legacy intra model (EVC or
-    IntraNoAR, float32 as their codecs run) on an (h, w) frame, from the
-    model itself: analysis, prior, spatial and synthesis on the meta
-    device, in runtime/evc_codec.py's order.  Their blocks are not K1's
-    (lrelu / ReLU FFNs), so every Counter is empty.  Returns {stage:
-    Counter of Launch}."""
-    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
-    log = LaunchLog()
-
-    def stage(name, fn, *args):
-        with log.call(name):
-            return fn(*args)
-    with torch.device("meta"), meta_launches(), log:
-        m = model_cls(cfg)
-        qs = torch.empty(())
-        y, z = stage("analysis", m.analysis, torch.empty(1, ph, pw, 3), qs)
-        q_step, scales, means = stage("prior", m.prior, z)
-        stage("spatial", m.spatial, y, q_step, scales, means)
-        stage("synthesis", m.synthesis, y, qs)
-    return dict(log.calls)
-
+# ----------------------------------------------- the legacy codecs' weights
 
 # The legacy intra codecs' seeded random weights on the card: the JAX
 # runner's init_scale 0.4, under which y and z are ~0.05 at full width
@@ -584,200 +557,6 @@ def lifted_hem(cfg, seed, lift=None):
     return m
 
 
-def fm_stage_launches(cfg, h, w, model_cls=None):
-    """The K1 launches of each stage of a DCVC-FM P frame (DMCFMCodec,
-    float32; DCVC-DC's with model_cls DMCDC, whose stages and forward
-    take FM's arguments) on an (h, w) frame, from the model itself: its stage methods
-    on the meta device in the codec's order, and the eval forward of the
-    family runner's estimated-bits mode (`forward`, on the frame padded
-    to 64), for the first P frame
-    after an intra frame (`first ...`, the DPB holding only the frame) and
-    a later one (`later ...`, the DPB full).  FM's blocks are LeakyReLU
-    FFNs, not K1's, and its codec decodes on the host, so every Counter
-    is empty.  Returns {stage: Counter of Launch}."""
-    from .core.padding import get_padding_size
-    from .legacy.dcvc_fm import DMCFM
-    pad_r, pad_b = get_padding_size(h, w, 32)
-    ph, pw = h + pad_b, w + pad_r
-    yh, yw = ph // 16, pw // 16
-    log = LaunchLog()
-    with torch.device("meta"), meta_launches(), log:
-        m = (model_cls or DMCFM)(cfg)
-        e = torch.empty
-        x = e(1, ph, pw, 3)
-        full = {"ref_feature": e(1, ph, pw, cfg.ch_1x),
-                "ref_mv_feature": e(1, ph // 4, pw // 4, cfg.ch_mv),
-                "ref_y": e(1, yh, yw, cfg.ch_16x),
-                "ref_mv_y": e(1, yh, yw, cfg.ch_mv)}
-        for which, dpb in (("first", dict.fromkeys(full)), ("later", full)):
-            def stage(name, fn, *args):
-                with log.call(f"{which} {name}"):
-                    return fn(*args)
-            mv_y, mv_z = stage("mv_analysis", m.mv_analysis, x, x,
-                               dpb["ref_mv_feature"], 0)
-            spctx = stage("mv_prior0", m.mv_prior0, mv_z, dpb["ref_mv_y"],
-                          yh, yw)[4]
-            for k in (1, 2, 3):
-                stage(f"mv_prior_step {k}", m.mv_prior_step, spctx, mv_y, k)
-            mv_hat = stage("mv_synthesis", m.mv_synthesis, mv_y, 0)[0]
-            c1, c2, c3 = stage("mc", m.mc, x, dpb["ref_feature"], 1, mv_hat)
-            y, z = stage("ctx_analysis", m.ctx_analysis, x, c1, c2, c3, 0)
-            spctx = stage("ctx_prior0", m.ctx_prior0, z, dpb["ref_y"], c3,
-                          yh, yw)[4]
-            for k in (1, 2, 3):
-                stage(f"ctx_prior_step {k}", m.ctx_prior_step, spctx, y, k)
-            stage("synthesis", m.synthesis, y, c1, c2, c3, 0)
-        # the eval forward takes the frame padded to 64
-        fh, fw = -(-h // 64) * 64, -(-w // 64) * 64
-        xf = e(1, fh, fw, 3)
-        for which, dpb in (("first", {}), ("later", {
-                "ref_feature": e(1, fh, fw, cfg.ch_1x),
-                "ref_mv_feature": e(1, fh // 4, fw // 4, cfg.ch_mv),
-                "ref_y": e(1, fh // 16, fw // 16, cfg.ch_16x),
-                "ref_mv_y": e(1, fh // 16, fw // 16, cfg.ch_mv)})):
-            with log.call(f"{which} forward"):
-                m(xf, {**dict.fromkeys(full), **dpb, "ref_frame": xf}, 0, 1)
-    return dict(log.calls)
-
-
-def dc_stage_launches(cfg, h, w):
-    """fm_stage_launches of DCVC-DC (DMCDCCodec, float32): its blocks are
-    FM's LeakyReLU FFNs and it decodes on the host, so every Counter is
-    empty."""
-    from .legacy.dcvc_dc import DMCDC
-    return fm_stage_launches(cfg, h, w, DMCDC)
-
-
-def hem_stage_launches(cfg, h, w):
-    """The K1 launches of each stage of a DCVC-HEM P frame (DMCHEMCodec,
-    float32) on an (h, w) frame, from the model itself: its stage methods
-    on the meta device in the codec's order (frames padded to 64), and
-    the eval forward of the family runner's estimated-bits mode, for the
-    first P frame after an intra frame (`first ...`) and a later one
-    (`later ...`).  HEM's blocks are lrelu / ReLU / SE convs, not K1's,
-    and it decodes on the host, so every Counter is empty.  Returns
-    {stage: Counter of Launch}."""
-    from .core.padding import get_padding_size
-    from .legacy.dcvc_hem import DMCHEM
-    pad_r, pad_b = get_padding_size(h, w, 64)
-    ph, pw = h + pad_b, w + pad_r
-    yh, yw = ph // 16, pw // 16
-    log = LaunchLog()
-    with torch.device("meta"), meta_launches(), log:
-        m = DMCHEM(cfg)
-        e = torch.empty
-        x, qs = e(1, ph, pw, 3), e(())
-        latents = {"ref_y": e(1, yh, yw, cfg.ch_m),
-                   "ref_mv_y": e(1, yh, yw, cfg.ch_mv)}
-        for which, feature in (("first", None),
-                               ("later", e(1, ph, pw, cfg.ch_n))):
-            def stage(name, fn, *args):
-                with log.call(f"{which} {name}"):
-                    return fn(*args)
-            mv_y, mv_z = stage("mv_analysis", m.mv_analysis, x, x, qs)
-            q_step, scales, means = stage("mv_prior", m.mv_prior, mv_z,
-                                          latents["ref_mv_y"])
-            stage("mv_spatial", m.mv_spatial, mv_y, q_step, scales, means)
-            mv_hat = stage("mv_synthesis", m.mv_synthesis, mv_y, qs)[1]
-            c1, c2, c3 = stage("mc", m.mc, x, feature, mv_hat)
-            y, z = stage("ctx_analysis", m.ctx_analysis, x, c1, c2, c3, qs)
-            q_step, scales, means = stage("ctx_prior", m.ctx_prior, z, c3,
-                                          latents["ref_y"])
-            stage("ctx_spatial", m.ctx_spatial, y, q_step, scales, means)
-            stage("synthesis", m.synthesis, y, c1, c2, c3, qs)
-            dpb = {"ref_frame": x, "ref_feature": feature,
-                   **(latents if feature is not None else
-                      dict.fromkeys(latents))}
-            with log.call(f"{which} forward"):
-                m(x, dpb, qs, qs)
-    return dict(log.calls)
-
-
-def tcm_stage_launches(cfg, h, w):
-    """The K1 launches of each stage of a DCVC-TCM P frame (DMCTCMCodec,
-    float32) on an (h, w) frame, from the model itself: its stage methods
-    on the meta device in the codec's order (frames padded to 64), and
-    the training forward of the family runner's estimated-bits mode, for
-    the first P frame after an intra frame (`first ...`, no feature in the
-    DPB) and a later one (`later ...`).  TCM's blocks are GDN / ResBlock
-    convs, not K1's, and it decodes on the host, so every Counter is
-    empty.  Returns {stage: Counter of Launch}."""
-    from .legacy.dcvc_tcm import DMCTCM
-    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
-    log = LaunchLog()
-    with torch.device("meta"), meta_launches(), log:
-        m = DMCTCM(cfg)
-        x = torch.empty(1, ph, pw, 3)
-        for which, feature in (("first", None),
-                               ("later", torch.empty(1, ph, pw, cfg.ch_n))):
-            def stage(name, fn, *args):
-                with log.call(f"{which} {name}"):
-                    return fn(*args)
-            mv_y, mv_z = stage("mv_analysis", m.mv_analysis, x, x)
-            stage("mv_prior", m.mv_prior, mv_z)
-            mv_hat = stage("mv_synthesis", m.mv_synthesis, mv_y)
-            ctx = stage("mc", m.mc, x, feature, mv_hat)
-            y, z = stage("ctx_analysis", m.ctx_analysis, x, *ctx)
-            stage("ctx_prior", m.ctx_prior, z, *ctx)
-            stage("synthesis", m.synthesis, y, *ctx)
-            stage("forward", m, x, x, feature)
-    return dict(log.calls)
-
-def dcvc_stage_launches(cfg, h, w):
-    """The K1 launches of each stage of a DCVC-2021 P frame (DCVCCodec,
-    float32) on an (h, w) frame, from the model itself: its stage methods
-    on the meta device in the codec's order (frames padded to 64; the AR
-    runs on the host between them), and the eval forward of the family
-    runner's estimated-bits mode.  DCVC's blocks are GDN / ReLU /
-    LeakyReLU convs, not K1's, and it decodes on the host, so every
-    Counter is empty.  Returns {stage: Counter of Launch}."""
-    from .legacy.dcvc_net import DCVCNet
-    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
-    yh, yw = ph // 16, pw // 16
-    log = LaunchLog()
-
-    def stage(name, fn, *args):
-        with log.call(name):
-            return fn(*args)
-    with torch.device("meta"), meta_launches(), log:
-        m = DCVCNet(cfg)
-        x = torch.empty(1, ph, pw, 3)
-        _, mv_z = stage("mv_analysis", m.mv_analysis, x, x)
-        stage("mv_prior", m.mv_prior, mv_z)
-        context = stage("mv_synthesis", m.mv_synthesis,
-                        torch.empty(1, yh, yw, cfg.ch_mv), x)[0]
-        _, z = stage("ctx_analysis", m.ctx_analysis, x, context)
-        stage("ctx_prior", m.ctx_prior, z)
-        stage("synthesis", m.synthesis, torch.empty(1, yh, yw, cfg.ch_m),
-              context)
-        stage("forward", m, x, x)
-    return dict(log.calls)
-
-
-def compressai_stage_launches(model_cls, cfg, h, w):
-    """The K1 launches of each stage of a CompressAI intra codec
-    (ScaleHyperprior or Cheng2020Anchor, float32) on an (h, w) frame, from
-    the model itself on the meta device: g_a, h_a, h_s, g_s (cheng2020's
-    AR runs on the host), and the estimation forward.  Their blocks are
-    GDN / residual convs, not K1's, and they decode on the host, so every
-    Counter is empty.  Returns {stage: Counter of Launch}."""
-    ph, pw = -(-h // 64) * 64, -(-w // 64) * 64
-    log = LaunchLog()
-
-    def stage(name, fn, *args):
-        with log.call(name):
-            return fn(*args)
-    with torch.device("meta"), meta_launches(), log:
-        m = model_cls(cfg)
-        x = torch.empty(1, ph, pw, 3)
-        y = stage("g_a", m.g_a, x)
-        z = stage("h_a", m.h_a, y)
-        stage("h_s", m.h_s, z)
-        stage("g_s", m.g_s, y)
-        stage("forward", m, x)
-    return dict(log.calls)
-
-
 # The DCVC-2021 P model's seeded random weights on the card: at the JAX
 # runner's init_scale 0.4 the GDN ladders leave mv_y ~1e-3 and y ~1e-2,
 # so every symbol codes as 0.  The last convs of the mv and contextual
@@ -894,6 +673,8 @@ def lifted_compressai(name, cfg, seed, lift=None):
         recon.bias.add_(lift["recon_bias"])
     return m
 
+
+# ------------------------------------------------------------------ K2
 
 class K2Call(NamedTuple):
     """One call of K2 on the main path, its inputs kept for a replay:

@@ -30,8 +30,7 @@ DPB seed's pad and unshuffle); host copies copy.start, wait.copy;
 entropy entropy.encode, entropy.upload, entropy.decode_z,
 entropy.decode_y; kernels k1.launch, k2.launch; blocks dcb.rt (a call of
 DCVC-RT's two-way DepthConvBlock, through K1 or as plain ops).  The
-counters: entropy.symbols, the z and y symbols coded by compress_finish;
-dcb.rt.k1, the dcb.rt calls that ran K1.
+counter: entropy.symbols, the z and y symbols coded by compress_finish.
 """
 
 import contextlib

@@ -6,8 +6,8 @@ bench.py, on the CPU at TINY_HT_CONFIG (float32).
   jnp's place) at a small (h, w).
 - The protocol constants, the metric name and the DCVC-RT baseline are
   bench.py's.
-- The core at TINY prints a last line of exactly bench.py's four keys
-  with value > 0; a decoder whose final DPB is perturbed prints value 0.0
+- The core at TINY prints a last line of exactly bench.py's four keys,
+  value and vs_baseline from the FPS of a stepping fake clock; a decoder whose final DPB is perturbed prints value 0.0
   with "error": "round-trip mismatch" and returns 1.
 - On a machine without a card, --device cuda raises (no CPU fallback).
 """
@@ -90,16 +90,25 @@ def _last_json(capsys):
     return json.loads(out[-1])
 
 
-def test_tiny_run_prints_the_json_line(capsys):
+def test_tiny_run_prints_the_json_line(capsys, monkeypatch):
+    """The clock the port's bench reads (time.perf_counter as
+    dcvc_tpu_torch/bench.py sees it) is a fake that steps by `step` at
+    each read, so each timed encode and decode takes `step` and the FPS is
+    known exactly."""
+    step = 3 * 2.0 ** -10         # its multiples add up without rounding
+    reads = iter(range(1, 1000))
+    monkeypatch.setattr(bench, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(reads) * step))
     rc, rec = bench.run_bench(TINY_HT_CONFIG, 32, 48, n_chunks=2, warmup=1,
                               iters=1, device="cpu")
     line = _last_json(capsys)
     assert rc == 0 and line == rec
     assert list(line) == ["metric", "value", "unit", "vs_baseline"]
     assert line["metric"] == "dmc_hts_1080p_encdec_fps"
-    assert line["unit"] == "fps" and line["value"] > 0
-    assert line["vs_baseline"] == round(line["value"] / bench.BASELINE_FPS,
-                                        4)
+    n = 2 * TINY_HT_CONFIG.frame_delay
+    fps = 1.0 / (step / n + step / n)
+    assert line["unit"] == "fps" and line["value"] == round(fps, 3) > 0
+    assert line["vs_baseline"] == round(fps / bench.BASELINE_FPS, 4)
 
 
 def test_broken_round_trip_zeroes_the_value(capsys, monkeypatch):

@@ -46,8 +46,7 @@ from dcvc_tpu_torch.entropy import compressai as ent
 from dcvc_tpu_torch.legacy import compressai_zoo as zoo
 from dcvc_tpu_torch.legacy.dcvc_net import Deconv
 from dcvc_tpu_torch.legacy.gdn import GDN
-from dcvc_tpu_torch.perf_probe import compressai_stage_launches, \
-    lifted_compressai
+from dcvc_tpu_torch.perf_probe import lifted_compressai
 from dcvc_tpu_torch.runtime import compressai_codec as codec
 from dcvc_tpu_torch.utils import keys
 from dcvc_tpu_torch.utils.jax_bridge import compressai_params_from_jax, \
@@ -242,14 +241,6 @@ def test_masked_conv_sees_only_decoded_neighbours():
         d = (m._masked_conv(y2) - m._masked_conv(y)).abs().amax(-1)[0]
     changed = {tuple(p) for p in torch.nonzero(d > 0).tolist()}
     assert changed and all((r, c) > (3, 4) for r, c in changed)
-
-
-def test_stage_launches_are_zero():
-    for cls, cfg in ((zoo.ScaleHyperprior, zoo.BMSHJ2018_Q1_5),
-                     (zoo.Cheng2020Anchor, zoo.CHENG2020_Q1_3)):
-        launches = compressai_stage_launches(cls, cfg, 1080, 1920)
-        assert set(launches) == {"g_a", "h_a", "h_s", "g_s", "forward"}
-        assert all(sum(c.values()) == 0 for c in launches.values())
 
 
 # ------------------------------------------------------------ the codecs

@@ -349,8 +349,8 @@ def test_cuda_two_way_block_matches_plain(cuda_device, h, w, cin, c,
 def test_cuda_rt_frame_runs_every_two_way_block_through_k1(cuda_device):
     """One 1080p RT P frame in bf16 (RT_CONFIG, encoded then decoded from
     a seeded DPB, under torch.profiler): every two-way block call runs K1
-    (the counter dcb.rt.k1 equals the dcb.rt spans, and K1's launches
-    grow by as many), and the decoder's DPB equals the encoder's."""
+    (K1's launches grow by as many as there are dcb.rt spans), and the
+    decoder's DPB equals the encoder's."""
     from torch.profiler import ProfilerActivity, profile
     from dcvc_tpu_torch.legacy.dcvc_rt import DMCRTCodec, RT_CONFIG
     from dcvc_tpu_torch.perf_probe import smooth_frame
@@ -379,7 +379,6 @@ def test_cuda_rt_frame_runs_every_two_way_block_through_k1(cuda_device):
         profiling.reset()
     spans = sum(s[0] == "dcb.rt" for s in rec["spans"])
     assert spans > 40
-    assert rec["counters"]["dcb.rt.k1"] == spans
     assert K1.fused_dcb.launches - launches == spans
     assert torch.equal(codec.ref_feature, dpb)
 

@@ -17,8 +17,6 @@ seed).
   a reference .pth.tar synthesised through key_fn_dcvc (ConvTranspose2d
   weights in torch's layout, the z priors as per-layer Bitparm tensors,
   the masked convs' `.mask` buffers) loads through from_reference.
-- The stage launch derivation (perf_probe.dcvc_stage_launches) gives no
-  K1 launch.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -36,7 +34,7 @@ from dcvc_tpu.legacy import dcvc_net as jnet
 from dcvc_tpu.utils import torch_import as jkeys
 from dcvc_tpu.utils.checkpoint import load_params, save_params
 from dcvc_tpu_torch.legacy import dcvc_net
-from dcvc_tpu_torch.perf_probe import dcvc_stage_launches, lifted_dcvc
+from dcvc_tpu_torch.perf_probe import lifted_dcvc
 from dcvc_tpu_torch.utils import keys
 from dcvc_tpu_torch.utils.jax_bridge import dcvc_params_from_jax, \
     dcvc_params_to_jax, load_into, load_native_into, save_native
@@ -179,14 +177,6 @@ def test_laplace_bits_sum_matches_jax():
     sigma = np.exp(rng.uniform(-14, 4, v.shape)).astype(np.float32)
     _close(dcvc_net.laplace_bits_sum(_t(v), _t(sigma)),
            jnet.laplace_bits_sum(v, sigma))
-
-
-def test_stage_launches_are_zero():
-    launches = dcvc_stage_launches(dcvc_net.DCVC_CONFIG, 1080, 1920)
-    assert set(launches) == {"mv_analysis", "mv_prior", "mv_synthesis",
-                             "ctx_analysis", "ctx_prior", "synthesis",
-                             "forward"}
-    assert all(sum(c.values()) == 0 for c in launches.values())
 
 
 # ------------------------------------------------------------ the weights

@@ -22,8 +22,6 @@ on the CPU, on the same weights and inputs (made from a numpy seed).
   (ConvTranspose2d weights in torch's layout, the z priors as per-layer
   Bitparm tensors) loads through from_reference, and the JAX importer
   reads it into the same flax tree.
-- The stage launch derivation (perf_probe.tcm_stage_launches) gives no
-  K1 launch.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -40,8 +38,7 @@ from dcvc_tpu.legacy import dcvc_tcm as jtcm
 from dcvc_tpu.utils import torch_import as jkeys
 from dcvc_tpu.utils.checkpoint import load_params, save_params
 from dcvc_tpu_torch.legacy import dcvc_tcm
-from dcvc_tpu_torch.perf_probe import TCM_LIFT, lifted_tcm, \
-    tcm_stage_launches
+from dcvc_tpu_torch.perf_probe import TCM_LIFT, lifted_tcm
 from dcvc_tpu_torch.utils import keys
 from dcvc_tpu_torch.utils.jax_bridge import load_into, load_native_into, \
     save_native, tcm_params_from_jax, tcm_params_to_jax
@@ -156,15 +153,6 @@ def test_forward_matches_jax(pair, has_feature):
         _close(got[k], want[k])
     for k in ("bpp_y", "bpp_z", "bpp_mv_y", "bpp_mv_z"):
         assert float(got[k][0]) > 1e-3, k
-
-
-def test_stage_launches_are_zero():
-    launches = tcm_stage_launches(dcvc_tcm.TCM_CONFIG, 1080, 1920)
-    stages = ("mv_analysis", "mv_prior", "mv_synthesis", "mc",
-              "ctx_analysis", "ctx_prior", "synthesis", "forward")
-    assert set(launches) == {f"{which} {s}" for which in ("first", "later")
-                             for s in stages}
-    assert all(sum(c.values()) == 0 for c in launches.values())
 
 
 # ------------------------------------------------------------ the weights

@@ -7,6 +7,8 @@ Tolerance atol = rtol = 2e-5, the JAX package's own bound for the fused
 kernel against the XLA path (tests/test_fused_dcb.py): the same f32 sums
 taken in another order.  The CUDA kernel itself is compared with its plain
 version on the card by tests/test_torch_cuda.py and by chip_smoke.py.
+The legacy float32 models hold no K1Block and their codecs have no K2
+path, so they launch no kernel of the port.
 """
 
 import torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -23,6 +25,11 @@ from dcvc_tpu.kernels.fused_dcb import \
 from dcvc_tpu.layers import blocks as jblocks
 from dcvc_tpu_torch.kernels import fused_dcb as K1
 from dcvc_tpu_torch.layers import blocks
+from dcvc_tpu_torch.legacy import compressai_zoo, dcvc_dc, dcvc_fm, \
+    dcvc_hem, dcvc_net, dcvc_tcm, evc, hem_intra
+from dcvc_tpu_torch.runtime import compressai_codec, dc_codec, dcvc_codec, \
+    evc_codec, fm_codec, hem_codec, tcm_codec
+from dcvc_tpu_torch.runtime.image_codec import EntropyDecoder
 from dcvc_tpu_torch.utils.jax_bridge import dmci_params_from_jax, \
     stacked_dcb_params_from_jax
 
@@ -305,3 +312,35 @@ def test_busy_ms_is_the_union_of_intervals():
     from dcvc_tpu_torch.perf_probe import busy_ms
     assert busy_ms([]) == 0.0
     assert busy_ms([(30, 40), (0, 10), (5, 20), (12, 15)]) == 0.03
+
+
+
+LEGACY_MODELS = [
+    (evc.EVC, evc.EVC_CONFIG, evc_codec.EVCCodec),
+    (hem_intra.IntraNoAR, hem_intra.INTRA_NOAR_CONFIG,
+     evc_codec.IntraNoARCodec),
+    (dcvc_fm.DMCFM, dcvc_fm.FM_CONFIG, fm_codec.DMCFMCodec),
+    (dcvc_dc.DMCDC, dcvc_dc.DC_CONFIG, dc_codec.DMCDCCodec),
+    (dcvc_hem.DMCHEM, dcvc_hem.HEM_CONFIG, hem_codec.DMCHEMCodec),
+    (dcvc_tcm.DMCTCM, dcvc_tcm.TCM_CONFIG, tcm_codec.DMCTCMCodec),
+    (dcvc_net.DCVCNet, dcvc_net.DCVC_CONFIG, dcvc_codec.DCVCCodec),
+    (compressai_zoo.ScaleHyperprior, compressai_zoo.BMSHJ2018_Q1_5,
+     compressai_codec.HyperpriorCodec),
+    (compressai_zoo.Cheng2020Anchor, compressai_zoo.CHENG2020_Q1_3,
+     compressai_codec.Cheng2020Codec),
+]
+
+
+@pytest.mark.parametrize("model,cfg,codec", LEGACY_MODELS,
+                         ids=[m.__name__ for m, _, _ in LEGACY_MODELS])
+def test_legacy_models_launch_no_kernel(model, cfg, codec):
+    """The legacy float32 codecs launch no kernel of the port, by
+    construction: at its published config the model holds no K1Block
+    (the class every K1 route goes through), and its codec is not an
+    EntropyDecoder (the only class with a K2 path)."""
+    with torch.device("meta"):
+        m = model(cfg)
+    assert not [k for k, mod in m.named_modules()
+                if isinstance(mod, blocks.K1Block)]
+    assert getattr(codec, "MODEL_CLS", model) is model
+    assert not issubclass(codec, EntropyDecoder)

@@ -557,9 +557,8 @@ def test_two_way_block_path_choice(device, dtype, batch, cin, c, want):
     """K1 takes a two-way block where UF's blocks take it (bf16 off the CPU
     at batch 1: the meta device stands for the card) and its channel
     counts are multiples of 16; everything else runs the plain ops.  A
-    call that runs K1 launches its two-plane form once, and counts 1 in
-    `dcb.rt.k1` inside its `dcb.rt` span; one that does not counts
-    nothing."""
+    call that runs K1 launches its two-plane form once inside its `dcb.rt`
+    span; one that does not launches nothing."""
     from torch.profiler import ProfilerActivity, profile
     from dcvc_tpu_torch.perf_probe import LaunchLog, meta_launches
     from dcvc_tpu_torch.utils import profiling
@@ -579,7 +578,6 @@ def test_two_way_block_path_choice(device, dtype, batch, cin, c, want):
     assert out.shape == (batch, 4, 8, c) and out.dtype == dtype
     # (meta_launches' stand-in for the launch opens no k1.launch span)
     assert [s[0] for s in rec["spans"]] == ["dcb.rt"]
-    assert rec["counters"].get("dcb.rt.k1", 0) == int(want)
     launches = dict(log.calls)["block"]
     assert sum(launches.values()) == int(want)
     assert all(k.planes == 2 and k.inner == c for k in launches)
@@ -587,7 +585,7 @@ def test_two_way_block_path_choice(device, dtype, batch, cin, c, want):
 
 def test_two_way_counter_is_zero_on_the_cpu():
     """A bf16 RT P frame on the CPU (TINY_RT_CONFIG) runs every two-way
-    block plain: `dcb.rt` spans, no `dcb.rt.k1` count and no K1 launch."""
+    block plain: `dcb.rt` spans and no K1 launch."""
     from torch.profiler import ProfilerActivity, profile
     from dcvc_tpu_torch.kernels import fused_dcb as K1
     from dcvc_tpu_torch.utils import profiling
@@ -606,5 +604,4 @@ def test_two_way_counter_is_zero_on_the_cpu():
     finally:
         profiling.reset()
     assert sum(s[0] == "dcb.rt" for s in rec["spans"]) > 20
-    assert rec["counters"].get("dcb.rt.k1", 0) == 0
     assert K1.fused_dcb.launches == launches
